@@ -12,13 +12,20 @@ Phases, in order; any failure exits non-zero before the result line:
 3. compare: each kernel against its plain PyTorch version on the card —
    B1 (fused Bayes update) within the tolerances of the JAX package's own
    kernel test (atol 1e-4 on log-weights and log_norm, rtol 1e-3 on ESS),
-   B2 (systematic expand) bit for bit.
+   for the flagship tile and for each of the ten tiles of ``ZOO`` at
+   n ∈ {1000, 2^20 + 3, 2^20}; B2 (systematic expand) bit for bit at
+   D ∈ {1, 2, 3}.
 4. main path: ``SMCUpdater`` with 2^20 particles on ``SimplePrecessionModel``
    and the Liu–West resampler, one warm-up window and three timed windows,
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
    every window must pass the bench's accuracy gate, and both kernels'
    launch counters must have moved during the timed windows.
-5. timing: each kernel against its plain version at 2^20, with CUDA events.
+5. config paths: BASELINE configs 2–4 (``CONFIGS``) the same way at 2^20,
+   each window gated by its example's accuracy check; B1 must launch
+   exactly once per update and B2 at least once per resample. One JSON
+   line per config.
+6. timing: each kernel against its plain version at 2^20, with CUDA
+   events: B1 with the flagship tile and with every tile of ``ZOO``, B2.
 
 The last two lines are the kernel table and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -29,6 +36,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -44,6 +52,139 @@ N_EXP = 100
 TRUE_OMEGA = 0.70710678
 GATE = 0.05
 B1_TOL = {"lw_atol": 1e-4, "log_norm_atol": 1e-4, "ess_rtol": 1e-3}
+
+
+@dataclass(frozen=True)
+class Config:
+    """One BASELINE config path: model, prior box, record and gate. The
+    gate holds |est − truth| < 6σ + slack on ``coords`` (sorted first when
+    ``sort``: MultiCos is symmetric under relabelling)."""
+
+    name: str
+    model: object
+    prior: tuple
+    outcomes: np.ndarray
+    expparams: dict
+    truth: tuple
+    slack: float
+    coords: tuple
+    sort: bool = False
+
+    def gate(self, mean, cov):
+        mean = np.asarray(mean, np.float64)
+        sd = np.sqrt(np.clip(np.diag(np.asarray(cov, np.float64)), 0, None))
+        truth = np.asarray(self.truth, np.float64)
+        if self.sort:
+            order = np.argsort(mean)
+            mean, sd, truth = mean[order], sd[order], np.sort(truth)
+        c = list(self.coords)
+        return bool(np.all(np.abs(mean[c] - truth[c]) < 6 * sd[c]
+                           + self.slack)), mean, sd
+
+
+def config2_binomial_precession():
+    """bench_configs.py:127-143; gate of examples/config2 (6σ + 1e-3)."""
+    rng = np.random.default_rng(0)
+    ts = np.minimum((9 / 8) ** np.arange(24), 1e2).astype(np.float32)
+    counts = rng.binomial(40, 1 - np.cos(0.5 * 0.62 * ts) ** 2)
+    return Config("config2_binomial_precession",
+                  qt.BinomialModel(qt.SimplePrecessionModel()), ((0, 1),),
+                  counts.astype(np.int32),
+                  {"t": ts, "n_meas": np.full(24, 40, np.int32)},
+                  (0.62,), 1e-3, (0,))
+
+
+def config3_binomial_rb():
+    """bench_configs.py:162-175, the 9-length record tiled to 27 updates;
+    gate of examples/config3 on p (6σ + 1e-2)."""
+    rng = np.random.default_rng(0)
+    ms = np.array([1, 2, 4, 8, 16, 32, 64, 128, 256], np.int32)
+    counts = 300 - rng.binomial(300, 0.45 * 0.97 ** ms + 0.5)
+    return Config("config3_binomial_rb",
+                  qt.BinomialModel(qt.RandomizedBenchmarkingModel()),
+                  ((0.85, 1.0), (0.2, 0.6), (0.3, 0.55)),
+                  np.tile(counts, 3).astype(np.int32),
+                  {"m": np.tile(ms, 3), "n_meas": np.full(27, 300, np.int32)},
+                  (0.97, 0.45, 0.5), 1e-2, (0,))
+
+
+def config4_multicos2():
+    """examples/config4 multicos: Dirichlet-split exp-sparse times, 150
+    experiments, outcomes drawn with numpy; gate 6σ + 2e-2 on the sorted
+    mean."""
+    rng = np.random.default_rng(0)
+    ts = np.stack([min((9 / 8) ** (k // 2), 300.0) * rng.dirichlet([1, 1])
+                   for k in range(150)]).astype(np.float32)
+    p0 = np.cos(0.5 * ts.astype(np.float64) @ np.array([0.35, 0.75])) ** 2
+    return Config("config4_multicos2", qt.MultiCosModel(n_terms=2),
+                  ((0, 1), (0, 1)), (rng.random(150) >= p0).astype(np.int32),
+                  {"ts": ts}, (0.35, 0.75), 2e-2, (0, 1), sort=True)
+
+
+def config4_known_t2():
+    """examples/config4 known-T2 (T2 = 100, ω = 0.44) at the fixed
+    exp-sparse times t = min((9/8)^k, 1e3) in place of the PGH loop;
+    gate 6σ + 5e-3."""
+    rng = np.random.default_rng(0)
+    ts = np.minimum((9 / 8) ** np.arange(100), 1e3).astype(np.float32)
+    t = ts.astype(np.float64)
+    p0 = (np.exp(-t / 100) * np.cos(0.5 * 0.44 * t) ** 2
+          + 0.5 * (1 - np.exp(-t / 100)))
+    return Config("config4_known_t2", qt.KnownT2PrecessionModel(t2=100.0),
+                  ((0, 1),), (rng.random(100) >= p0).astype(np.int32),
+                  {"t": ts}, (0.44,), 5e-3, (0,))
+
+
+CONFIGS = (config2_binomial_precession, config3_binomial_rb,
+           config4_multicos2, config4_known_t2)
+
+# B1's tile zoo: the ten non-tomography cases of tests/test_pallas_ops.py
+# (name, model, prior box, outcome, expparams of one experiment, line of
+# the JAX tile in qinfer_tpu/ops/fused_update.py).
+ZOO = (
+    ("multicos", qt.MultiCosModel(n_terms=2), ((0, 1), (0, 1)), 1,
+     {"ts": [[1.3, 0.4]]}, 286),
+    ("known_t2", qt.KnownT2PrecessionModel(t2=30.0), ((0, 1),), 0,
+     {"t": [7.0]}, 299),
+    ("rb", qt.RandomizedBenchmarkingModel(),
+     ((0.8, 1.0), (0.2, 0.5), (0.3, 0.5)), 1, {"m": [32]}, 311),
+    ("binomial_precession", qt.BinomialModel(qt.SimplePrecessionModel()),
+     ((0, 1),), 11, {"t": [2.0], "n_meas": [40]}, 259),
+    ("binomial_rb", qt.BinomialModel(qt.RandomizedBenchmarkingModel()),
+     ((0.8, 1.0), (0.2, 0.5), (0.3, 0.5)), 210,
+     {"m": [16], "n_meas": [300]}, 259),
+    ("rb_interleaved", qt.RandomizedBenchmarkingModel(interleaved=True),
+     ((0.8, 1.0), (0.8, 1.0), (0.2, 0.5), (0.3, 0.5)), 1,
+     {"m": [24], "reference": [0]}, 319),
+    ("rb_interleaved_ref", qt.RandomizedBenchmarkingModel(interleaved=True),
+     ((0.8, 1.0), (0.8, 1.0), (0.2, 0.5), (0.3, 0.5)), 0,
+     {"m": [24], "reference": [1]}, 319),
+    ("inversion", qt.SimpleInversionModel(), ((0, 1),), 0,
+     {"w_": [0.3], "t": [4.0]}, 330),
+    ("coin", qt.CoinModel(), ((0, 1),), 1, {"dummy": [0.0]}, 336),
+    ("noisy_coin", qt.NoisyCoinModel(), ((0, 1),), 0,
+     {"alpha": [0.9], "beta": [0.1]}, 342),
+)
+# The tile each config path runs.
+CONFIG_TILE = {"config2_binomial_precession": "binomial_precession",
+               "config3_binomial_rb": "binomial_rb",
+               "config4_multicos2": "multicos",
+               "config4_known_t2": "known_t2"}
+
+
+def zoo_inputs(case, n, seed, device):
+    """(tile, scalars, log_w, cols) of a ZOO case on a bank drawn from
+    its prior box."""
+    _, model, box, outcome, ep, _ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.tensor([b[0] for b in box], device=device)
+    hi = torch.tensor([b[1] for b in box], device=device)
+    locs = lo + (hi - lo) * torch.rand((n, len(box)), generator=g,
+                                       device=device)
+    lw = torch.log(torch.rand(n, generator=g, device=device))
+    ep = {k: torch.tensor(v, device=device) for k, v in ep.items()}
+    tile, scal, cols = model.fused_spec(outcome, locs, ep)
+    return tile, scal, lw - torch.logsumexp(lw, 0), cols
 
 
 def experiment_record(n_exp, seed):
@@ -82,6 +223,26 @@ def _b1_inputs(n, seed, device):
     return omega, lw - torch.logsumexp(lw, 0)
 
 
+def _b1_check(label, tile, scal, lw, cols):
+    """Kernel against plain on one input; raises on disagreement and
+    returns the larger of max |Δ lw| and |Δ log_norm|."""
+    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
+    lw_p = lw_p - lse_p
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(lw_k - lw_p)))
+    ln_err = abs(float(ln_k) - float(lse_p))
+    ess_rel = abs(float(ess_k) / float(ess_p) - 1.0)
+    ok = (err <= B1_TOL["lw_atol"] and ln_err <= B1_TOL["log_norm_atol"]
+          and ess_rel <= B1_TOL["ess_rtol"]
+          and bool(torch.isfinite(lw_k).all()))
+    print(f"B1 {label}: max|dlw|={err:.3g} |dlog_norm|={ln_err:.3g}"
+          f" ess_rel={ess_rel:.3g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"B1 disagrees with its plain version: {label}")
+    return max(err, ln_err)
+
+
 def phase_compare_b1(device):
     tile = b1.two_outcome_tile(b1.precession_pr1)
     worst = 0.0
@@ -90,26 +251,19 @@ def phase_compare_b1(device):
         for outcome in (0, 1):
             for t in (2.0, 17.3):
                 scal = torch.tensor([float(outcome), t], device=device)
-                lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw,
-                                                          (omega,))
-                lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw,
-                                                              (omega,))
-                lw_p = lw_p - lse_p
-                torch.cuda.synchronize()
-                err = float(torch.max(torch.abs(lw_k - lw_p)))
-                ln_err = abs(float(ln_k) - float(lse_p))
-                ess_rel = abs(float(ess_k) / float(ess_p) - 1.0)
-                ok = (err <= B1_TOL["lw_atol"]
-                      and ln_err <= B1_TOL["log_norm_atol"]
-                      and ess_rel <= B1_TOL["ess_rtol"]
-                      and bool(torch.isfinite(lw_k).all()))
-                print(f"B1 n={n} outcome={outcome} t={t}: max|dlw|={err:.3g}"
-                      f" |dlog_norm|={ln_err:.3g} ess_rel={ess_rel:.3g}"
-                      f" {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"B1 disagrees with its plain "
-                                         f"version at n={n}")
-                worst = max(worst, err, ln_err)
+                worst = max(worst, _b1_check(
+                    f"n={n} outcome={outcome} t={t}", tile, scal, lw,
+                    (omega,)))
+    return worst
+
+
+def phase_compare_zoo(device):
+    """Every ZOO tile against its plain version; worst error per tile."""
+    worst = {}
+    for case in ZOO:
+        worst[case[0]] = max(
+            _b1_check(f"{case[0]} n={n}", *zoo_inputs(case, n, n, device))
+            for n in (1000, N_FLAGSHIP + 3, N_FLAGSHIP))
     return worst
 
 
@@ -130,7 +284,7 @@ def phase_compare_b2(device):
     worst = 0.0
     rng = np.random.default_rng(0)
     for n in (257, 16385, N_FLAGSHIP):
-        for d in (1, 3):
+        for d in (1, 2, 3):
             vals = torch.as_tensor(rng.standard_normal((n, d)),
                                    dtype=torch.float32, device=device)
             mu = torch.as_tensor(rng.standard_normal(d), dtype=torch.float32,
@@ -200,6 +354,69 @@ def phase_main_path(device):
     return launches
 
 
+def _config_window(cfg, seed, device):
+    updater = qt.SMCUpdater(cfg.model, N_FLAGSHIP,
+                            qt.UniformDistribution(cfg.prior),
+                            zero_weight_policy="reset", seed=seed,
+                            device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    updater.batch_update(cfg.outcomes, cfg.expparams)
+    mean = updater.est_mean().cpu().numpy()  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    cov = updater.est_covariance_mtx().cpu().numpy()
+    locs = updater.particle_locations
+    d = cfg.model.n_modelparams
+    if locs.shape != (N_FLAGSHIP, d) or not bool(torch.isfinite(locs).all()):
+        raise AssertionError(f"{cfg.name}: posterior cloud is not finite of "
+                             f"shape (2^20, {d})")
+    ok, est, sd = cfg.gate(mean, cov)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: accuracy gate failed: est={est} "
+                             f"sd={sd} truth={cfg.truth}")
+    return seconds, est.tolist(), sd.tolist(), updater.resample_count
+
+
+def phase_configs(device):
+    """Each config path: a warm-up window, then three timed windows with
+    every counter set to 0 just before them and read just after."""
+    launches = {}
+    for make in CONFIGS:
+        cfg = make()
+        n_upd = len(cfg.outcomes)
+        _config_window(cfg, 10_000, device)  # warm-up
+        b1.fused_bayes_update.launches = 0
+        b2.expand_sorted_segments.launches = 0
+        qt.LiuWestResampler.redraw_rounds = 0
+        windows = [_config_window(cfg, 1000 * (w + 1), device)
+                   for w in range(3)]
+        counts = {"B1": b1.fused_bayes_update.launches,
+                  "B2": b2.expand_sorted_segments.launches}
+        rounds = qt.LiuWestResampler.redraw_rounds
+        n_resamples = [w[3] for w in windows]
+        if counts["B1"] != 3 * n_upd:
+            raise AssertionError(f"{cfg.name}: B1 launched {counts['B1']} "
+                                 f"times, expected one per update "
+                                 f"({3 * n_upd})")
+        if sum(n_resamples) == 0 or counts["B2"] < sum(n_resamples):
+            raise AssertionError(f"{cfg.name}: B2 launched {counts['B2']} "
+                                 f"times for {sum(n_resamples)} resamples")
+        secs = [w[0] for w in windows]
+        print(json.dumps({"config": cfg.name, "n_particles": N_FLAGSHIP,
+                          "n_updates": n_upd,
+                          "particle_updates_per_s":
+                              N_FLAGSHIP * n_upd / statistics.median(secs),
+                          "window_s": secs, "n_resamples": n_resamples,
+                          "redraw_rounds": rounds,
+                          "redraw_rounds_per_resample":
+                              rounds / sum(n_resamples),
+                          "est": [w[1] for w in windows],
+                          "sd": [w[2] for w in windows],
+                          "launches": counts}))
+        launches[cfg.name] = counts
+    return launches
+
+
 def _time_ms(fn, iters):
     """Device time per call. A device-side sleep queued first lets the host
     enqueue every call before the device starts them, so the events time
@@ -254,6 +471,23 @@ def phase_timing(device):
     return times
 
 
+def phase_timing_zoo(device):
+    """B1 with each ZOO tile at 2^20, kernel against plain."""
+    times = {}
+    for case in ZOO:
+        tile, scal, lw, cols = zoo_inputs(case, N_FLAGSHIP, 7, device)
+
+        def plain():
+            lw_u, lse, _, ess = b1.fused_update_plain(tile, scal, lw, cols)
+            return lw_u - lse, lse, ess
+
+        times[case[0]] = _alternate(
+            plain, lambda: b1.fused_bayes_update(tile, scal, lw, cols))
+    print(json.dumps({"b1_tile_ms_at_2^20": {
+        name: {"ms": k, "plain_ms": p} for name, (k, p) in times.items()}}))
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -264,8 +498,11 @@ def main():
     phase_device()
     phase_build()
     err = {"B1": phase_compare_b1(device), "B2": phase_compare_b2(device)}
+    zoo_err = phase_compare_zoo(device)
     launches = phase_main_path(device)
+    config_launches = phase_configs(device)
     times = phase_timing(device)
+    zoo_times = phase_timing_zoo(device)
     replaces = {"B1": "qinfer_tpu/ops/fused_update.py:36",
                 "B2": "qinfer_tpu/ops/resample_expand.py:115"}
     names = {"B1": "fused_bayes_update", "B2": "expand_sorted_segments"}
@@ -277,6 +514,15 @@ def main():
          "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1]}
         for k in ("B1", "B2")
     ]
+    tile_line = {case[0]: case[5] for case in ZOO}
+    for cfg_name, tile in CONFIG_TILE.items():
+        kernels.append({
+            "name": f"fused_bayes_update[{tile}]", "route": "cuda",
+            "source": sources["B1"],
+            "replaces": f"qinfer_tpu/ops/fused_update.py:{tile_line[tile]}",
+            "launches": config_launches[cfg_name]["B1"],
+            "max_abs_err": zoo_err[tile], "ms": zoo_times[tile][0],
+            "plain_ms": zoo_times[tile][1]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,13 +5,31 @@ NVIDIA Hopper (H100). Module names mirror ``qinfer_tpu`` so each
 counterpart is easy to find. This package holds the main path:
 ``SimplePrecessionModel`` with a ``UniformDistribution`` prior, the fused
 Bayes update (kernel B1), the ESS check and the Liu–West resample with the
-systematic expand (kernel B2), driven by ``SMCUpdater.batch_update``.
-It imports ``torch`` and never ``jax``.
+systematic expand (kernel B2), driven by ``SMCUpdater.batch_update``; and
+the model zoo of BASELINE configs 2–4 (``BinomialModel``,
+``RandomizedBenchmarkingModel``, ``MultiCosModel``,
+``KnownT2PrecessionModel`` and the other two-outcome test models), each
+with its likelihood tile in B1. It imports ``torch`` and never ``jax``.
 """
 
 from ._exceptions import ApproximationWarning
 from .distributions import Distribution, ParticleDistribution, UniformDistribution
-from .models import FiniteOutcomeModel, Model, SimplePrecessionModel, Simulatable
+from .models import (
+    BinomialModel,
+    CoinModel,
+    DerivedModel,
+    DifferentiableBinomialModel,
+    FiniteOutcomeModel,
+    KnownT2PrecessionModel,
+    Model,
+    MultiCosModel,
+    NoisyCoinModel,
+    RandomizedBenchmarkingModel,
+    SimpleInversionModel,
+    SimplePrecessionModel,
+    Simulatable,
+    rb,
+)
 from .resamplers import LiuWestResampler, Resampler
 from .smc import (
     SMCConfig,
@@ -27,6 +45,9 @@ __all__ = [
     "ApproximationWarning",
     "Distribution", "ParticleDistribution", "UniformDistribution",
     "Simulatable", "Model", "FiniteOutcomeModel", "SimplePrecessionModel",
+    "SimpleInversionModel", "CoinModel", "NoisyCoinModel", "MultiCosModel",
+    "KnownT2PrecessionModel", "DerivedModel", "BinomialModel",
+    "DifferentiableBinomialModel", "RandomizedBenchmarkingModel", "rb",
     "Resampler", "LiuWestResampler",
     "SMCConfig", "SMCState", "SMCUpdater", "init_smc_state",
     "smc_update_step", "smc_batch_update",

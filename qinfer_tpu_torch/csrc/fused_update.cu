@@ -7,9 +7,9 @@
 //     lse  = log Σ exp(lw),   lse2 = log Σ exp(2·lw),   ess = exp(2·lse − lse2)
 //
 // What bounds it on this card: memory. Per particle it reads log_w and one
-// parameter column and writes lw: 12 bytes, about 4 µs for 2^20 particles at
-// 3.35 TB/s; the cos/log/exp per element are far below the SMs' rate. At
-// that size the two launches cost as much as the traffic.
+// to four parameter columns and writes lw: 12 to 24 bytes, 4 to 8 µs for
+// 2^20 particles at 3.35 TB/s; the cos/log/exp per element are far below the
+// SMs' rate. At that size the two launches cost as much as the traffic.
 //
 // Design. The TPU kernel walks a sequential grid and carries (m, s, m2, s2)
 // across steps in SMEM; Hopper blocks run in parallel and in no order, so:
@@ -24,10 +24,17 @@
 // being padded. `scalars` stays a device pointer (the TPU kernel's SMEM ref),
 // so the caller feeds the outcome and t without a host sync.
 //
-// The likelihood is a device functor; PrecessionTwoOutcomeTile is
-// two_outcome_tile(precession_pr1) (fused_update.py:247-256, 280-283). Its
-// products are rounded one by one (no FMA contraction), as the plain
-// PyTorch version of the same function computes them.
+// The likelihood is a device functor: an outcome composition over a pr1
+// functor, the tiles of fused_update.py:247-344. TwoOutcome<Pr1> is
+// two_outcome_tile (:247), Binomial<Pr1> is binomial_tile (:259, log C(n,k)
+// comes in `scalars`, computed on the device by the wrapper); the pr1
+// functors are precession (:280), multicos (:286), known-T2 (:299), RB
+// (:311), interleaved RB (:319), inversion (:330), coin (:336) and noisy
+// coin (:342). Each reads its expparams from `scalars` once per thread and
+// its compile-time constants (known-T2's T2) from `consts`, passed by value.
+// Products and sums are rounded one by one (__fmul_rn, __fadd_rn: no FMA
+// contraction), as the plain PyTorch version of the same function computes
+// them. make_born_pr1 (tomography, up to 16 columns) is not instantiated.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +43,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxCols = 8;
+constexpr int kMaxConsts = 4;
 constexpr float kNegBig = -3.0e38f;
 constexpr float kLogTiny = -87.0f;
 
@@ -43,20 +51,163 @@ struct Cols {
   const float* p[kMaxCols];
 };
 
-// scalars = [outcome, t]; one column, omega.
-// pr1 = 1 − cos²(0.5·ω·t); pr = outcome == 1 ? pr1 : 1 − pr1; log(max(pr, 1e-35)).
-struct PrecessionTwoOutcomeTile {
-  static constexpr int kNumCols = 1;
-  float outcome, t;
+struct Consts {
+  float v[kMaxConsts];
+};
 
-  __device__ explicit PrecessionTwoOutcomeTile(const float* scalars)
-      : outcome(scalars[0]), t(scalars[1]) {}
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+// torch.clamp(x, lo, hi): NaN passes through.
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+__device__ __forceinline__ float one_minus_cos2(float arg) {
+  const float c = cosf(arg);
+  return sub(1.0f, mul(c, c));
+}
 
-  __device__ __forceinline__ float operator()(const Cols& cols, int64_t i) const {
-    const float c = cosf(__fmul_rn(__fmul_rn(0.5f, cols.p[0][i]), t));
-    const float pr1 = __fsub_rn(1.0f, __fmul_rn(c, c));
-    const float pr = (outcome == 1.0f) ? pr1 : __fsub_rn(1.0f, pr1);
+// -- pr1 functors: Pr(outcome 1) of one particle. `s` points at the pr1
+// function's own scalars (after the outcome composition's head).
+
+// 1 − cos²(0.5·ω·t); s = [t]; one column, omega.
+struct PrecessionPr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = 1;
+  float t;
+  __device__ PrecessionPr1(const float* s, const Consts&, int) : t(s[0]) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    return one_minus_cos2(mul(mul(0.5f, c.p[0][i]), t));
+  }
+};
+
+// 1 − cos²(0.5·Σ ω_j t_j), summed in the order ω₀t₀ + ω₁t₁ + …;
+// s = ts (n_terms = n_cols).
+struct MultiCosPr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = kMaxCols;
+  float ts[kMaxCols];
+  int n_terms;
+  __device__ MultiCosPr1(const float* s, const Consts&, int n_cols) : n_terms(n_cols) {
+#pragma unroll
+    for (int j = 0; j < kMaxCols; ++j) ts[j] = j < n_cols ? s[j] : 0.0f;
+  }
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    float arg = mul(c.p[0][i], ts[0]);
+#pragma unroll
+    for (int j = 1; j < kMaxCols; ++j) {
+      if (j < n_terms) arg = add(arg, mul(c.p[j][i], ts[j]));
+    }
+    return one_minus_cos2(mul(0.5f, arg));
+  }
+};
+
+// 1 − (d·cos²(0.5·ω·t) + 0.5·(1 − d)), d = exp(−t / T2); s = [t]; consts = [T2].
+struct KnownT2Pr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = 1;
+  float t, damp, mix;
+  __device__ KnownT2Pr1(const float* s, const Consts& k, int)
+      : t(s[0]), damp(expf(-s[0] / k.v[0])),  // IEEE division (no fast-math)
+        mix(mul(0.5f, sub(1.0f, damp))) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    const float co = cosf(mul(mul(0.5f, c.p[0][i]), t));
+    return sub(1.0f, add(mul(mul(damp, co), co), mix));
+  }
+};
+
+// 1 − clip(A·decayᵐ + B, 0, 1), decayᵐ = exp(m·log(clip(decay, 1e-20, 1))).
+__device__ __forceinline__ float rb_pr1(float m, float decay, float a, float b) {
+  const float dm = expf(mul(m, logf(clampf(decay, 1e-20f, 1.0f))));
+  return sub(1.0f, clampf(add(mul(a, dm), b), 0.0f, 1.0f));
+}
+
+// s = [m]; columns p, A, B.
+struct RbPr1 {
+  static constexpr int kMinCols = 3, kMaxColsUsed = 3;
+  float m;
+  __device__ RbPr1(const float* s, const Consts&, int) : m(s[0]) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    return rb_pr1(m, c.p[0][i], c.p[1][i], c.p[2][i]);
+  }
+};
+
+// s = [m, reference]; columns p̃, p_ref, A, B; decay p_ref if reference == 1
+// else p̃·p_ref.
+struct RbInterleavedPr1 {
+  static constexpr int kMinCols = 4, kMaxColsUsed = 4;
+  float m;
+  bool reference;
+  __device__ RbInterleavedPr1(const float* s, const Consts&, int)
+      : m(s[0]), reference(s[1] == 1.0f) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    const float p_ref = c.p[1][i];
+    const float decay = reference ? p_ref : mul(c.p[0][i], p_ref);
+    return rb_pr1(m, decay, c.p[2][i], c.p[3][i]);
+  }
+};
+
+// 1 − cos²(0.5·(ω − ω_)·t); s = [ω_, t].
+struct InversionPr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = 1;
+  float w, t;
+  __device__ InversionPr1(const float* s, const Consts&, int) : w(s[0]), t(s[1]) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    return one_minus_cos2(mul(mul(0.5f, sub(c.p[0][i], w)), t));
+  }
+};
+
+// p; no scalars.
+struct CoinPr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = 1;
+  __device__ CoinPr1(const float*, const Consts&, int) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    return c.p[0][i];
+  }
+};
+
+// 1 − (α·(1 − p) + β·p); s = [α, β].
+struct NoisyCoinPr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = 1;
+  float alpha, beta;
+  __device__ NoisyCoinPr1(const float* s, const Consts&, int) : alpha(s[0]), beta(s[1]) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    const float p = c.p[0][i];
+    return sub(1.0f, add(mul(alpha, sub(1.0f, p)), mul(beta, p)));
+  }
+};
+
+// -- outcome compositions: log L of one particle.
+
+// scalars = [outcome, *pr1]; pr = outcome == 1 ? pr1 : 1 − pr1; log(max(pr, 1e-35)).
+template <class Pr1>
+struct TwoOutcome {
+  using P = Pr1;
+  static constexpr int kHead = 1;
+  Pr1 pr1;
+  bool one;
+  __device__ TwoOutcome(const float* s, const Consts& k, int n_cols)
+      : pr1(s + kHead, k, n_cols), one(s[0] == 1.0f) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    const float p1 = pr1(c, i);
+    const float pr = one ? p1 : sub(1.0f, p1);
     return logf(pr < 1e-35f ? 1e-35f : pr);
+  }
+};
+
+// scalars = [k, n, log C(n, k), *pr1]; p1 clipped to [0, 1];
+// log C + k·log(max(p1, 1e-30)) + (n − k)·log(max(1 − p1, 1e-30)).
+template <class Pr1>
+struct Binomial {
+  using P = Pr1;
+  static constexpr int kHead = 3;
+  Pr1 pr1;
+  float k, n_k, log_c;
+  __device__ Binomial(const float* s, const Consts& kc, int n_cols)
+      : pr1(s + kHead, kc, n_cols), k(s[0]), n_k(sub(s[1], s[0])), log_c(s[2]) {}
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    const float p1 = clampf(pr1(c, i), 0.0f, 1.0f);
+    const float q1 = sub(1.0f, p1);
+    const float lp = logf(p1 < 1e-30f ? 1e-30f : p1);
+    const float lq = logf(q1 < 1e-30f ? 1e-30f : q1);
+    return add(add(log_c, mul(k, lp)), mul(n_k, lq));
   }
 };
 
@@ -118,11 +269,11 @@ __device__ Lse block_reduce(Lse v) {
 
 template <class Tile>
 __global__ void __launch_bounds__(kThreads)
-fused_update_pass1(const float* __restrict__ scalars,
+fused_update_pass1(const float* __restrict__ scalars, Consts consts, int n_cols,
                    const float* __restrict__ log_w, Cols cols,
                    float* __restrict__ out_lw, float* __restrict__ partials,
                    int64_t n) {
-  const Tile tile(scalars);
+  const Tile tile(scalars, consts, n_cols);
   Lse st{kNegBig, 0.0f, 0.0f};
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -161,36 +312,64 @@ fused_update_pass2(const float* __restrict__ partials, int n_blocks,
 
 }  // namespace
 
-// tile: 0 = PrecessionTwoOutcomeTile. cols: host array of n_cols device
-// pointers. partials: 3·n_blocks floats; stats: 4 floats. Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int qt_fused_update(int tile, const void* scalars, const void* log_w,
+template <class Tile>
+static int launch(const float* sc, const Consts& k, int n_cols, const float* lw,
+                  const Cols& c, float* out, float* part, int n_blocks, int64_t n,
+                  cudaStream_t s) {
+  if (n_cols < Tile::P::kMinCols || n_cols > Tile::P::kMaxColsUsed) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fused_update_pass1<Tile><<<n_blocks, kThreads, 0, s>>>(sc, k, n_cols, lw, c, out, part, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <template <class> class Outcome>
+static int launch_pr1(int pr1, const float* sc, const Consts& k, int n_cols,
+                      const float* lw, const Cols& c, float* out, float* part,
+                      int n_blocks, int64_t n, cudaStream_t s) {
+  switch (pr1) {
+    case 0: return launch<Outcome<PrecessionPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 1: return launch<Outcome<MultiCosPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 2: return launch<Outcome<KnownT2Pr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 3: return launch<Outcome<RbPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 4: return launch<Outcome<RbInterleavedPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 5: return launch<Outcome<InversionPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 6: return launch<Outcome<CoinPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 7: return launch<Outcome<NoisyCoinPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// outcome: 0 = TwoOutcome, 1 = Binomial. pr1: the functor ids of
+// ops/fused_update.py (0 precession … 7 noisy coin). consts: host array of
+// n_consts floats. cols: host array of n_cols device pointers. partials:
+// 3·n_blocks floats; stats: 4 floats. Returns the cudaError_t of the
+// launches (0 on success).
+extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
+                               const void* consts, int n_consts, const void* log_w,
                                const void* const* cols, int n_cols, void* out_lw,
                                void* partials, int n_blocks, void* stats,
                                int64_t n, void* stream) {
-  if (n_cols < 0 || n_cols > kMaxCols || n_blocks <= 0 || n <= 0) {
+  if (n_cols < 0 || n_cols > kMaxCols || n_consts < 0 || n_consts > kMaxConsts ||
+      n_blocks <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Cols c{};
-  for (int k = 0; k < n_cols; ++k) c.p[k] = static_cast<const float*>(cols[k]);
+  for (int j = 0; j < n_cols; ++j) c.p[j] = static_cast<const float*>(cols[j]);
+  Consts k{};
+  for (int j = 0; j < n_consts; ++j) k.v[j] = static_cast<const float*>(consts)[j];
   const float* sc = static_cast<const float*>(scalars);
   const float* lw = static_cast<const float*>(log_w);
   float* out = static_cast<float*>(out_lw);
   float* part = static_cast<float*>(partials);
-  switch (tile) {
-    case 0:
-      if (n_cols != PrecessionTwoOutcomeTile::kNumCols) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      fused_update_pass1<PrecessionTwoOutcomeTile>
-          <<<n_blocks, kThreads, 0, s>>>(sc, lw, c, out, part, n);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  switch (outcome) {
+    case 0: err = launch_pr1<TwoOutcome>(pr1, sc, k, n_cols, lw, c, out, part, n_blocks, n, s); break;
+    case 1: err = launch_pr1<Binomial>(pr1, sc, k, n_cols, lw, c, out, part, n_blocks, n, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != 0) return err;
   fused_update_pass2<<<1, kThreads, 0, s>>>(part, n_blocks, static_cast<float*>(stats));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,10 @@ same field names) and returns this package's ``SMCState``;
 ``state_to_numpy`` goes back to a dict of numpy arrays. The JAX key is not
 carried: the port seeds its own ``torch.Generator``.
 
-``from_reference`` converts the slice's static objects
-(``SimplePrecessionModel``, ``UniformDistribution``, ``LiuWestResampler``,
-``SMCConfig``) by their fields; ``SMCConfig.canonicalize``, which the JAX
+``from_reference`` converts the ported static objects (the models of
+``models/``, ``BinomialModel`` with its underlying model converted in
+turn, ``UniformDistribution``, ``LiuWestResampler``, ``SMCConfig``) by
+their fields; ``SMCConfig.canonicalize``, which the JAX
 engine never reads, is not carried. Nothing here imports ``jax``.
 """
 
@@ -19,8 +20,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from . import models
 from .distributions import UniformDistribution
-from .models import SimplePrecessionModel
 from .resamplers import LiuWestResampler
 from .smc import SMCConfig, SMCState
 
@@ -77,7 +78,21 @@ def _resampler(obj):
 
 _CONVERTERS = {
     "SimplePrecessionModel":
-        lambda obj: SimplePrecessionModel(min_freq=obj.min_freq),
+        lambda obj: models.SimplePrecessionModel(min_freq=obj.min_freq),
+    "SimpleInversionModel":
+        lambda obj: models.SimpleInversionModel(min_freq=obj.min_freq),
+    "CoinModel": lambda obj: models.CoinModel(),
+    "NoisyCoinModel": lambda obj: models.NoisyCoinModel(),
+    "MultiCosModel": lambda obj: models.MultiCosModel(n_terms=obj.n_terms),
+    "KnownT2PrecessionModel": lambda obj: models.KnownT2PrecessionModel(
+        t2=obj.t2, min_freq=obj.min_freq),
+    "RandomizedBenchmarkingModel": lambda obj:
+        models.RandomizedBenchmarkingModel(interleaved=obj.interleaved),
+    "BinomialModel": lambda obj: models.BinomialModel(
+        from_reference(obj.underlying_model)),
+    "DifferentiableBinomialModel": lambda obj:
+        models.DifferentiableBinomialModel(
+            from_reference(obj.underlying_model)),
     "UniformDistribution": lambda obj: UniformDistribution(obj.ranges),
     "LiuWestResampler": _resampler,
     "SMCConfig": lambda obj: SMCConfig(

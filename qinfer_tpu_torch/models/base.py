@@ -1,8 +1,9 @@
 """Model DSL on torch tensors.
 
 Counterpart of ``qinfer_tpu/models/base.py``: ``expparams_field``,
-``_n_exps``, ``Simulatable``, ``Model`` and ``FiniteOutcomeModel`` with the
-fused single-pass update. A model is a frozen dataclass of static metadata
+``_n_exps``, ``Simulatable`` (with the combinator surface ``base_model``,
+``model_chain``, ``underlying_model``, ``all_outcomes`` and ``Q``),
+``Model`` and ``FiniteOutcomeModel`` with the fused single-pass update. A model is a frozen dataclass of static metadata
 with pure methods; ``log_likelihood`` is the primitive, of shape (O, N, E).
 expparams are a tensor (single-field models) or a dict of named tensors
 with leading axis E.
@@ -28,6 +29,12 @@ def expparams_field(expparams: ExpParams, name: str):
     if isinstance(expparams, dict):
         return expparams[name]
     return expparams
+
+
+def _column(expparams: ExpParams, name: str, device):
+    """One expparams field as an f32 (E·…,) column on ``device``."""
+    v = expparams_field(expparams, name)
+    return torch.as_tensor(v, device=device).to(torch.float32).reshape(-1)
 
 
 def _n_exps(expparams: ExpParams) -> int:
@@ -57,8 +64,34 @@ class Simulatable:
     def expparams_dtype(self):
         return "float"
 
+    @property
+    def is_n_outcomes_constant(self) -> bool:
+        return True
+
     def n_outcomes(self, expparams: ExpParams = None) -> int:
         raise NotImplementedError
+
+    def all_outcomes(self, expparams: ExpParams = None):
+        """The outcomes 0 … n_outcomes − 1 as an int32 tensor."""
+        return torch.arange(self.n_outcomes(expparams), dtype=torch.int32)
+
+    @property
+    def Q(self):
+        """Quadratic-loss weights (all ones)."""
+        return torch.ones(self.n_modelparams, dtype=torch.float32)
+
+    @property
+    def model_chain(self):
+        """Chain of underlying models (combinators override)."""
+        return ()
+
+    @property
+    def base_model(self):
+        return self
+
+    @property
+    def underlying_model(self):
+        return None
 
     def are_models_valid(self, modelparams):
         """bool[N] validity mask."""
@@ -146,12 +179,20 @@ class FiniteOutcomeModel(Model):
             _definer_idx("pr0"), _definer_idx("log_likelihood")
         )
 
-    def fused_update(self, outcome, log_w, modelparams, expparams,
-                     return_stats=False):
-        """(log_w', log_norm, ess) in one fused pass (E must be 1); see
-        ``ops.fused_update.fused_bayes_update``."""
-        from ..ops.fused_update import fused_bayes_update, two_outcome_tile
+    def fused_spec(self, outcome, modelparams, expparams):
+        """(tile, scalars, param_cols) of the fused update of one
+        experiment, with ``scalars`` in the JAX package's layout on the
+        bank's device (no host sync)."""
+        from ..ops.fused_update import two_outcome_tile
 
+        pr1_fn, tail, cols = self._pr1_parts_or_raise(modelparams, expparams)
+        outcome = torch.as_tensor(outcome, device=modelparams.device)
+        scalars = torch.cat(
+            [outcome.to(torch.float32).reshape(1), tail.to(torch.float32)]
+        )
+        return two_outcome_tile(pr1_fn), scalars, cols
+
+    def _pr1_parts_or_raise(self, modelparams, expparams):
         if _n_exps(expparams) != 1:
             raise ValueError(
                 "fused_update handles exactly one experiment (E == 1); got "
@@ -161,15 +202,17 @@ class FiniteOutcomeModel(Model):
         parts = self._fused_pr1_parts(modelparams, expparams)
         if parts is None:
             raise NotImplementedError("model does not define _fused_pr1_parts")
-        pr1_fn, tail, cols = parts
-        outcome = torch.as_tensor(outcome, device=log_w.device)
-        scalars = torch.cat(
-            [outcome.to(torch.float32).reshape(1), tail.to(torch.float32)]
-        )
-        return fused_bayes_update(
-            two_outcome_tile(pr1_fn), scalars, log_w, cols,
-            return_stats=return_stats,
-        )
+        return parts
+
+    def fused_update(self, outcome, log_w, modelparams, expparams,
+                     return_stats=False):
+        """(log_w', log_norm, ess) in one fused pass (E must be 1); see
+        ``ops.fused_update.fused_bayes_update``."""
+        from ..ops.fused_update import fused_bayes_update
+
+        tile, scalars, cols = self.fused_spec(outcome, modelparams, expparams)
+        return fused_bayes_update(tile, scalars, log_w, cols,
+                                  return_stats=return_stats)
 
     def n_outcomes(self, expparams: ExpParams = None) -> int:
         return 2

@@ -1,0 +1,122 @@
+"""Model combinators. Counterpart of ``qinfer_tpu/models/derived.py``:
+``DerivedModel``, ``BinomialModel`` and the ``DifferentiableBinomialModel``
+alias."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..utils import log_binomial_coefficient, log_binomial_pdf
+from .base import Model, _column, expparams_field
+
+__all__ = ["DerivedModel", "BinomialModel", "DifferentiableBinomialModel"]
+
+
+@dataclass(frozen=True, eq=False)
+class DerivedModel(Model):
+    """Base combinator delegating metadata to ``underlying_model``."""
+
+    underlying_model: Model = None
+
+    @property
+    def base_model(self):
+        return self.underlying_model.base_model
+
+    @property
+    def model_chain(self):
+        return self.underlying_model.model_chain + (self.underlying_model,)
+
+    @property
+    def n_modelparams(self):
+        return self.underlying_model.n_modelparams
+
+    @property
+    def modelparam_names(self):
+        return self.underlying_model.modelparam_names
+
+    @property
+    def expparams_dtype(self):
+        return self.underlying_model.expparams_dtype
+
+    def n_outcomes(self, expparams=None):
+        return self.underlying_model.n_outcomes(expparams)
+
+    def are_models_valid(self, modelparams):
+        return self.underlying_model.are_models_valid(modelparams)
+
+    def canonicalize(self, modelparams):
+        return self.underlying_model.canonicalize(modelparams)
+
+    def update_timestep(self, modelparams, expparams, generator=None):
+        return self.underlying_model.update_timestep(
+            modelparams, expparams, generator=generator)
+
+    @property
+    def Q(self):
+        return self.underlying_model.Q
+
+
+@dataclass(frozen=True, eq=False)
+class BinomialModel(DerivedModel):
+    """``n_meas`` repetitions of a two-outcome model; the outcome is the
+    count of '1' results. expparams gain the ('n_meas', 'uint') field."""
+
+    @property
+    def expparams_dtype(self):
+        base = self.underlying_model.expparams_dtype
+        base = base if isinstance(base, list) else [("x", base)]
+        return base + [("n_meas", "uint")]
+
+    @property
+    def is_n_outcomes_constant(self):
+        return False
+
+    def n_outcomes(self, expparams=None):
+        """max(n_meas) + 1 (reads ``n_meas`` on the host)."""
+        if expparams is None:
+            raise ValueError("BinomialModel.n_outcomes requires expparams.")
+        n_meas = torch.as_tensor(expparams_field(expparams, "n_meas"))
+        return int(n_meas.max()) + 1
+
+    def log_likelihood(self, outcomes, modelparams, expparams):
+        n_meas = _column(expparams, "n_meas", modelparams.device)  # (E,)
+        p1 = 1.0 - self.underlying_model.pr0(modelparams, expparams)
+        k = torch.as_tensor(outcomes, device=modelparams.device).to(
+            torch.float32).reshape(-1)  # (O,)
+        return log_binomial_pdf(n_meas[None, None, :], k[:, None, None],
+                                p1[None, :, :])
+
+    @property
+    def fused_update_supported(self):
+        return getattr(self.underlying_model, "fused_update_supported", False)
+
+    def fused_spec(self, outcome, modelparams, expparams):
+        """The binomial tile over the underlying model's pr1 function;
+        scalars = [k, n_meas, log C(n_meas, k), *pr1_scalars], all on the
+        device (log C by lgamma there: no host sync)."""
+        from ..ops.fused_update import binomial_tile
+
+        pr1_fn, tail, cols = self.underlying_model._pr1_parts_or_raise(
+            modelparams, expparams)
+        dev = modelparams.device
+        n = _column(expparams, "n_meas", dev)[:1]
+        k = torch.as_tensor(outcome, device=dev).to(torch.float32).reshape(1)
+        scalars = torch.cat([k, n, log_binomial_coefficient(n, k),
+                             tail.to(torch.float32)])
+        return binomial_tile(pr1_fn), scalars, cols
+
+    def fused_update(self, outcome, log_w, modelparams, expparams,
+                     return_stats=False):
+        """Fused binomial update: the underlying two-outcome model's pr1
+        function inside the binomial log-pmf, in one pass."""
+        from ..ops.fused_update import fused_bayes_update
+
+        tile, scalars, cols = self.fused_spec(outcome, modelparams, expparams)
+        return fused_bayes_update(tile, scalars, log_w, cols,
+                                  return_stats=return_stats)
+
+
+class DifferentiableBinomialModel(BinomialModel):
+    """Alias kept for API parity with the JAX package."""

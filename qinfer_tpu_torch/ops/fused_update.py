@@ -6,64 +6,228 @@ log-sum-exps (evidence and ESS). On a CUDA tensor ``fused_bayes_update``
 launches the hand-written kernel in ``csrc/fused_update.cu`` (its header
 says what bounds it and how it is laid out); on a CPU tensor it runs
 ``fused_update_plain``, the same function in plain PyTorch. A failed build
-or launch raises: nothing falls back.
+or launch, or a tile without a CUDA functor, raises: nothing falls back.
 
-A likelihood tile is ``tile(scalars, *param_cols) -> (N,) log L`` in plain
-PyTorch; the kernel runs the tile's CUDA functor, named by ``kernel_tile``.
+A likelihood tile is an outcome composition (``TwoOutcomeTile``,
+``BinomialTile``) over a pr1 function. Both are frozen dataclasses,
+callable as the plain PyTorch version, ``tile(scalars, *param_cols) ->
+(N,) log L`` and ``pr1(scalars, offset, *param_cols) -> (N,) Pr(1)``.
+Each also names its CUDA functor (``outcome_id``, ``functor_id``), and a
+pr1 carries the constants that the JAX package bakes into its closure
+(``consts``), so the kernel is found by value and ``scalars`` keeps the
+JAX layout.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, ClassVar
 
 import torch
 
 from .. import _build
 
 __all__ = [
-    "fused_bayes_update", "fused_update_plain", "two_outcome_tile",
-    "precession_pr1",
+    "fused_bayes_update", "fused_update_plain",
+    "TwoOutcomeTile", "BinomialTile", "two_outcome_tile", "binomial_tile",
+    "precession_pr1", "make_multicos_pr1", "make_known_t2_pr1", "rb_pr1",
+    "rb_interleaved_pr1", "inversion_pr1", "coin_pr1", "noisy_coin_pr1",
+    "MAX_COLS",
 ]
 
 _LOG_TINY = -87.0
 _THREADS = 256  # kThreads in csrc/fused_update.cu
 _ITEMS_PER_THREAD = 4
 _MAX_BLOCKS = 1024
+MAX_COLS = 8  # kMaxCols in csrc/fused_update.cu
+_MAX_CONSTS = 4  # kMaxConsts
 
 
-def precession_pr1(scalars, off, omega):
-    """SimplePrecession: 1 − cos²(ωt/2); scalars tail = [t]."""
-    c = torch.cos(0.5 * omega * scalars[off])
-    return 1.0 - c * c
+# -- pr1 functions (the ids are the functor switch in qt_fused_update) -------
 
-
-# pr1 function -> index of its CUDA functor in qt_fused_update.
-_KERNEL_TILES = {precession_pr1: 0}
+@dataclass(frozen=True)
+class _Pr1:
+    functor_id: ClassVar[int]
+    consts: ClassVar[tuple] = ()  # compile-time constants of the tile
 
 
 @dataclass(frozen=True)
-class TwoOutcomeTile:
-    """scalars = [outcome, *pr1_scalars]; log(max(pr, 1e-35)) with
-    pr = pr1 for outcome 1 and 1 − pr1 otherwise."""
+class PrecessionPr1(_Pr1):
+    """SimplePrecession: 1 − cos²(ωt/2); scalars tail = [t]."""
 
-    pr1_fn: Callable
+    functor_id: ClassVar[int] = 0
 
-    def __call__(self, scalars, *cols):
-        outcome = scalars[0]
-        pr1 = self.pr1_fn(scalars, 1, *cols)
-        pr = torch.where(outcome == 1.0, pr1, 1.0 - pr1)
-        return torch.log(torch.clamp(pr, min=1e-35))
+    def __call__(self, scalars, off, omega):
+        c = torch.cos(0.5 * omega * scalars[off])
+        return 1.0 - c * c
+
+
+@dataclass(frozen=True)
+class MultiCosPr1(_Pr1):
+    """MultiCos: 1 − cos²(ω⃗·t⃗/2); scalars tail = ts (n_terms,)."""
+
+    n_terms: int
+    functor_id: ClassVar[int] = 1
+
+    def __call__(self, scalars, off, *omegas):
+        arg = omegas[0] * scalars[off]
+        for i in range(1, self.n_terms):
+            arg = arg + omegas[i] * scalars[off + i]
+        c = torch.cos(0.5 * arg)
+        return 1.0 - c * c
+
+
+@dataclass(frozen=True)
+class KnownT2Pr1(_Pr1):
+    """KnownT2 precession: 1 − (e^{−t/T2}cos²(ωt/2) + (1−e^{−t/T2})/2);
+    scalars tail = [t]; T2 is a constant of the tile."""
+
+    t2: float
+    functor_id: ClassVar[int] = 2
+
+    @property
+    def consts(self):
+        return (float(self.t2),)
+
+    def __call__(self, scalars, off, omega):
+        t = scalars[off]
+        # t2 as a device tensor: a Python scalar divisor would become a
+        # multiply by its reciprocal on CUDA; the kernel divides.
+        damp = torch.exp(-t / torch.full((), self.t2, device=t.device))
+        c = torch.cos(0.5 * omega * t)
+        return 1.0 - (damp * c * c + 0.5 * (1.0 - damp))
+
+
+def _rb_pr1(m, p, A, B):
+    decay = torch.exp(m * torch.log(torch.clamp(p, 1e-20, 1.0)))
+    return 1.0 - torch.clamp(A * decay + B, 0.0, 1.0)
+
+
+@dataclass(frozen=True)
+class RbPr1(_Pr1):
+    """Standard RB: 1 − clip(A·pᵐ + B, 0, 1), pᵐ = exp(m·log(clip(p,
+    1e-20, 1))); scalars tail = [m]."""
+
+    functor_id: ClassVar[int] = 3
+
+    def __call__(self, scalars, off, p, A, B):
+        return _rb_pr1(scalars[off], p, A, B)
+
+
+@dataclass(frozen=True)
+class RbInterleavedPr1(_Pr1):
+    """Interleaved RB: decay p_ref (reference sequence) or p̃·p_ref;
+    scalars tail = [m, reference]."""
+
+    functor_id: ClassVar[int] = 4
+
+    def __call__(self, scalars, off, pt, pr_, A, B):
+        p_eff = torch.where(scalars[off + 1] == 1.0, pr_, pt * pr_)
+        return _rb_pr1(scalars[off], p_eff, A, B)
+
+
+@dataclass(frozen=True)
+class InversionPr1(_Pr1):
+    """SimpleInversion (Ramsey): 1 − cos²((ω−ω_)t/2); tail = [w_, t]."""
+
+    functor_id: ClassVar[int] = 5
+
+    def __call__(self, scalars, off, omega):
+        c = torch.cos(0.5 * (omega - scalars[off]) * scalars[off + 1])
+        return 1.0 - c * c
+
+
+@dataclass(frozen=True)
+class CoinPr1(_Pr1):
+    """CoinModel: Pr(1) = p; empty scalar tail."""
+
+    functor_id: ClassVar[int] = 6
+
+    def __call__(self, scalars, off, p):
+        return p
+
+
+@dataclass(frozen=True)
+class NoisyCoinPr1(_Pr1):
+    """NoisyCoin: Pr(1) = 1 − (α(1−p) + βp); tail = [α, β]."""
+
+    functor_id: ClassVar[int] = 7
+
+    def __call__(self, scalars, off, p):
+        return 1.0 - (scalars[off] * (1.0 - p) + scalars[off + 1] * p)
+
+
+precession_pr1 = PrecessionPr1()
+rb_pr1 = RbPr1()
+rb_interleaved_pr1 = RbInterleavedPr1()
+inversion_pr1 = InversionPr1()
+coin_pr1 = CoinPr1()
+noisy_coin_pr1 = NoisyCoinPr1()
+
+
+def make_multicos_pr1(n_terms):
+    return MultiCosPr1(int(n_terms))
+
+
+def make_known_t2_pr1(t2):
+    return KnownT2Pr1(float(t2))
+
+
+# -- outcome compositions ----------------------------------------------------
+
+@dataclass(frozen=True)
+class _OutcomeTile:
+    pr1_fn: Any
+    outcome_id: ClassVar[int]
 
     @property
     def kernel_tile(self):
-        return _KERNEL_TILES.get(self.pr1_fn)
+        """(outcome_id, functor_id, consts) of the CUDA instantiation, or
+        None when the pr1 function has no functor."""
+        functor = getattr(self.pr1_fn, "functor_id", None)
+        if functor is None:
+            return None
+        return self.outcome_id, functor, tuple(self.pr1_fn.consts)
+
+
+@dataclass(frozen=True)
+class TwoOutcomeTile(_OutcomeTile):
+    """scalars = [outcome, *pr1_scalars]; log(max(pr, 1e-35)) with
+    pr = pr1 for outcome 1 and 1 − pr1 otherwise."""
+
+    outcome_id: ClassVar[int] = 0
+
+    def __call__(self, scalars, *cols):
+        pr1 = self.pr1_fn(scalars, 1, *cols)
+        pr = torch.where(scalars[0] == 1.0, pr1, 1.0 - pr1)
+        return torch.log(torch.clamp(pr, min=1e-35))
+
+
+@dataclass(frozen=True)
+class BinomialTile(_OutcomeTile):
+    """scalars = [k, n_meas, log C(n, k), *pr1_scalars]:
+    log C + k·log(max(p1, 1e-30)) + (n−k)·log(max(1−p1, 1e-30)) with p1
+    clipped to [0, 1] (the clip reproduces xlogy's 0·log 0 = 0)."""
+
+    outcome_id: ClassVar[int] = 1
+
+    def __call__(self, scalars, *cols):
+        k, n, log_c = scalars[0], scalars[1], scalars[2]
+        p1 = torch.clamp(self.pr1_fn(scalars, 3, *cols), 0.0, 1.0)
+        return (log_c + k * torch.log(torch.clamp(p1, min=1e-30))
+                + (n - k) * torch.log(torch.clamp(1.0 - p1, min=1e-30)))
 
 
 def two_outcome_tile(pr1_fn):
     return TwoOutcomeTile(pr1_fn)
 
+
+def binomial_tile(pr1_fn):
+    return BinomialTile(pr1_fn)
+
+
+# -- the update ----------------------------------------------------------------
 
 def fused_update_plain(tile_fn, scalars, log_w, param_cols):
     """Plain PyTorch version of the kernel: (lw, lse, lse2, ess) with lw
@@ -80,10 +244,16 @@ def fused_update_plain(tile_fn, scalars, log_w, param_cols):
 
 
 def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
-    tile = getattr(tile_fn, "kernel_tile", None)
-    if tile is None:
+    spec = getattr(tile_fn, "kernel_tile", None)
+    if spec is None:
         raise NotImplementedError(
             f"no CUDA functor for likelihood tile {tile_fn!r}"
+        )
+    outcome_id, functor_id, consts = spec
+    if len(param_cols) > MAX_COLS:
+        raise ValueError(
+            f"the fused update kernel takes at most {MAX_COLS} parameter "
+            f"columns; {tile_fn!r} has {len(param_cols)}"
         )
     device = log_w.device
     n = log_w.shape[0]
@@ -100,13 +270,16 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
     partials = torch.empty(3 * n_blocks, dtype=torch.float32, device=device)
     stats = torch.empty(4, dtype=torch.float32, device=device)
     col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
+    const_buf = (ctypes.c_float * _MAX_CONSTS)(*consts)
     lib, _ = _build.library()
     with torch.cuda.device(device):
         err = lib.qt_fused_update(
-            tile, scalars.data_ptr(), log_w.data_ptr(),
-            ctypes.cast(col_ptrs, ctypes.c_void_p), len(cols),
-            out.data_ptr(), partials.data_ptr(), n_blocks, stats.data_ptr(),
-            n, torch.cuda.current_stream(device).cuda_stream,
+            outcome_id, functor_id, scalars.data_ptr(),
+            ctypes.cast(const_buf, ctypes.c_void_p), len(consts),
+            log_w.data_ptr(), ctypes.cast(col_ptrs, ctypes.c_void_p),
+            len(cols), out.data_ptr(), partials.data_ptr(), n_blocks,
+            stats.data_ptr(), n,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_fused_update")
     fused_bayes_update.launches += 1
@@ -117,9 +290,9 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
                        return_stats=False):
     """One fused SMC update.
 
-    ``scalars``: (k,) f32 on the bank's device (outcome, then the tile's
-    expparams); ``log_w``: (N,) normalized log-weights; ``param_cols``:
-    tuple of (N,) f32 parameter columns.
+    ``scalars``: (k,) f32 on the bank's device (the outcome composition's
+    head, then the pr1 function's expparams); ``log_w``: (N,) normalized
+    log-weights; ``param_cols``: tuple of (N,) f32 parameter columns.
 
     Returns (log_w_normalized, log_norm, ess). ``return_stats=True``
     returns the raw (log_w_unnormalized, lse, lse2) instead, with

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, ClassVar, Optional
 
 import torch
 
@@ -106,7 +106,12 @@ class LiuWestResampler(Resampler):
     standard-normal draw. ``use_expand_kernel``: None = kernel B2 whenever
     the bank is on CUDA; True/False force the systematic expand path
     on/off.
+
+    ``LiuWestResampler.redraw_rounds`` counts the postselection redraw
+    rounds of every resample in the process (each costs a host sync).
     """
+
+    redraw_rounds: ClassVar[int] = 0
 
     a: float = 0.98
     h: Optional[float] = None
@@ -171,6 +176,7 @@ class LiuWestResampler(Resampler):
         for _ in range(self.maxiter):
             if all_ok:
                 break
+            LiuWestResampler.redraw_rounds += 1
             fresh = draw()
             fresh_ok = model.are_models_valid(fresh)
             take = ~ok & fresh_ok

@@ -25,8 +25,14 @@ import torch
 from ._exceptions import ApproximationWarning
 from .distributions import Distribution, ParticleDistribution
 from .models.base import Simulatable
+from .models.derived import DerivedModel
 from .resamplers import LiuWestResampler
-from .utils import effective_sample_size, particle_covariance_mtx, particle_mean
+from .utils import (
+    effective_sample_size,
+    particle_covariance_mtx,
+    particle_mean,
+    pytree_to_expparams,
+)
 
 __all__ = [
     "SMCState", "SMCConfig", "SMCUpdater", "init_smc_state",
@@ -164,7 +170,7 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
 
     # Time-dependent models diffuse the cloud after the update; skipped
     # for static models.
-    if type(model).update_timestep is not Simulatable.update_timestep:
+    if _is_time_dependent(model):
         new_locs = model.update_timestep(
             state.particle_locations, expparams, generator=state.generator
         )[:, :, 0]
@@ -173,7 +179,23 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
     return state, log_norm
 
 
+def _is_time_dependent(model) -> bool:
+    """True iff the model overrides ``Simulatable.update_timestep``,
+    directly or through a combinator chain (``DerivedModel`` only
+    delegates)."""
+    ts = type(model).update_timestep
+    if ts is Simulatable.update_timestep:
+        return False
+    if isinstance(model, DerivedModel) and ts is DerivedModel.update_timestep:
+        return _is_time_dependent(model.underlying_model)
+    return True
+
+
 def _expparams_to(expparams, device):
+    """expparams on ``device``; a NumPy record array (the reference's
+    native format) becomes a dict of its fields."""
+    if isinstance(expparams, np.ndarray) and expparams.dtype.names:
+        expparams = pytree_to_expparams(expparams)
     if isinstance(expparams, dict):
         return {k: torch.as_tensor(v, device=device)
                 for k, v in expparams.items()}

@@ -1,15 +1,20 @@
 """Weighted-particle numerics on torch tensors.
 
-Counterpart of ``qinfer_tpu/utils.py`` (the main path's part:
-``normalize_log_weights`` … ``sqrtm_psd``). Every function works on the
-device of its inputs.
+Counterpart of ``qinfer_tpu/utils.py`` (the part the ported paths use:
+the binomial pmfs, ``normalize_log_weights`` … ``sqrtm_psd`` and
+``pytree_to_expparams``). Every function works on the device of its
+inputs.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = [
+    "log_binomial_coefficient",
+    "log_binomial_pdf",
+    "binomial_pdf",
     "normalize_log_weights",
     "log_effective_sample_size",
     "effective_sample_size",
@@ -17,7 +22,39 @@ __all__ = [
     "particle_covariance_mtx",
     "weighted_moments",
     "sqrtm_psd",
+    "pytree_to_expparams",
 ]
+
+
+def _f32(x):
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def log_binomial_coefficient(n, k):
+    """log C(n, k) via lgamma."""
+    n, k = _f32(n), _f32(k)
+    return (torch.lgamma(n + 1.0) - torch.lgamma(k + 1.0)
+            - torch.lgamma(n - k + 1.0))
+
+
+def log_binomial_pdf(n, k, p):
+    """log Pr(k | n, p) for a binomial.
+
+    xlogy/xlog1py give the limits at p ∈ {0, 1} (0·log 0 = 0); impossible
+    outcomes come back as −inf, which the SMC engine clips. Where a
+    prefactor is zero its operand is replaced by a harmless one, as the
+    JAX package does for finite gradients: the values are unchanged.
+    """
+    n, k, p = _f32(n), _f32(k), _f32(p)
+    p_k = torch.where(k == 0.0, 1.0, p)
+    mp_nk = torch.where(n - k == 0.0, 0.0, -p)
+    return (log_binomial_coefficient(n, k) + torch.xlogy(k, p_k)
+            + torch.special.xlog1py(n - k, mp_nk))
+
+
+def binomial_pdf(n, k, p):
+    """Pr(k | n, p)."""
+    return torch.exp(log_binomial_pdf(n, k, p))
 
 
 def normalize_log_weights(log_w):
@@ -67,3 +104,9 @@ def sqrtm_psd(mat, est_error=False):
     if est_error:
         return root, torch.sum(torch.abs(vals - vals_c))
     return root
+
+
+def pytree_to_expparams(record_array):
+    """NumPy record array → expparams (dict of named tensors)."""
+    return {name: torch.from_numpy(np.ascontiguousarray(record_array[name]))
+            for name in record_array.dtype.names}

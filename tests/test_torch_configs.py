@@ -1,0 +1,96 @@
+"""Whole runs of BASELINE configs 2–4 through the port against the JAX
+package (CPU, N = 4096).
+
+The records and gates are ``chip_smoke.CONFIGS``, the ones the card runs
+at 2^20. Both packages start from the same initial cloud (carried across
+with ``interop``) and then draw from their own random streams, so each
+posterior mean is compared within five joint posterior standard
+deviations plus the f32 resolution, as ``test_torch_smc.py`` does for the
+flagship path; config 2 is also held against the f64 oracle.
+"""
+
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from oracle import OracleBinomialPrecession, OracleSMC
+
+import qinfer_tpu as qi
+import qinfer_tpu_torch as qt
+from qinfer_tpu_torch.interop import from_reference, state_from_numpy
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+torch.set_num_threads(2)
+
+N = 4096
+JAX_MODELS = {
+    "config2_binomial_precession":
+        qi.BinomialModel(qi.SimplePrecessionModel()),
+    "config3_binomial_rb": qi.BinomialModel(qi.rb.RandomizedBenchmarkingModel()),
+    "config4_multicos2": qi.MultiCosModel(n_terms=2),
+    "config4_known_t2": qi.KnownT2PrecessionModel(t2=100.0),
+}
+
+
+@pytest.fixture(scope="module", params=chip_smoke.CONFIGS,
+                ids=lambda make: make.__name__)
+def runs(request):
+    cfg = request.param()
+    model_j = JAX_MODELS[cfg.name]
+    assert type(from_reference(model_j)) is type(cfg.model)
+    ju = qi.SMCUpdater(model_j, N, qi.UniformDistribution(cfg.prior),
+                       zero_weight_policy="reset", seed=0)
+    state0 = jax.tree_util.tree_map(np.asarray, ju.state)
+    ju.batch_update(cfg.outcomes, cfg.expparams)
+    tu = qt.SMCUpdater(cfg.model, N, qt.UniformDistribution(cfg.prior),
+                       zero_weight_policy="reset", seed=0)
+    tu.state = state_from_numpy(state0)
+    tu.batch_update(cfg.outcomes, cfg.expparams)
+    return cfg, ju, tu
+
+
+def test_config_passes_its_gate(runs):
+    cfg, _, tu = runs
+    locs = tu.particle_locations.numpy()
+    assert locs.shape == (N, cfg.model.n_modelparams)
+    assert np.all(np.isfinite(locs))
+    ok, est, sd = cfg.gate(tu.est_mean().numpy(),
+                           tu.est_covariance_mtx().numpy())
+    assert ok, (cfg.name, est, sd)
+    assert tu.resample_count > 0
+    assert len(tu.normalization_record) == len(cfg.outcomes)
+
+
+def test_config_matches_jax_by_moments(runs):
+    cfg, ju, tu = runs
+    mean_t, cov_t = tu.est_mean().numpy(), tu.est_covariance_mtx().numpy()
+    mean_j = np.asarray(ju.est_mean())
+    cov_j = np.asarray(ju.est_covariance_mtx())
+    var_t, var_j = np.diag(cov_t), np.diag(cov_j)
+    assert np.all(np.abs(mean_t - mean_j) < 5 * np.sqrt(var_t + var_j) + 1e-6)
+    assert np.all((0.2 < var_t / var_j) & (var_t / var_j < 5.0))
+    # Same initial cloud: the first update's evidence agrees.
+    np.testing.assert_allclose(tu.normalization_record[0],
+                               ju.normalization_record[0], rtol=1e-4)
+
+
+def test_config2_matches_the_oracle():
+    cfg = chip_smoke.config2_binomial_precession()
+    tu = qt.SMCUpdater(cfg.model, N, qt.UniformDistribution(cfg.prior),
+                       zero_weight_policy="reset", seed=1)
+    tu.batch_update(cfg.outcomes, cfg.expparams)
+    rng = np.random.default_rng(0)
+    oracle = OracleSMC(OracleBinomialPrecession(40), N,
+                       lambda k: rng.random((k, 1)), rng)
+    for k, t in zip(cfg.outcomes, cfg.expparams["t"]):
+        oracle.update(int(k), float(t))
+    est_t = float(tu.est_mean()[0])
+    var_t = float(tu.est_covariance_mtx()[0, 0])
+    est_o, var_o = float(oracle.est_mean()[0]), float(oracle.est_cov()[0, 0])
+    assert abs(est_t - est_o) < 5 * np.sqrt(var_t + var_o) + 1e-6
+    assert 0.2 < var_t / var_o < 5.0

@@ -156,7 +156,7 @@ def test_tile_without_cuda_functor_raises():
     """A tile with no CUDA instantiation raises instead of falling back."""
     tile = tfu.two_outcome_tile(lambda scal, off, x: x)
     assert tile.kernel_tile is None
-    assert tfu.two_outcome_tile(tfu.precession_pr1).kernel_tile == 0
+    assert tfu.two_outcome_tile(tfu.precession_pr1).kernel_tile == (0, 0, ())
     x = torch.rand(64)
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
         tfu._fused_update_cuda(tile, torch.tensor([1.0]), x, (x,))

@@ -7,6 +7,9 @@ a GPU machine without JAX it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,9 @@ import qinfer_tpu_torch as qt
 from qinfer_tpu_torch.ops import fused_update as b1
 from qinfer_tpu_torch.ops import resample_expand as b2
 from qinfer_tpu_torch.resamplers import systematic_segment_starts
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -64,8 +70,53 @@ def _log_weights(kind, n, rng):
         return np.log(w / w.sum()).astype(np.float32)
 
 
+@pytest.mark.parametrize("n", [1000, N + 3])
+@pytest.mark.parametrize("case", chip_smoke.ZOO, ids=lambda c: c[0])
+def test_zoo_tile_kernel_matches_plain(cuda, case, n):
+    tile, scal, lw, cols = chip_smoke.zoo_inputs(case, n, n, cuda)
+    launches = b1.fused_bayes_update.launches
+    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
+    assert b1.fused_bayes_update.launches == launches + 1
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lw_k, lw_p - lse_p, atol=1e-4, rtol=0)
+    assert abs(float(ln_k) - float(lse_p)) <= 1e-4
+    assert float(ess_k) == pytest.approx(float(ess_p), rel=1e-3)
+
+
+def test_wide_or_unknown_tile_raises_on_cuda(cuda):
+    """More than 8 columns, or a pr1 with no functor, raises on CUDA
+    instead of running the plain version."""
+    model = qt.MultiCosModel(n_terms=9)
+    locs = torch.rand((256, 9), device=cuda)
+    lw = torch.full((256,), -float(np.log(256.0)), device=cuda)
+    ep = {"ts": torch.rand((1, 9), device=cuda)}
+    with pytest.raises(ValueError, match="at most 8"):
+        model.fused_update(1, lw, locs, ep)
+    tile = b1.two_outcome_tile(lambda scalars, off, x: x)
+    with pytest.raises(NotImplementedError, match="no CUDA functor"):
+        b1.fused_bayes_update(tile, torch.ones(1, device=cuda), lw,
+                              (locs[:, 0],))
+
+
+@pytest.mark.parametrize("make", chip_smoke.CONFIGS,
+                         ids=lambda m: m.__name__)
+def test_config_path_runs_through_both_kernels(cuda, make):
+    cfg = make()
+    u = qt.SMCUpdater(cfg.model, 1 << 16, qt.UniformDistribution(cfg.prior),
+                      zero_weight_policy="reset", device=cuda)
+    l1 = b1.fused_bayes_update.launches
+    l2 = b2.expand_sorted_segments.launches
+    u.batch_update(cfg.outcomes, cfg.expparams)
+    ok, est, sd = cfg.gate(u.est_mean().cpu().numpy(),
+                           u.est_covariance_mtx().cpu().numpy())
+    assert ok, (est, sd)
+    assert b1.fused_bayes_update.launches - l1 == len(cfg.outcomes)
+    assert b2.expand_sorted_segments.launches - l2 >= u.resample_count > 0
+
+
 @pytest.mark.parametrize("n", [257, 16385, N])
-@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("d", [1, 2, 3])
 @pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_expand_kernel_equals_plain_bitwise(cuda, n, d, kind, affine):

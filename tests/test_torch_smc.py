@@ -288,7 +288,33 @@ def test_interop_static_objects():
     with pytest.raises(ValueError, match="noise kernel"):
         from_reference(qi.LiuWestResampler(kernel=lambda k, s: None))
     with pytest.raises(TypeError, match="no port counterpart"):
-        from_reference(qi.CoinModel())
+        from_reference(qi.NDieModel())
+
+
+@pytest.mark.parametrize("obj,fields", [
+    (qi.SimpleInversionModel(min_freq=0.1), {"min_freq": 0.1}),
+    (qi.CoinModel(), {}),
+    (qi.NoisyCoinModel(), {}),
+    (qi.MultiCosModel(n_terms=3), {"n_terms": 3}),
+    (qi.KnownT2PrecessionModel(t2=30.0, min_freq=0.2),
+     {"t2": 30.0, "min_freq": 0.2}),
+    (qi.rb.RandomizedBenchmarkingModel(interleaved=True),
+     {"interleaved": True}),
+    (qi.BinomialModel(qi.rb.RandomizedBenchmarkingModel()), {}),
+    (qi.DifferentiableBinomialModel(qi.KnownT2PrecessionModel(t2=5.0)), {}),
+], ids=lambda v: type(v).__name__ if not isinstance(v, dict) else "")
+def test_interop_zoo_models(obj, fields):
+    m = from_reference(obj)
+    assert type(m).__name__ == type(obj).__name__
+    assert type(m).__module__.startswith("qinfer_tpu_torch.")
+    for name, value in fields.items():
+        assert getattr(m, name) == value
+    if isinstance(obj, qi.BinomialModel):  # the chain converts recursively
+        under = m.underlying_model
+        assert type(under).__name__ == type(obj.underlying_model).__name__
+        assert type(under).__module__.startswith("qinfer_tpu_torch.")
+        assert vars(under) == {k: v for k, v in vars(obj.underlying_model)
+                               .items() if not k.startswith("_")}
 
 
 def test_port_never_imports_jax():
