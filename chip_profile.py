@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Where the time of each chip_smoke.py path goes, on one NVIDIA GPU.
+
+    python3 chip_profile.py [--parent DIR]
+
+For each path (the flagship, configs 2–4, config 5 and two-qubit
+tomography, all at 2^20 particles as ``chip_smoke.py`` runs them) it
+prints one JSON line with:
+
+- ``window_ms``: unprofiled windows, after one warm-up window;
+- ``no_resample_ms``: windows with ``resample_thresh=-1`` (no resampling);
+- ``no_postselect_ms``: windows with ``LiuWestResampler(postselect=False)``,
+  and their resample counts;
+- ``redraw_rounds_per_resample`` of the unprofiled windows;
+- one window under ``torch.profiler``: the device's busy time (the union
+  of its kernel intervals), the idle share against the median unprofiled
+  window, the number of device events and of scalar reads to the host
+  (``aten::_local_scalar_dense``), and the eight largest device items.
+
+``--parent DIR`` also times B1's tiles (``chip_smoke.phase_timing_zoo``)
+in the tree at DIR and in this one, in the order parent, this, this,
+parent, each in a fresh process that builds its kernels, and prints the
+means and each tree's ptxas register lines. Imports nothing of JAX.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+
+N = cs.N_FLAGSHIP
+SEEDS = (0, 1, 2)
+
+
+def _updater(model, prior, seed, device, **kw):
+    return cs.qt.SMCUpdater(model, N, prior, zero_weight_policy="reset",
+                            seed=seed, device=device, **kw)
+
+
+def flagship(seed, device, **kw):
+    ts, outcomes = cs.experiment_record(cs.N_EXP, 0)
+    u = _updater(cs.qt.SimplePrecessionModel(),
+                 cs.qt.UniformDistribution([0, 1]), seed, device, **kw)
+    return _batch(u, outcomes, {"t": ts})
+
+
+def _batch(u, outcomes, expparams):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u.batch_update(outcomes, expparams)
+    u.est_mean().cpu()  # forces the window to finish
+    return time.perf_counter() - t0, u.resample_count
+
+
+def config_runner(make):
+    cfg = make()
+
+    def run(seed, device, **kw):
+        u = _updater(cfg.model, cs.qt.UniformDistribution(cfg.prior), seed,
+                     device, **kw)
+        return _batch(u, cfg.outcomes, cfg.expparams)
+    return run
+
+
+def config5(seed, device, **kw):
+    u = _updater(cs.tomo.TomographyModel(cs.PAULI1),
+                 cs.tomo.GinibreDistribution(cs.PAULI1), seed, device, **kw)
+    w = cs.config5_window(u, seed)
+    return w["seconds"], u.resample_count
+
+
+def tomography_2q(seed, device, **kw):
+    u = _updater(cs.qt.BinomialModel(cs.tomo.TomographyModel(cs.PAULI2)),
+                 cs.tomo.GinibreDistribution(cs.PAULI2), seed, device, **kw)
+    w = cs.tomography_2q_window(u)
+    return w["seconds"], u.resample_count
+
+
+PATHS = {"flagship": flagship,
+         **{make.__name__: config_runner(make) for make in cs.CONFIGS},
+         "config5_adaptive_tomography": config5,
+         "tomography_2q_binomial": tomography_2q}
+
+
+def device_busy(prof):
+    """Busy ms (union of device intervals), events, scalar reads, top items."""
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:8]
+    return {"busy_ms": busy / 1e3, "device_events": len(spans),
+            "scalar_reads": sum(e.name == "aten::_local_scalar_dense"
+                                for e in events),
+            "top": [(k.key[:60], k.device_time_total / 1e3, k.count)
+                    for k in top]}
+
+
+def profile_path(name, run, device):
+    run(10_000, device)  # warm-up
+    cs.qt.LiuWestResampler.redraw_rounds = 0
+    windows = [run(s, device) for s in SEEDS]
+    rounds = cs.qt.LiuWestResampler.redraw_rounds
+    no_rs = [run(s, device, resample_thresh=-1.0)[0] for s in SEEDS]
+    no_ps = [run(s, device, resampler=cs.qt.LiuWestResampler(
+        a=0.98, postselect=False)) for s in SEEDS]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = run(SEEDS[0], device)
+    median = statistics.median(w[0] for w in windows)
+    rec = {"path": name, "n_particles": N,
+           "window_ms": [1e3 * w[0] for w in windows],
+           "resamples": [w[1] for w in windows],
+           "redraw_rounds_per_resample":
+               rounds / max(1, sum(w[1] for w in windows)),
+           "no_resample_ms": [1e3 * s for s in no_rs],
+           "no_postselect_ms": [1e3 * w[0] for w in no_ps],
+           "no_postselect_resamples": [w[1] for w in no_ps],
+           "profiled_window_ms": 1e3 * profiled[0]}
+    rec.update(device_busy(prof))
+    rec["idle_vs_median"] = 1.0 - rec["busy_ms"] / (1e3 * median)
+    print(json.dumps(rec), flush=True)
+
+
+TIMING = ("import json, torch, chip_smoke as cs; cs.phase_build(); "
+          "torch.backends.cuda.matmul.allow_tf32 = False; "
+          "t = cs.phase_timing_zoo(torch.device('cuda', 0)); "
+          "print('TILE_MS', json.dumps(t))")
+
+
+def compare_tiles(parent):
+    """B1 tile µs at 2^20 in the parent tree and this one, alternated."""
+    out, regs = {}, {}
+    for label, tree in (("parent", parent), ("this", "."), ("this", "."),
+                        ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", TIMING], cwd=tree,
+                             capture_output=True, text=True, timeout=900,
+                             check=True)
+        lines = res.stdout.splitlines()
+        regs[label] = [ln.strip() for ln in lines
+                       if "ptxas" in ln and "registers" in ln]
+        times = json.loads(next(ln for ln in lines
+                                if ln.startswith("TILE_MS"))[8:])
+        for tile, (k, _) in times.items():
+            out.setdefault(tile, {}).setdefault(label, []).append(1e3 * k)
+    for label, lines in regs.items():
+        print(f"ptxas {label}:", json.dumps(lines))
+    print(json.dumps({"tile_us_at_2^20": {
+        tile: {label: float(np.mean(v)) for label, v in by.items()}
+        for tile, by in out.items()}}))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a tree to time B1's tiles against")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    cs.phase_device()
+    cs.phase_build()
+    for name, run in PATHS.items():
+        profile_path(name, run, device)
+    if args.parent:
+        compare_tiles(args.parent)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

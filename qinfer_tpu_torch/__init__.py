@@ -9,7 +9,11 @@ systematic expand (kernel B2), driven by ``SMCUpdater.batch_update``; and
 the model zoo of BASELINE configs 2–4 (``BinomialModel``,
 ``RandomizedBenchmarkingModel``, ``MultiCosModel``,
 ``KnownT2PrecessionModel`` and the other two-outcome test models), each
-with its likelihood tile in B1. It imports ``torch`` and never ``jax``.
+with its likelihood tile in B1; and ``tomography`` (bases, priors,
+``TomographyModel`` with B1's Born tile) with the experiment-design half
+of the engine (``SMCUpdater.bayes_risk`` and
+``SMCUpdater.expected_information_gain``), which drive BASELINE config 5's
+adaptive loop. It imports ``torch`` and never ``jax``.
 """
 
 from ._exceptions import ApproximationWarning
@@ -36,10 +40,13 @@ from .smc import (
     SMCState,
     SMCUpdater,
     init_smc_state,
+    bayes_risk_fn,
+    expected_information_gain_fn,
+    hypothetical_log_update,
     smc_batch_update,
     smc_update_step,
 )
-from . import utils
+from . import tomography, utils
 
 __all__ = [
     "ApproximationWarning",
@@ -50,6 +57,7 @@ __all__ = [
     "DifferentiableBinomialModel", "RandomizedBenchmarkingModel", "rb",
     "Resampler", "LiuWestResampler",
     "SMCConfig", "SMCState", "SMCUpdater", "init_smc_state",
-    "smc_update_step", "smc_batch_update",
-    "utils",
+    "smc_update_step", "smc_batch_update", "hypothetical_log_update",
+    "bayes_risk_fn", "expected_information_gain_fn",
+    "tomography", "utils",
 ]

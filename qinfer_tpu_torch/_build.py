@@ -36,10 +36,10 @@ _I32 = ctypes.c_int
 # name -> argtypes; every entry point returns its cudaGetLastError().
 _SIGNATURES = {
     # (outcome, pr1, scalars, consts (host floats), n_consts, log_w,
-    #  cols (host array of device pointers), n_cols, out_lw, partials,
-    #  n_blocks, stats, n, stream)
-    "qt_fused_update": (_I32, _I32, _P, _P, _I32, _P, _P, _I32, _P, _P,
-                        _I32, _P, _I64, _P),
+    #  cols (host array of device pointers), col_strides (host int64s),
+    #  n_cols, out_lw, partials, n_blocks, stats, n, stream)
+    "qt_fused_update": (_I32, _I32, _P, _P, _I32, _P, _P, _P, _I32, _P,
+                        _P, _I32, _P, _I64, _P),
     # (starts, n_in, values, n_cols, affine or NULL, out, n_out, stream)
     "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _P),
 }

@@ -7,9 +7,9 @@
 //     lse  = log Σ exp(lw),   lse2 = log Σ exp(2·lw),   ess = exp(2·lse − lse2)
 //
 // What bounds it on this card: memory. Per particle it reads log_w and one
-// to four parameter columns and writes lw: 12 to 24 bytes, 4 to 8 µs for
-// 2^20 particles at 3.35 TB/s; the cos/log/exp per element are far below the
-// SMs' rate. At that size the two launches cost as much as the traffic.
+// to sixteen parameter columns and writes lw: 12 to 72 bytes, 4 to 23 µs
+// for 2^20 particles at 3.35 TB/s; the cos/log/exp per element are far below
+// the SMs' rate. At that size the two launches cost as much as the traffic.
 //
 // Design. The TPU kernel walks a sequential grid and carries (m, s, m2, s2)
 // across steps in SMEM; Hopper blocks run in parallel and in no order, so:
@@ -25,16 +25,25 @@
 // so the caller feeds the outcome and t without a host sync.
 //
 // The likelihood is a device functor: an outcome composition over a pr1
-// functor, the tiles of fused_update.py:247-344. TwoOutcome<Pr1> is
+// functor, the tiles of fused_update.py:247-356. TwoOutcome<Pr1> is
 // two_outcome_tile (:247), Binomial<Pr1> is binomial_tile (:259, log C(n,k)
-// comes in `scalars`, computed on the device by the wrapper); the pr1
+// comes in `scalars`, computed on the device by the wrapper). The pr1
 // functors are precession (:280), multicos (:286), known-T2 (:299), RB
-// (:311), interleaved RB (:319), inversion (:330), coin (:336) and noisy
-// coin (:342). Each reads its expparams from `scalars` once per thread and
-// its compile-time constants (known-T2's T2) from `consts`, passed by value.
+// (:311), interleaved RB (:319), inversion (:330), coin (:336), noisy
+// coin (:342) and the tomography Born rule make_born_pr1 (:347, up to 16
+// columns). Each reads its expparams from `scalars` once per thread and its
+// compile-time constants (known-T2's T2) from `consts`, passed by value.
 // Products and sums are rounded one by one (__fmul_rn, __fadd_rn: no FMA
 // contraction), as the plain PyTorch version of the same function computes
-// them. make_born_pr1 (tomography, up to 16 columns) is not instantiated.
+// them.
+//
+// Columns are read in place: column j of particle i is p[j][i·stride[j]].
+// The parameter columns of a model are views of one (N, D) row-major bank,
+// so every stride is D and no column is copied out first. Each functor
+// names its own column bound (kMaxColsUsed), so a wide functor does not
+// widen the unrolled loops or the registers of the others: MultiCos keeps
+// 8, and the Born rule is instantiated at 4 columns (a qubit) and at 16
+// (two qubits).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,13 +51,19 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxCols = 8;
+constexpr int kMaxCols = 16;      // the widest functor (Born, two qubits)
+constexpr int kMultiCosMaxCols = 8;
 constexpr int kMaxConsts = 4;
 constexpr float kNegBig = -3.0e38f;
 constexpr float kLogTiny = -87.0f;
 
+// Column j of particle i is p[j][i * stride[j]].
 struct Cols {
   const float* p[kMaxCols];
+  int64_t stride[kMaxCols];
+  __device__ __forceinline__ float operator()(int j, int64_t i) const {
+    return p[j][i * stride[j]];
+  }
 };
 
 struct Consts {
@@ -76,25 +91,25 @@ struct PrecessionPr1 {
   float t;
   __device__ PrecessionPr1(const float* s, const Consts&, int) : t(s[0]) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    return one_minus_cos2(mul(mul(0.5f, c.p[0][i]), t));
+    return one_minus_cos2(mul(mul(0.5f, c(0, i)), t));
   }
 };
 
 // 1 − cos²(0.5·Σ ω_j t_j), summed in the order ω₀t₀ + ω₁t₁ + …;
 // s = ts (n_terms = n_cols).
 struct MultiCosPr1 {
-  static constexpr int kMinCols = 1, kMaxColsUsed = kMaxCols;
-  float ts[kMaxCols];
+  static constexpr int kMinCols = 1, kMaxColsUsed = kMultiCosMaxCols;
+  float ts[kMaxColsUsed];
   int n_terms;
   __device__ MultiCosPr1(const float* s, const Consts&, int n_cols) : n_terms(n_cols) {
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) ts[j] = j < n_cols ? s[j] : 0.0f;
+    for (int j = 0; j < kMaxColsUsed; ++j) ts[j] = j < n_cols ? s[j] : 0.0f;
   }
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    float arg = mul(c.p[0][i], ts[0]);
+    float arg = mul(c(0, i), ts[0]);
 #pragma unroll
-    for (int j = 1; j < kMaxCols; ++j) {
-      if (j < n_terms) arg = add(arg, mul(c.p[j][i], ts[j]));
+    for (int j = 1; j < kMaxColsUsed; ++j) {
+      if (j < n_terms) arg = add(arg, mul(c(j, i), ts[j]));
     }
     return one_minus_cos2(mul(0.5f, arg));
   }
@@ -108,7 +123,7 @@ struct KnownT2Pr1 {
       : t(s[0]), damp(expf(-s[0] / k.v[0])),  // IEEE division (no fast-math)
         mix(mul(0.5f, sub(1.0f, damp))) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    const float co = cosf(mul(mul(0.5f, c.p[0][i]), t));
+    const float co = cosf(mul(mul(0.5f, c(0, i)), t));
     return sub(1.0f, add(mul(mul(damp, co), co), mix));
   }
 };
@@ -125,7 +140,7 @@ struct RbPr1 {
   float m;
   __device__ RbPr1(const float* s, const Consts&, int) : m(s[0]) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    return rb_pr1(m, c.p[0][i], c.p[1][i], c.p[2][i]);
+    return rb_pr1(m, c(0, i), c(1, i), c(2, i));
   }
 };
 
@@ -138,9 +153,9 @@ struct RbInterleavedPr1 {
   __device__ RbInterleavedPr1(const float* s, const Consts&, int)
       : m(s[0]), reference(s[1] == 1.0f) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    const float p_ref = c.p[1][i];
-    const float decay = reference ? p_ref : mul(c.p[0][i], p_ref);
-    return rb_pr1(m, decay, c.p[2][i], c.p[3][i]);
+    const float p_ref = c(1, i);
+    const float decay = reference ? p_ref : mul(c(0, i), p_ref);
+    return rb_pr1(m, decay, c(2, i), c(3, i));
   }
 };
 
@@ -150,7 +165,7 @@ struct InversionPr1 {
   float w, t;
   __device__ InversionPr1(const float* s, const Consts&, int) : w(s[0]), t(s[1]) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    return one_minus_cos2(mul(mul(0.5f, sub(c.p[0][i], w)), t));
+    return one_minus_cos2(mul(mul(0.5f, sub(c(0, i), w)), t));
   }
 };
 
@@ -159,7 +174,7 @@ struct CoinPr1 {
   static constexpr int kMinCols = 1, kMaxColsUsed = 1;
   __device__ CoinPr1(const float*, const Consts&, int) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    return c.p[0][i];
+    return c(0, i);
   }
 };
 
@@ -169,8 +184,30 @@ struct NoisyCoinPr1 {
   float alpha, beta;
   __device__ NoisyCoinPr1(const float* s, const Consts&, int) : alpha(s[0]), beta(s[1]) {}
   __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
-    const float p = c.p[0][i];
+    const float p = c(0, i);
     return sub(1.0f, add(mul(alpha, sub(1.0f, p)), mul(beta, p)));
+  }
+};
+
+// Born rule: clip(x₀e₀ + x₁e₁ + … + x_{n−1}e_{n−1}, 0, 1), summed in that
+// order; s = meas (the effect's n_cols coordinates); columns x_d. Bounded
+// at kCols columns: d² = 4 for a qubit, 16 for two.
+template <int kCols>
+struct BornPr1 {
+  static constexpr int kMinCols = 1, kMaxColsUsed = kCols;
+  float e[kMaxColsUsed];
+  int n;
+  __device__ BornPr1(const float* s, const Consts&, int n_cols) : n(n_cols) {
+#pragma unroll
+    for (int j = 0; j < kMaxColsUsed; ++j) e[j] = j < n_cols ? s[j] : 0.0f;
+  }
+  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+    float acc = mul(c(0, i), e[0]);
+#pragma unroll
+    for (int j = 1; j < kMaxColsUsed; ++j) {
+      if (j < n) acc = add(acc, mul(c(j, i), e[j]));
+    }
+    return clampf(acc, 0.0f, 1.0f);
   }
 };
 
@@ -336,19 +373,24 @@ static int launch_pr1(int pr1, const float* sc, const Consts& k, int n_cols,
     case 5: return launch<Outcome<InversionPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
     case 6: return launch<Outcome<CoinPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
     case 7: return launch<Outcome<NoisyCoinPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 8:
+      return n_cols <= 4
+          ? launch<Outcome<BornPr1<4>>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s)
+          : launch<Outcome<BornPr1<kMaxCols>>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // outcome: 0 = TwoOutcome, 1 = Binomial. pr1: the functor ids of
-// ops/fused_update.py (0 precession … 7 noisy coin). consts: host array of
-// n_consts floats. cols: host array of n_cols device pointers. partials:
-// 3·n_blocks floats; stats: 4 floats. Returns the cudaError_t of the
-// launches (0 on success).
+// ops/fused_update.py (0 precession … 7 noisy coin, 8 Born). consts: host
+// array of n_consts floats. cols, col_strides: host arrays of n_cols device
+// pointers and their element strides. partials: 3·n_blocks floats;
+// stats: 4 floats. Returns the cudaError_t of the launches (0 on success).
 extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
                                const void* consts, int n_consts, const void* log_w,
-                               const void* const* cols, int n_cols, void* out_lw,
-                               void* partials, int n_blocks, void* stats,
+                               const void* const* cols, const int64_t* col_strides,
+                               int n_cols,
+                               void* out_lw, void* partials, int n_blocks, void* stats,
                                int64_t n, void* stream) {
   if (n_cols < 0 || n_cols > kMaxCols || n_consts < 0 || n_consts > kMaxConsts ||
       n_blocks <= 0 || n <= 0) {
@@ -356,7 +398,11 @@ extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Cols c{};
-  for (int j = 0; j < n_cols; ++j) c.p[j] = static_cast<const float*>(cols[j]);
+  for (int j = 0; j < n_cols; ++j) {
+    if (col_strides[j] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    c.p[j] = static_cast<const float*>(cols[j]);
+    c.stride[j] = col_strides[j];
+  }
   Consts k{};
   for (int j = 0; j < n_consts; ++j) k.v[j] = static_cast<const float*>(consts)[j];
   const float* sc = static_cast<const float*>(scalars);

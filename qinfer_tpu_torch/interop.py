@@ -8,9 +8,12 @@ carried: the port seeds its own ``torch.Generator``.
 
 ``from_reference`` converts the ported static objects (the models of
 ``models/``, ``BinomialModel`` with its underlying model converted in
-turn, ``UniformDistribution``, ``LiuWestResampler``, ``SMCConfig``) by
-their fields; ``SMCConfig.canonicalize``, which the JAX
-engine never reads, is not carried. Nothing here imports ``jax``.
+turn, ``UniformDistribution``, ``LiuWestResampler``, ``SMCConfig``, and
+from ``tomography/`` the bases (by ``data``, ``dims``, ``labels``), both
+models (by basis, ``allow_subnormalized``, ``psd_tol``) and every prior (by
+basis, ``rank``, the fiducial state and ``max_alpha``)) by their fields;
+``SMCConfig.canonicalize``, which the JAX engine never reads, is not
+carried. Nothing here imports ``jax``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from . import models
+from . import models, tomography
 from .distributions import UniformDistribution
 from .resamplers import LiuWestResampler
 from .smc import SMCConfig, SMCState
@@ -76,6 +79,27 @@ def _resampler(obj):
     )
 
 
+def _basis(obj):
+    return tomography.TomographyBasis(np.asarray(obj.data), dims=obj.dims,
+                                      labels=obj.labels)
+
+
+def _tomography_model(cls):
+    return lambda obj: cls(basis=_basis(obj.basis),
+                           allow_subnormalized=obj.allow_subnormalized,
+                           psd_tol=obj.psd_tol)
+
+
+def _ranked_prior(cls):
+    return lambda obj: cls(_basis(obj.basis), rank=obj.rank)
+
+
+def _gadfli(obj):
+    fiducial = np.asarray(obj._fid_re) + 1j * np.asarray(obj._fid_im)
+    return tomography.GADFLIDistribution(
+        from_reference(obj.underlying), fiducial, max_alpha=obj.max_alpha)
+
+
 _CONVERTERS = {
     "SimplePrecessionModel":
         lambda obj: models.SimplePrecessionModel(min_freq=obj.min_freq),
@@ -94,6 +118,20 @@ _CONVERTERS = {
         models.DifferentiableBinomialModel(
             from_reference(obj.underlying_model)),
     "UniformDistribution": lambda obj: UniformDistribution(obj.ranges),
+    "TomographyBasis": _basis,
+    "TomographyModel": _tomography_model(tomography.TomographyModel),
+    "DiffusiveTomographyModel":
+        _tomography_model(tomography.DiffusiveTomographyModel),
+    "GinibreDistribution": _ranked_prior(tomography.GinibreDistribution),
+    "GinibreReditDistribution":
+        _ranked_prior(tomography.GinibreReditDistribution),
+    "BCSZChoiDistribution": _ranked_prior(tomography.BCSZChoiDistribution),
+    "GADFLIDistribution": _gadfli,
+    "HilbertSchmidtUniform":
+        lambda obj: tomography.HilbertSchmidtUniform(dim=obj.basis.dim),
+    "HaarUniform": lambda obj: tomography.HaarUniform(dim=obj.basis.dim),
+    "GinibreUniform": lambda obj: tomography.GinibreUniform(
+        rank=obj.rank, dim=obj.basis.dim),
     "LiuWestResampler": _resampler,
     "SMCConfig": lambda obj: SMCConfig(
         resample_thresh=obj.resample_thresh,

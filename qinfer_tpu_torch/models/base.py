@@ -3,10 +3,12 @@
 Counterpart of ``qinfer_tpu/models/base.py``: ``expparams_field``,
 ``_n_exps``, ``Simulatable`` (with the combinator surface ``base_model``,
 ``model_chain``, ``underlying_model``, ``all_outcomes`` and ``Q``),
-``Model`` and ``FiniteOutcomeModel`` with the fused single-pass update. A model is a frozen dataclass of static metadata
-with pure methods; ``log_likelihood`` is the primitive, of shape (O, N, E).
-expparams are a tensor (single-field models) or a dict of named tensors
-with leading axis E.
+``Model`` and ``FiniteOutcomeModel`` with the fused single-pass update. A
+model is a frozen dataclass of static metadata with pure methods;
+``log_likelihood`` is the primitive, of shape (O, N, E). expparams are a
+tensor (single-field models) or a dict of named tensors with leading axis
+E. ``all_outcomes`` lies on the device of the expparams' tensors; ``Q`` is
+built on the CPU, and its callers move it to the bank's device.
 """
 
 from __future__ import annotations
@@ -35,6 +37,17 @@ def _column(expparams: ExpParams, name: str, device):
     """One expparams field as an f32 (E·…,) column on ``device``."""
     v = expparams_field(expparams, name)
     return torch.as_tensor(v, device=device).to(torch.float32).reshape(-1)
+
+
+def _expparams_device(expparams: ExpParams):
+    """The device of the expparams' tensors (the CPU for NumPy arrays and
+    numbers)."""
+    leaves = expparams.values() if isinstance(expparams, dict) else (
+        expparams,)
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
 
 
 def _n_exps(expparams: ExpParams) -> int:
@@ -72,12 +85,15 @@ class Simulatable:
         raise NotImplementedError
 
     def all_outcomes(self, expparams: ExpParams = None):
-        """The outcomes 0 … n_outcomes − 1 as an int32 tensor."""
-        return torch.arange(self.n_outcomes(expparams), dtype=torch.int32)
+        """The outcomes 0 … n_outcomes − 1 as an int32 tensor on the
+        device of ``expparams`` (the CPU when there are none)."""
+        return torch.arange(self.n_outcomes(expparams), dtype=torch.int32,
+                            device=_expparams_device(expparams))
 
     @property
     def Q(self):
-        """Quadratic-loss weights (all ones)."""
+        """Quadratic-loss weights (all ones), on the CPU: callers move
+        them to the bank's device."""
         return torch.ones(self.n_modelparams, dtype=torch.float32)
 
     @property

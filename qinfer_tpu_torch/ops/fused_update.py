@@ -15,7 +15,13 @@ callable as the plain PyTorch version, ``tile(scalars, *param_cols) ->
 Each also names its CUDA functor (``outcome_id``, ``functor_id``), and a
 pr1 carries the constants that the JAX package bakes into its closure
 (``consts``), so the kernel is found by value and ``scalars`` keeps the
-JAX layout.
+JAX layout. The kernel takes at most ``MAX_COLS`` parameter columns; each
+functor's own bound (8 for MultiCos) is checked by the kernel, and a
+launch it refuses raises.
+
+The kernel reads the parameter columns in place: it gets each column's
+pointer and element stride (views of one (N, D) bank have stride D), and
+no column is copied first.
 """
 
 from __future__ import annotations
@@ -33,14 +39,14 @@ __all__ = [
     "TwoOutcomeTile", "BinomialTile", "two_outcome_tile", "binomial_tile",
     "precession_pr1", "make_multicos_pr1", "make_known_t2_pr1", "rb_pr1",
     "rb_interleaved_pr1", "inversion_pr1", "coin_pr1", "noisy_coin_pr1",
-    "MAX_COLS",
+    "make_born_pr1", "MAX_COLS",
 ]
 
 _LOG_TINY = -87.0
 _THREADS = 256  # kThreads in csrc/fused_update.cu
 _ITEMS_PER_THREAD = 4
 _MAX_BLOCKS = 1024
-MAX_COLS = 8  # kMaxCols in csrc/fused_update.cu
+MAX_COLS = 16  # kMaxCols in csrc/fused_update.cu
 _MAX_CONSTS = 4  # kMaxConsts
 
 
@@ -158,6 +164,21 @@ class NoisyCoinPr1(_Pr1):
         return 1.0 - (scalars[off] * (1.0 - p) + scalars[off + 1] * p)
 
 
+@dataclass(frozen=True)
+class BornPr1(_Pr1):
+    """Tomography Born rule: Pr(1) = clip(x₀e₀ + x₁e₁ + …, 0, 1), summed
+    in that order; scalars tail = meas (n_cols,), columns x_d."""
+
+    n_cols: int
+    functor_id: ClassVar[int] = 8
+
+    def __call__(self, scalars, off, *xs):
+        acc = xs[0] * scalars[off]
+        for d in range(1, self.n_cols):
+            acc = acc + xs[d] * scalars[off + d]
+        return torch.clamp(acc, 0.0, 1.0)
+
+
 precession_pr1 = PrecessionPr1()
 rb_pr1 = RbPr1()
 rb_interleaved_pr1 = RbInterleavedPr1()
@@ -172,6 +193,10 @@ def make_multicos_pr1(n_terms):
 
 def make_known_t2_pr1(t2):
     return KnownT2Pr1(float(t2))
+
+
+def make_born_pr1(n_cols):
+    return BornPr1(int(n_cols))
 
 
 # -- outcome compositions ----------------------------------------------------
@@ -253,7 +278,7 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
     if len(param_cols) > MAX_COLS:
         raise ValueError(
             f"the fused update kernel takes at most {MAX_COLS} parameter "
-            f"columns; {tile_fn!r} has {len(param_cols)}"
+            f"columns; got {len(param_cols)}"
         )
     device = log_w.device
     n = log_w.shape[0]
@@ -261,7 +286,7 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
         raise ValueError("log_w must be a non-empty 1-D float32 tensor")
     log_w = log_w.contiguous()
     scalars = scalars.to(device=device, dtype=torch.float32).contiguous()
-    cols = [c.to(torch.float32).contiguous() for c in param_cols]
+    cols = [c.to(torch.float32) for c in param_cols]
     if any(c.device != device or c.shape != (n,) for c in cols):
         raise ValueError("param_cols must be (N,) tensors on log_w's device")
     n_blocks = max(1, min(_MAX_BLOCKS,
@@ -270,6 +295,7 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
     partials = torch.empty(3 * n_blocks, dtype=torch.float32, device=device)
     stats = torch.empty(4, dtype=torch.float32, device=device)
     col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
+    col_strides = (ctypes.c_int64 * len(cols))(*[c.stride(0) for c in cols])
     const_buf = (ctypes.c_float * _MAX_CONSTS)(*consts)
     lib, _ = _build.library()
     with torch.cuda.device(device):
@@ -277,8 +303,9 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
             outcome_id, functor_id, scalars.data_ptr(),
             ctypes.cast(const_buf, ctypes.c_void_p), len(consts),
             log_w.data_ptr(), ctypes.cast(col_ptrs, ctypes.c_void_p),
-            len(cols), out.data_ptr(), partials.data_ptr(), n_blocks,
-            stats.data_ptr(), n,
+            ctypes.cast(col_strides, ctypes.c_void_p), len(cols),
+            out.data_ptr(), partials.data_ptr(),
+            n_blocks, stats.data_ptr(), n,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_fused_update")

@@ -185,6 +185,8 @@ class LiuWestResampler(Resampler):
             all_ok = bool(ok.all())
         if all_ok:
             return new_locs
-        # Clamp stragglers to the valid region; canonicalize runs only
-        # when some particle is still invalid.
-        return torch.where(ok[:, None], new_locs, model.canonicalize(new_locs))
+        # Clamp the stragglers to the valid region. canonicalize is
+        # row-wise, so it runs on the invalid rows only (for two-qubit
+        # tomography it is a batched eigh per row).
+        bad = torch.nonzero(~ok).squeeze(1)
+        return new_locs.index_copy(0, bad, model.canonicalize(new_locs[bad]))

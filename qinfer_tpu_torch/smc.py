@@ -1,14 +1,18 @@
 """SMC inference engine on torch tensors.
 
 Counterpart of ``qinfer_tpu/smc.py``: ``SMCState``, ``SMCConfig``,
-``init_smc_state``, ``smc_update_step``, ``smc_batch_update`` and the
-stateful ``SMCUpdater``. The bank keeps log-space f32 weights on one
-device; randomness comes from the ``torch.Generator`` carried in the state.
+``init_smc_state``, ``smc_update_step``, ``smc_batch_update``, the design
+functions ``hypothetical_log_update``, ``bayes_risk_fn`` and
+``expected_information_gain_fn``, and the stateful ``SMCUpdater``. The bank
+keeps log-space f32 weights on one device; randomness comes from the
+``torch.Generator`` carried in the state.
 
 Control flow runs on the host. The JAX package's ``lax.cond`` on
 ESS < threshold·N becomes an ``if`` on the ESS, which costs one device→host
 sync per update; its ``lax.scan`` over the record becomes a Python loop.
-On CUDA the Bayes update runs kernel B1 and the resample kernel B2.
+On CUDA the Bayes update runs kernel B1 and the resample kernel B2. The
+design functions are plain torch products over the bank (the JAX package
+leaves them to XLA, outside any kernel).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from ._exceptions import ApproximationWarning
 from .distributions import Distribution, ParticleDistribution
-from .models.base import Simulatable
+from .models.base import FiniteOutcomeModel, Simulatable, _n_exps
 from .models.derived import DerivedModel
 from .resamplers import LiuWestResampler
 from .utils import (
@@ -36,7 +40,8 @@ from .utils import (
 
 __all__ = [
     "SMCState", "SMCConfig", "SMCUpdater", "init_smc_state",
-    "smc_update_step", "smc_batch_update",
+    "smc_update_step", "smc_batch_update", "hypothetical_log_update",
+    "bayes_risk_fn", "expected_information_gain_fn",
 ]
 
 _LOG_TINY = -87.0  # exp(-87) ~ 1.6e-38, smallest safe f32 log-likelihood
@@ -110,6 +115,20 @@ def resample_state(model, resampler, state: SMCState) -> SMCState:
         just_resampled=torch.ones((), dtype=torch.bool,
                                   device=new_locs.device),
     )
+
+
+def hypothetical_log_update(model, state: SMCState, outcomes, expparams):
+    """Log-space hypothetical update: (log_w_hyp[O, E, N], log_norm[O, E]),
+    where log_norm[o, e] = log Pr(outcome o | expparam e) under the current
+    posterior and log_w_hyp is normalized over N."""
+    log_L = model.log_likelihood(outcomes, state.particle_locations,
+                                 expparams)  # (O, N, E)
+    # Lower clip only: log-densities may exceed 0.
+    log_L = torch.clamp(log_L, min=_LOG_TINY)
+    log_w_hyp = state.particle_log_weights[None, :, None] + log_L
+    log_norm = torch.logsumexp(log_w_hyp, dim=1)  # (O, E)
+    log_w_hyp = log_w_hyp - log_norm[:, None, :]
+    return log_w_hyp.transpose(1, 2), log_norm
 
 
 def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
@@ -229,6 +248,122 @@ def smc_batch_update(model, resampler, config: SMCConfig, state: SMCState,
     return state, torch.stack(log_norms)
 
 
+def _streaming_pr1(model, state: SMCState, expparams, outcomes):
+    """Pr(outcome 1 | particle, candidate) as one (N, E) tensor, or None.
+
+    The streaming routes apply to plain two-outcome models whose outcomes
+    are [0, 1] and whose likelihood is the pr0-routed default (a model that
+    overrides ``log_likelihood``, such as ``BinomialModel``, takes the
+    general route). Outcomes held on the host are checked there; outcomes
+    on the device are not read back (that would be a sync): they are
+    accepted only when the model enumerates its outcomes with the default
+    arange, which makes a (2,) vector [0, 1].
+    """
+    if not isinstance(model, FiniteOutcomeModel):
+        return None
+    if type(model).pr0 is FiniteOutcomeModel.pr0:
+        return None
+    if type(model).log_likelihood is not FiniteOutcomeModel.log_likelihood:
+        return None
+    try:
+        if model.n_outcomes(expparams) != 2:
+            return None
+    except (TypeError, ValueError):
+        return None
+    if tuple(getattr(outcomes, "shape", ())) != (2,):
+        return None
+    if isinstance(outcomes, torch.Tensor) and outcomes.device.type != "cpu":
+        if type(model).all_outcomes is not Simulatable.all_outcomes:
+            return None
+    elif np.asarray(outcomes).tolist() != [0, 1]:
+        return None
+    return torch.clamp(1.0 - model.pr0(state.particle_locations, expparams),
+                       0.0, 1.0)  # (N, E)
+
+
+def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None):
+    """Expected posterior quadratic loss per candidate experiment, (E,):
+    risk(e) = Σ_o Pr(o|e) · tr[Q · Cov_post(o, e)].
+
+    Two-outcome models stream from one (N, E) pr1 tensor, with the
+    per-outcome second moments centered at the current posterior mean;
+    other models take the general (O, N, E) route, also centered.
+    ``outcomes``: pre-enumerated outcomes (``model.all_outcomes`` when
+    None). ``Q`` is moved to the bank's device.
+    """
+    if outcomes is None:
+        outcomes = model.all_outcomes(expparams)
+    locs = state.particle_locations  # (N, D)
+    device = locs.device
+    q = (torch.ones(locs.shape[1], dtype=torch.float32, device=device)
+         if Q is None else torch.as_tensor(Q, dtype=torch.float32,
+                                           device=device))
+    w = torch.exp(state.particle_log_weights)  # (N,)
+    mu_hat = w @ locs  # (D,) current posterior mean, the centering point
+    y = locs - mu_hat[None, :]
+
+    pr1 = _streaming_pr1(model, state, expparams, outcomes)
+    if pr1 is not None:
+        # Sufficient statistics over the bank: marg1 = Σ w·pr1 (evidence of
+        # outcome 1), A = Σ w·pr1·y, B = Σ w·pr1·y² (outcome-1 moments),
+        # T = Σ w·y, U = Σ w·y² (totals: outcome 0 is total − outcome 1).
+        wp = w[:, None] * pr1  # (N, E)
+        marg1 = wp.sum(0)
+        marg0 = torch.clamp(1.0 - marg1, 0.0, 1.0)
+        A = wp.T @ y
+        B = wp.T @ (y * y)
+        T = w @ y
+        U = w @ (y * y)
+
+        def tr_qvar(m, a, b):
+            m_safe = torch.clamp(m, min=1e-30)[:, None]
+            var = torch.clamp(b / m_safe - (a / m_safe) ** 2, min=0.0)
+            return var @ q  # (E,)
+
+        return (marg1 * tr_qvar(marg1, A, B)
+                + marg0 * tr_qvar(marg0, T[None, :] - A, U[None, :] - B))
+
+    log_w_hyp, log_norm = hypothetical_log_update(model, state, outcomes,
+                                                  expparams)
+    w_hyp = torch.exp(log_w_hyp)  # (O, E, N)
+    mu = w_hyp @ y  # (O, E, D)
+    second = w_hyp @ (y * y)
+    var = torch.clamp(second - mu * mu, min=0.0)
+    return torch.sum(torch.exp(log_norm) * (var @ q), dim=0)
+
+
+def expected_information_gain_fn(model, state: SMCState, expparams,
+                                 outcomes=None):
+    """Mutual information I(outcome; params | e) per candidate, (E,):
+    IG(e) = H[Σ_n w_n L(o|n,e)] − Σ_n w_n H[L(·|n,e)].
+
+    Two-outcome models stream from one (N, E) pr1 tensor (the binary
+    entropy replaces the (O, N, E) log-likelihood); other models take the
+    general route, with xlogy's 0·log 0 = 0.
+    """
+    if outcomes is None:
+        outcomes = model.all_outcomes(expparams)
+    w = torch.exp(state.particle_log_weights)  # (N,)
+
+    pr1 = _streaming_pr1(model, state, expparams, outcomes)
+    if pr1 is not None:
+        marg1 = w @ pr1  # (E,)
+        marg0 = torch.clamp(1.0 - marg1, 0.0, 1.0)
+        h_marg = -(torch.xlogy(marg1, marg1) + torch.xlogy(marg0, marg0))
+        pr0 = 1.0 - pr1
+        h_bin = -(torch.xlogy(pr1, pr1) + torch.xlogy(pr0, pr0))  # (N, E)
+        return h_marg - w @ h_bin
+
+    log_L = torch.clamp(
+        model.log_likelihood(outcomes, state.particle_locations, expparams),
+        _LOG_TINY, 0.0)  # (O, N, E)
+    L = torch.exp(log_L)
+    marg = torch.einsum("n,one->oe", w, L)  # Pr(o | e)
+    h_marg = -torch.sum(torch.xlogy(marg, marg), dim=0)
+    h_cond = -torch.einsum("n,one->e", w, L * log_L)
+    return h_marg - h_cond
+
+
 # ---------------------------------------------------------------------------
 # Stateful host wrapper — reference API surface
 # ---------------------------------------------------------------------------
@@ -239,6 +374,9 @@ class SMCUpdater(ParticleDistribution):
     Same constructor as the JAX package's ``SMCUpdater`` (less
     ``track_resampling_divergence``), plus ``device`` and an optional
     ``generator`` (which then fixes the device) in place of ``key``.
+    ``bayes_risk`` and ``expected_information_gain`` take candidate
+    expparams (E,) and return (E,) tensors on the bank's device, or a 0-d
+    tensor when E == 1.
     """
 
     def __init__(
@@ -284,6 +422,7 @@ class SMCUpdater(ParticleDistribution):
             generator = torch.Generator(device=torch.device(device))
             generator.manual_seed(seed)
         self.device = generator.device
+        self._init_generator_state = generator.get_state()
         self.state = init_smc_state(generator, model, self._n_particles,
                                     prior)
 
@@ -334,7 +473,47 @@ class SMCUpdater(ParticleDistribution):
         """ESS = 1/Σwᵢ²."""
         return effective_sample_size(self.state.particle_log_weights)
 
+    # -- lifecycle ---------------------------------------------------------
+
+    def reset(self, n_particles=None, only_params=None, fresh_rng=True):
+        """Re-draw the particles from the prior and clear the records.
+
+        ``fresh_rng=True`` draws from the updater's generator where it now
+        stands; ``fresh_rng=False`` first puts the generator back to its
+        state at construction, which replays the initial cloud exactly.
+        """
+        if n_particles is not None:
+            self._n_particles = int(n_particles)
+        if only_params is not None:
+            raise NotImplementedError("only_params reset is not supported.")
+        generator = self.state.generator
+        if not fresh_rng:
+            generator.set_state(self._init_generator_state)
+        self.state = init_smc_state(generator, self.model, self._n_particles,
+                                    self.prior)
+        self.data_record = []
+        self.normalization_record = []
+
     # -- updates -----------------------------------------------------------
+
+    def hypothetical_update(self, outcomes, expparams,
+                            return_likelihood=False,
+                            return_normalization=False):
+        """Linear weights (O, E, N) [+ normalization (O, E, 1)]
+        [+ likelihood (O, N, E)] of the hypothetical updates."""
+        expparams = _expparams_to(expparams, self.device)
+        outcomes = torch.as_tensor(outcomes, device=self.device).reshape(-1)
+        log_w_hyp, log_norm = hypothetical_log_update(
+            self.model, self.state, outcomes, expparams)
+        self._call_count += (outcomes.shape[0] * self._n_particles
+                             * _n_exps(expparams))
+        out = [torch.exp(log_w_hyp)]
+        if return_normalization:
+            out.append(torch.exp(log_norm)[:, :, None])
+        if return_likelihood:
+            out.append(torch.exp(self.model.log_likelihood(
+                outcomes, self.state.particle_locations, expparams)))
+        return out[0] if len(out) == 1 else tuple(out)
 
     def update(self, outcome, expparams, check_for_resample=True):
         """One Bayes update (+ conditional resample).
@@ -400,6 +579,16 @@ class SMCUpdater(ParticleDistribution):
     def est_mean(self):
         return particle_mean(self.particle_weights, self.particle_locations)
 
+    def est_meanfn(self, fn):
+        """Σᵢ wᵢ fn(xᵢ) over the leading axis of ``fn``'s output."""
+        return torch.tensordot(self.particle_weights,
+                               fn(self.particle_locations), dims=([0], [0]))
+
+    def est_entropy(self):
+        """−Σ wᵢ log wᵢ."""
+        log_w = self.state.particle_log_weights
+        return -torch.sum(torch.exp(log_w) * log_w)
+
     def est_covariance_mtx(self, corr=False):
         cov = particle_covariance_mtx(self.particle_weights,
                                       self.particle_locations)
@@ -407,6 +596,34 @@ class SMCUpdater(ParticleDistribution):
             std = torch.sqrt(torch.diag(cov))
             cov = cov / torch.outer(std, std)
         return cov
+
+    # -- experiment design -------------------------------------------------
+
+    def _design_inputs(self, expparams):
+        """(expparams on the bank's device, outcomes). The outcomes are
+        enumerated from the expparams as given, so that a host record
+        (NumPy, CPU tensors) is enumerated and checked on the host."""
+        if isinstance(expparams, np.ndarray) and expparams.dtype.names:
+            expparams = pytree_to_expparams(expparams)
+        outcomes = self.model.all_outcomes(expparams)
+        return _expparams_to(expparams, self.device), outcomes
+
+    def bayes_risk(self, expparams, Q=None):
+        """Expected posterior quadratic loss of each candidate (with the
+        model's ``Q`` unless given)."""
+        expparams, outcomes = self._design_inputs(expparams)
+        if Q is None:
+            Q = getattr(self.model, "Q", None)
+        risk = bayes_risk_fn(self.model, self.state, expparams, Q, outcomes)
+        return risk[0] if risk.shape[0] == 1 else risk
+
+    def expected_information_gain(self, expparams):
+        """Mutual information between the outcome and the parameters,
+        per candidate."""
+        expparams, outcomes = self._design_inputs(expparams)
+        ig = expected_information_gain_fn(self.model, self.state, expparams,
+                                          outcomes)
+        return ig[0] if ig.shape[0] == 1 else ig
 
 
 def _as_single_expparams(expparams, device):

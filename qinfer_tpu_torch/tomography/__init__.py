@@ -1,0 +1,37 @@
+"""Quantum state and process tomography. Counterpart of
+``qinfer_tpu/tomography`` (its plotting helpers are not ported yet)."""
+
+from .bases import (
+    TomographyBasis,
+    gell_mann_basis,
+    pauli_basis,
+    tensor_product_basis,
+)
+from .distributions import (
+    BCSZChoiDistribution,
+    DensityOperatorDistribution,
+    GADFLIDistribution,
+    GinibreDistribution,
+    GinibreReditDistribution,
+    GinibreUniform,
+    HaarUniform,
+    HilbertSchmidtUniform,
+)
+from .models import DiffusiveTomographyModel, TomographyModel
+
+__all__ = [
+    "TomographyBasis",
+    "gell_mann_basis",
+    "pauli_basis",
+    "tensor_product_basis",
+    "TomographyModel",
+    "DiffusiveTomographyModel",
+    "DensityOperatorDistribution",
+    "GinibreDistribution",
+    "GinibreReditDistribution",
+    "BCSZChoiDistribution",
+    "GADFLIDistribution",
+    "HilbertSchmidtUniform",
+    "HaarUniform",
+    "GinibreUniform",
+]

@@ -1,4 +1,4 @@
-"""Whole runs of BASELINE configs 2–4 through the port against the JAX
+"""Whole runs of BASELINE configs 2–5 through the port against the JAX
 package (CPU, N = 4096).
 
 The records and gates are ``chip_smoke.CONFIGS``, the ones the card runs
@@ -7,18 +7,27 @@ with ``interop``) and then draw from their own random streams, so each
 posterior mean is compared within five joint posterior standard
 deviations plus the f32 resolution, as ``test_torch_smc.py`` does for the
 flagship path; config 2 is also held against the f64 oracle.
+
+Config 5 (``chip_smoke.config5_window``, adaptive qubit tomography) and
+two-qubit binomial tomography (``chip_smoke.tomography_2q_window``) run
+through the port; the JAX ``SMCUpdater`` replays the effects the port chose
+and the outcomes it drew, and the posterior means are compared the same
+way. The port's first EIG, on the shared initial cloud, equals the JAX
+package's.
 """
 
 import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from oracle import OracleBinomialPrecession, OracleSMC
 
 import qinfer_tpu as qi
+import qinfer_tpu.tomography as jt
 import qinfer_tpu_torch as qt
 from qinfer_tpu_torch.interop import from_reference, state_from_numpy
 
@@ -94,3 +103,53 @@ def test_config2_matches_the_oracle():
     est_o, var_o = float(oracle.est_mean()[0]), float(oracle.est_cov()[0, 0])
     assert abs(est_t - est_o) < 5 * np.sqrt(var_t + var_o) + 1e-6
     assert 0.2 < var_t / var_o < 5.0
+
+
+def _assert_means_agree(tu, ju):
+    mean_t, cov_t = tu.est_mean().numpy(), tu.est_covariance_mtx().numpy()
+    mean_j = np.asarray(ju.est_mean())
+    var_t = np.diag(cov_t)
+    var_j = np.diag(np.asarray(ju.est_covariance_mtx()))
+    assert np.all(np.abs(mean_t - mean_j)
+                  < 5 * np.sqrt(var_t + var_j) + 1e-6), (mean_t, mean_j)
+
+
+def test_config5_adaptive_tomography_matches_jax():
+    """The port's adaptive loop, replayed through the JAX SMCUpdater."""
+    ju = qi.SMCUpdater(jt.TomographyModel(jt.pauli_basis(1)), N,
+                       jt.GinibreDistribution(jt.pauli_basis(1)),
+                       zero_weight_policy="reset", seed=0)
+    tu = chip_smoke.config5_updater(N, 0, torch.device("cpu"))
+    tu.state = state_from_numpy(jax.tree_util.tree_map(np.asarray, ju.state))
+    cand = {"meas": chip_smoke.EFFECTS_1Q}
+    ig0_j = np.asarray(ju.expected_information_gain(cand))
+    w = chip_smoke.config5_window(tu, 0)
+    np.testing.assert_allclose(w["igs"][0], ig0_j, rtol=1e-4, atol=1e-6)
+    ok, err, spread = chip_smoke.config5_gate(w)
+    assert ok, (err, spread)
+    assert len(w["choices"]) == chip_smoke.N_STEPS_1Q
+    assert sorted(set(w["choices"])) == [0, 1, 2]
+    for k, outcome in zip(w["choices"], w["outcomes"]):
+        ju.update(jnp.int32(outcome),
+                  {"meas": jnp.asarray(chip_smoke.EFFECTS_1Q[k])[None]})
+    assert tu.resample_count > 0 and ju.resample_count > 0
+    _assert_means_agree(tu, ju)
+
+
+def test_tomography_2q_binomial_matches_jax():
+    """One batch_update over the two-qubit record in both packages."""
+    _, _, meas, counts = chip_smoke.tomography_2q_record()
+    ju = qi.SMCUpdater(qi.BinomialModel(jt.TomographyModel(jt.pauli_basis(2))),
+                       N, jt.GinibreDistribution(jt.pauli_basis(2)),
+                       zero_weight_policy="reset", seed=0)
+    tu = chip_smoke.tomography_2q_updater(N, 0, torch.device("cpu"))
+    tu.state = state_from_numpy(jax.tree_util.tree_map(np.asarray, ju.state))
+    w = chip_smoke.tomography_2q_window(tu)
+    ok, overlap = chip_smoke.tomography_2q_gate(w)
+    assert ok, overlap
+    ju.batch_update(jnp.asarray(counts), {
+        k: jnp.asarray(v)
+        for k, v in chip_smoke.tomography_2q_expparams(meas).items()})
+    np.testing.assert_allclose(tu.normalization_record[0],
+                               ju.normalization_record[0], rtol=1e-4)
+    _assert_means_agree(tu, ju)

@@ -1,11 +1,13 @@
 """Port parity for B1's likelihood-tile zoo (CPU).
 
-The ten non-tomography cases of ``tests/test_pallas_ops.py``'s zoo. For
-each, the port's model builds the same ``scalars`` array as the JAX
-package's, and the port's plain version of ``fused_bayes_update`` on those
-scalars is held against the JAX Pallas kernel in interpret mode, on the
-same seeded numpy bank. The port's fused route is also held against its
-own unfused route, with the tolerances of ``test_pallas_ops.py``.
+The twelve cases of ``tests/test_pallas_ops.py``'s zoo, and the Born tile
+at 16 columns (one update of two-qubit binomial tomography). For each, the
+port's model builds the same ``scalars`` array as the JAX package's, and
+the port's plain version of ``fused_bayes_update`` on those scalars is held
+against the JAX Pallas kernel in interpret mode, on the same seeded numpy
+bank (a uniform box, or Ginibre states for tomography). The port's fused
+route is also held against its own unfused route, with the tolerances of
+``test_pallas_ops.py``.
 
 Tolerances against JAX: log_norm atol 2e-4, ESS rtol 1e-3, log-weights
 atol 1e-4 plus the likelihood's conditioning term and never above 2e-3.
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 import qinfer_tpu as qi
+import qinfer_tpu.tomography as jt
 import qinfer_tpu_torch as qt
 from qinfer_tpu.ops import fused_update as jfu
 from qinfer_tpu_torch.interop import from_reference
@@ -84,14 +87,61 @@ ZOO = [
       "beta": np.array([0.1], np.float32)},
      lambda x: 1 - (0.9 * (1 - x[:, 0]) + 0.1 * x[:, 0])),
 ]
+
+
+def _ginibre(basis, eps=False):
+    """Bank maker: Ginibre state coordinates drawn with numpy (and a
+    diffusion rate ε ~ U[0, 0.05] as a last column)."""
+
+    def make(n, rng):
+        d = basis.dim
+        g = (rng.standard_normal((n, d, d))
+             + 1j * rng.standard_normal((n, d, d)))
+        rho = g @ g.conj().transpose(0, 2, 1)
+        rho = rho / np.trace(rho, axis1=1, axis2=2)[:, None, None]
+        x = np.asarray(basis.state_to_modelparams(rho.astype(np.complex64)))
+        if eps:
+            x = np.concatenate([x, 0.05 * rng.random((n, 1))], axis=1)
+        return x.astype(np.float32)
+
+    return make
+
+
+def _born(e):
+    return lambda x: np.clip(x[:, :len(e)] @ e.astype(np.float64), 0, 1)
+
+
+_P1, _P2 = jt.pauli_basis(1), jt.pauli_basis(2)
+_E4 = np.array([1, 1, 0, 0], np.float32) / np.float32(2 * np.sqrt(2))
+# |a⟩⟨a| ⊗ |b⟩⟨b| for two fixed pure states.
+_A = np.array([0.6, 0.8j], np.complex64)
+_B = np.array([0.8, -0.36 + 0.48j], np.complex64)
+_E16 = np.array(_P2.state_to_modelparams(np.kron(
+    np.outer(_A, _A.conj()), np.outer(_B, _B.conj()))[None]))[0]
+# test_pallas_ops.py:281-286, and one binomial update at 16 columns.
+ZOO += [
+    ("tomography", jt.TomographyModel(_P1), _ginibre(_P1), 1,
+     {"meas": _E4[None]}, _born(_E4)),
+    ("diffusive_tomography", jt.DiffusiveTomographyModel(_P1),
+     _ginibre(_P1, eps=True), 1,
+     {"meas": _E4[None], "t": np.array([1.0], np.float32)}, _born(_E4)),
+    ("binomial_tomography_2q", qi.BinomialModel(jt.TomographyModel(_P2)),
+     _ginibre(_P2), 31,
+     {"meas": _E16[None], "n_meas": np.array([50], np.int32)}, _born(_E16)),
+]
 IDS = [c[0] for c in ZOO]
 
 
 def _bank(box, n, seed):
+    """(locations, normalized log-weights): a uniform box, or the bank
+    maker of a tomography case."""
     rng = np.random.default_rng(seed)
-    box = np.asarray(box, np.float64)
-    locs = (box[:, 0] + (box[:, 1] - box[:, 0])
-            * rng.random((n, len(box)))).astype(np.float32)
+    if callable(box):
+        locs = box(n, rng)
+    else:
+        box = np.asarray(box, np.float64)
+        locs = (box[:, 0] + (box[:, 1] - box[:, 0])
+                * rng.random((n, len(box)))).astype(np.float32)
     lw = np.log(rng.random(n))
     lw = (lw - np.log(np.sum(np.exp(lw)))).astype(np.float32)
     return locs, lw
@@ -142,6 +192,15 @@ def _jax_tile(model, locs, ep):
 @pytest.mark.parametrize("n", [257, 2048])
 @pytest.mark.parametrize("case", ZOO, ids=IDS)
 def test_zoo_tile_matches_pallas_interpret(case, n):
+    _tile_matches_pallas_interpret(case, n)
+
+
+@pytest.mark.parametrize("case", ZOO[-3:], ids=IDS[-3:])
+def test_born_tile_matches_pallas_interpret_at_16384(case):
+    _tile_matches_pallas_interpret(case, 16384)
+
+
+def _tile_matches_pallas_interpret(case, n):
     name, model_j, box, outcome, ep, _ = case
     model_t = from_reference(model_j)
     locs, lw = _bank(box, n, n + len(name))
@@ -218,26 +277,34 @@ def test_tiles_are_found_by_value():
     """Factory tiles are equal values, so each call finds its functor."""
     assert tfu.make_multicos_pr1(2) == tfu.make_multicos_pr1(2)
     assert tfu.make_known_t2_pr1(30.0).consts == (30.0,)
+    assert tfu.make_born_pr1(16) == tfu.make_born_pr1(16)
     specs = {tfu.two_outcome_tile(p).kernel_tile[1] for p in (
         tfu.precession_pr1, tfu.make_multicos_pr1(3),
         tfu.make_known_t2_pr1(5.0), tfu.rb_pr1, tfu.rb_interleaved_pr1,
-        tfu.inversion_pr1, tfu.coin_pr1, tfu.noisy_coin_pr1)}
-    assert specs == set(range(8))
+        tfu.inversion_pr1, tfu.coin_pr1, tfu.noisy_coin_pr1,
+        tfu.make_born_pr1(4))}
+    assert specs == set(range(9))
     assert tfu.binomial_tile(tfu.rb_pr1).kernel_tile == (1, 3, ())
 
 
 def test_cuda_route_raises_for_missing_functor_and_wide_tiles():
     """On the CUDA route a tile with no functor, or with more than
-    MAX_COLS columns, raises before any launch; the CPU route runs the
-    plain version."""
+    MAX_COLS = 16 columns, raises before any launch (a functor's own,
+    narrower bound, 8 for MultiCos, is the kernel's to refuse); the CPU
+    route runs the plain version."""
     model = qt.MultiCosModel(n_terms=tfu.MAX_COLS + 1)
     locs = torch.rand(64, model.n_modelparams)
     ep = {"ts": torch.rand(1, model.n_modelparams)}
     tile, scal, cols = model.fused_spec(1, locs, ep)
     lw = torch.full((64,), -float(np.log(64.0)))
-    with pytest.raises(ValueError, match="at most 8 parameter columns"):
+    with pytest.raises(ValueError, match="at most 16 parameter columns"):
         tfu._fused_update_cuda(tile, scal, lw, cols)
     assert torch.isfinite(model.fused_update(1, lw, locs, ep)[0]).all()
+    wide = torch.rand(64, tfu.MAX_COLS + 1)
+    born = tfu.two_outcome_tile(tfu.make_born_pr1(tfu.MAX_COLS + 1))
+    with pytest.raises(ValueError, match="at most 16 parameter columns"):
+        tfu._fused_update_cuda(born, torch.rand(tfu.MAX_COLS + 2), lw,
+                               tuple(wide.T))
     stray = tfu.binomial_tile(lambda scalars, off, x: x)
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
         tfu._fused_update_cuda(stray, scal[:4], lw, (locs[:, 0],))

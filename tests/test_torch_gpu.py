@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import qinfer_tpu_torch as qt
+from qinfer_tpu_torch.interop import state_from_numpy, state_to_numpy
 from qinfer_tpu_torch.ops import fused_update as b1
 from qinfer_tpu_torch.ops import resample_expand as b2
 from qinfer_tpu_torch.resamplers import systematic_segment_starts
@@ -85,18 +86,98 @@ def test_zoo_tile_kernel_matches_plain(cuda, case, n):
 
 
 def test_wide_or_unknown_tile_raises_on_cuda(cuda):
-    """More than 8 columns, or a pr1 with no functor, raises on CUDA
+    """More columns than a functor takes (8 for MultiCos, which the kernel
+    refuses; 16 for any tile), or a pr1 with no functor, raises on CUDA
     instead of running the plain version."""
     model = qt.MultiCosModel(n_terms=9)
     locs = torch.rand((256, 9), device=cuda)
     lw = torch.full((256,), -float(np.log(256.0)), device=cuda)
     ep = {"ts": torch.rand((1, 9), device=cuda)}
-    with pytest.raises(ValueError, match="at most 8"):
+    with pytest.raises(RuntimeError, match="cudaError"):
         model.fused_update(1, lw, locs, ep)
+    born = b1.two_outcome_tile(b1.make_born_pr1(17))
+    wide = torch.rand((256, 17), device=cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        b1.fused_bayes_update(born, torch.rand(18, device=cuda), lw,
+                              tuple(wide[:, d] for d in range(17)))
     tile = b1.two_outcome_tile(lambda scalars, off, x: x)
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
         b1.fused_bayes_update(tile, torch.ones(1, device=cuda), lw,
                               (locs[:, 0],))
+
+
+@pytest.mark.parametrize("n", [1000, N + 3])
+@pytest.mark.parametrize("case", chip_smoke.TOMO, ids=lambda c: c[0])
+def test_born_tile_kernel_matches_plain(cuda, case, n):
+    tile, scal, lw, cols = chip_smoke.tomo_inputs(case, n, n, cuda)
+    launches = b1.fused_bayes_update.launches
+    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
+    assert b1.fused_bayes_update.launches == launches + 1
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lw_k, lw_p - lse_p, atol=1e-4, rtol=0)
+    assert abs(float(ln_k) - float(lse_p)) <= 1e-4
+    assert float(ess_k) == pytest.approx(float(ess_p), rel=1e-3)
+
+
+@pytest.mark.parametrize("copy", ["all", "every_other"])
+def test_strided_and_contiguous_columns_agree(cuda, copy):
+    """The kernel reads each column in place with its own stride; copies
+    of the same columns (stride 1), all of them or every other one, give
+    the same bits."""
+    tile, scal, lw, cols = chip_smoke.tomo_inputs(chip_smoke.TOMO[2], 4099,
+                                                  5, cuda)
+    assert cols[0].stride(0) == 16
+    step = 1 if copy == "all" else 2
+    mixed = tuple(c.contiguous() if j % step == 0 else c
+                  for j, c in enumerate(cols))
+    strided = b1.fused_bayes_update(tile, scal, lw, cols)
+    copied = b1.fused_bayes_update(tile, scal, lw, mixed)
+    torch.cuda.synchronize()
+    for a, b in zip(strided, copied):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model_case", [0, 2], ids=["qubit", "binomial_2q"])
+def test_design_on_a_cuda_bank(cuda, model_case):
+    """bayes_risk and expected_information_gain on a CUDA bank: the
+    outcomes and Q follow the bank to the card, and the result agrees with
+    the same state on the CPU."""
+    _, model, prior, _, _ = chip_smoke.TOMO[model_case]
+    u = qt.SMCUpdater(model, 1 << 14, prior, zero_weight_policy="reset",
+                      device=cuda)
+    if isinstance(model, qt.BinomialModel):
+        rng = np.random.default_rng(0)
+        cand = {"meas": np.stack([chip_smoke.product_projector_2q(rng)
+                                  for _ in range(3)]),
+                "n_meas": np.full(3, 50, np.int32)}
+    else:
+        cand = {"meas": chip_smoke.EFFECTS_1Q}
+    host = qt.SMCUpdater(model, 1 << 14, prior, zero_weight_policy="reset")
+    host.state = state_from_numpy(state_to_numpy(u.state))
+    for name in ("bayes_risk", "expected_information_gain"):
+        on_card = getattr(u, name)(cand)
+        assert on_card.device.type == "cuda" and on_card.shape == (3,)
+        torch.testing.assert_close(on_card.cpu(), getattr(host, name)(cand),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_tomography_paths_run_through_both_kernels(cuda):
+    l1 = b1.fused_bayes_update.launches
+    l2 = b2.expand_sorted_segments.launches
+    w = chip_smoke.config5_window(chip_smoke.config5_updater(1 << 16, 1,
+                                                             cuda), 0)
+    ok, err, spread = chip_smoke.config5_gate(w)
+    assert ok, (err, spread)
+    assert b1.fused_bayes_update.launches - l1 == chip_smoke.N_STEPS_1Q
+    assert (b2.expand_sorted_segments.launches - l2
+            >= w["updater"].resample_count > 0)
+    l1 = b1.fused_bayes_update.launches
+    w = chip_smoke.tomography_2q_window(
+        chip_smoke.tomography_2q_updater(1 << 16, 1, cuda))
+    ok, overlap = chip_smoke.tomography_2q_gate(w)
+    assert ok, overlap
+    assert b1.fused_bayes_update.launches - l1 == chip_smoke.N_SETTINGS_2Q
 
 
 @pytest.mark.parametrize("make", chip_smoke.CONFIGS,
@@ -116,7 +197,7 @@ def test_config_path_runs_through_both_kernels(cuda, make):
 
 
 @pytest.mark.parametrize("n", [257, 16385, N])
-@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 16])
 @pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_expand_kernel_equals_plain_bitwise(cuda, n, d, kind, affine):
