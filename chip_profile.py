@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of each chip_smoke.py path goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--parent DIR]
+    python3 chip_profile.py [--paths NAME ...] [--parent DIR]
 
-For each path (the flagship, configs 2–4, config 5 and two-qubit
-tomography, all at 2^20 particles as ``chip_smoke.py`` runs them) it
-prints one JSON line with:
+For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
+the PGH loops of config 1 and config 4's known-T2, all at 2^20 particles,
+and the two trial ensembles, as ``chip_smoke.py`` runs them; ``--paths``
+picks some) it prints one JSON line with:
 
 - ``window_ms``: unprofiled windows, after one warm-up window;
 - ``no_resample_ms``: windows with ``resample_thresh=-1`` (no resampling);
 - ``no_postselect_ms``: windows with ``LiuWestResampler(postselect=False)``,
-  and their resample counts;
+  and their resample counts (for an ensemble a window is one timed
+  ``perf_test_multiple`` run and its resamples are summed over trials);
 - ``redraw_rounds_per_resample`` of the unprofiled windows;
 - one window under ``torch.profiler``: the device's busy time (the union
   of its kernel intervals), the idle share against the median unprofiled
@@ -18,6 +20,7 @@ prints one JSON line with:
   (``aten::_local_scalar_dense``), and the eight largest device items.
 
 ``--parent DIR`` also times B1's tiles (``chip_smoke.phase_timing_zoo``)
+and B1's flagship tile and B2 at D = 1, 4, 16 (``chip_smoke.phase_timing``)
 in the tree at DIR and in this one, in the order parent, this, this,
 parent, each in a fresh process that builds its kernels, and prints the
 means and each tree's ptxas register lines. Imports nothing of JAX.
@@ -84,10 +87,31 @@ def tomography_2q(seed, device, **kw):
     return w["seconds"], u.resample_count
 
 
+def pgh_runner(model, truth):
+    def run(seed, device, **kw):
+        w = cs.pgh_window(model, truth, seed, device, **kw)
+        return w["seconds"], w["resamples"]
+    return run
+
+
+def ensemble_runner(n_trials, n, n_exp):
+    def run(seed, device, resample_thresh=None, resampler=None):
+        extra = ({} if resample_thresh is None
+                 else {"resample_thresh": resample_thresh})
+        seconds, perf, _ = cs.ensemble_run(
+            n_trials, n, n_exp, seed, device, extra_updater_args=extra,
+            resampler=resampler)
+        return seconds, int(perf["resample_count"][:, -1].sum())
+    return run
+
+
 PATHS = {"flagship": flagship,
          **{make.__name__: config_runner(make) for make in cs.CONFIGS},
          "config5_adaptive_tomography": config5,
-         "tomography_2q_binomial": tomography_2q}
+         "tomography_2q_binomial": tomography_2q,
+         **{name: pgh_runner(model, truth)
+            for name, model, truth, _ in cs.PGH_PATHS},
+         **{name: ensemble_runner(t, n, e) for name, t, n, e in cs.ENSEMBLES}}
 
 
 def device_busy(prof):
@@ -123,7 +147,7 @@ def profile_path(name, run, device):
                              ProfilerActivity.CUDA]) as prof:
         profiled = run(SEEDS[0], device)
     median = statistics.median(w[0] for w in windows)
-    rec = {"path": name, "n_particles": N,
+    rec = {"path": name,
            "window_ms": [1e3 * w[0] for w in windows],
            "resamples": [w[1] for w in windows],
            "redraw_rounds_per_resample":
@@ -137,9 +161,14 @@ def profile_path(name, run, device):
     print(json.dumps(rec), flush=True)
 
 
+# Both trees' timing phases; a record is (kernel ms, plain ms) in older
+# trees and a dict with "ms" in newer ones.
 TIMING = ("import json, torch, chip_smoke as cs; cs.phase_build(); "
           "torch.backends.cuda.matmul.allow_tf32 = False; "
-          "t = cs.phase_timing_zoo(torch.device('cuda', 0)); "
+          "d = torch.device('cuda', 0); "
+          "t = {**cs.phase_timing(d), **cs.phase_timing_zoo(d)}; "
+          "t = {k: v['ms'] if isinstance(v, dict) else v[0] "
+          "for k, v in t.items()}; "
           "print('TILE_MS', json.dumps(t))")
 
 
@@ -156,7 +185,7 @@ def compare_tiles(parent):
                        if "ptxas" in ln and "registers" in ln]
         times = json.loads(next(ln for ln in lines
                                 if ln.startswith("TILE_MS"))[8:])
-        for tile, (k, _) in times.items():
+        for tile, k in times.items():
             out.setdefault(tile, {}).setdefault(label, []).append(1e3 * k)
     for label, lines in regs.items():
         print(f"ptxas {label}:", json.dumps(lines))
@@ -167,7 +196,9 @@ def compare_tiles(parent):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="a tree to time B1's tiles against")
+    ap.add_argument("--parent", help="a tree to time the kernels against")
+    ap.add_argument("--paths", nargs="*", choices=sorted(PATHS),
+                    help="profile only these paths (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: torch sees no CUDA device", file=sys.stderr)
@@ -178,7 +209,8 @@ def main():
     cs.phase_device()
     cs.phase_build()
     for name, run in PATHS.items():
-        profile_path(name, run, device)
+        if not args.paths or name in args.paths:
+            profile_path(name, run, device)
     if args.parent:
         compare_tiles(args.parent)
     return 0

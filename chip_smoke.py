@@ -39,11 +39,32 @@ Phases, in order; any failure exits non-zero before the result line:
    columns, B2 at D = 16), one ``batch_update`` over 120 product
    projectors × 50 shots per window; gate: x̂ physical and Tr(ρ̂ρ) > 0.45.
    One JSON line.
-8. timing: each kernel against its plain version at 2^20, with CUDA
+8. config1_quickstart_pgh and config4_known_t2_pgh (``PGH_PATHS``): the
+   adaptive loops of examples/config1 and examples/config4's known-T2 at
+   2^20, 100 steps of ``PGH`` → ``simulate_experiment`` on the card →
+   ``update`` per window; a warm-up window and three timed ones, each
+   gated |est − ω| < 6σ + slack; B1 once per update, B2 at least once per
+   resample. One JSON line each.
+9. ensemble_small (256 × 2048 × 100) and ensemble_big (4 × 2^18 × 50),
+   ``ENSEMBLES``: ``perf_test_multiple`` with ``PGH`` on the card, three
+   runs each, gated on the median final loss (< 1e-3); the batched B1
+   launches exactly once per step for all trials, the batched B2 at least
+   once per step that resampled. One JSON line each, with the ensemble
+   particle-updates/s T·N·n_exp / wall.
+10. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
-   Born tiles of the paths; B2 at D = 1, 4 and 16.
+   Born tiles of the paths; B2 at D = 1, 4 and 16, and beside it
+   ``torch.repeat_interleave`` (the pick without the affine); the batched
+   B1 and B2 in both ensemble regimes.
 
-The last two lines are the kernel table and
+The compare phase also holds the batched kernels: batched B1 within
+``B1_TOL`` of its plain version and bit-equal per trial to single-bank
+launches (``B1_BATCH_SHAPES``, three tiles), batched B2 bit-equal to its
+plain version and to single-bank launches (``B2_BATCH_SHAPES``).
+
+The last two lines are the kernel table (each kernel with its launches on
+its path, its worst error, its time, its plain version's, the bound from
+its bytes and operations, and the library call's time or null) and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -444,9 +465,11 @@ def phase_build():
             m = re.search(r"(TwoOutcome|Binomial)INS_\d+(\w+?Pr1)"
                           r"(?:ILi(\d+)E)?E", line)
             bound = f"<{m.group(3)}>" if m and m.group(3) else ""
-            kernel = (f"{m.group(1)}<{m.group(2)}{bound}>" if m
+            trials = " [trial grid]" if "Lb1E" in line else ""
+            kernel = (f"{m.group(1)}<{m.group(2)}{bound}>{trials}" if m
                       else "fused_update_pass2" if "pass2" in line
-                      else "expand_kernel")
+                      else "expand_kernel" + (" [trial grid]"
+                                              if "ILb1E" in line else ""))
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}:", line.split(":", 1)[-1].strip())
 
@@ -555,6 +578,125 @@ def phase_compare_b2(device):
                             f" {kind} affine={affine}")
                     worst = max(worst, float(torch.max(torch.abs(out_k - out_p))))
     return worst
+
+
+# -- batched kernels (trial ensembles) ------------------------------------------
+
+# (T, N) of the two ensemble regimes of bench_ensemble.py:54-58, and a
+# ragged one.
+B1_BATCH_SHAPES = ((256, 2048), (4, 1 << 18), (3, 1000 + 3))
+B2_BATCH_SHAPES = ((256, 2048, 1), (4, 1 << 18, 1), (8, 4099, 4))
+
+
+def batched_b1_inputs(name, n_trials, n, seed, device):
+    """(tile, scalars (T, k), log_w (T, N), cols) of one batched B1 case:
+    T banks drawn from the tile's prior, one experiment per trial, from
+    ``model.fused_spec_batched``. ``name``: precession, multicos or born4."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    if name == "precession":
+        model, locs = qt.SimplePrecessionModel(), rand(n_trials, n, 1)
+        ep = {"t": 1.0 + 20.0 * rand(n_trials)}
+    elif name == "multicos":
+        model, locs = qt.MultiCosModel(n_terms=2), rand(n_trials, n, 2)
+        ep = {"ts": 4.0 * rand(n_trials, 2)}
+    else:
+        model = tomo.TomographyModel(PAULI1)
+        locs = tomo.GinibreDistribution(PAULI1).sample(
+            g, n_trials * n).reshape(n_trials, n, 4)
+        pick = torch.randint(0, 3, (n_trials,), generator=g, device=device)
+        ep = {"meas": torch.as_tensor(EFFECTS_1Q, device=device)[pick]}
+    outcomes = torch.randint(0, 2, (n_trials,), generator=g, device=device)
+    lw = torch.log(1.0 - rand(n_trials, n))  # finite: 1 − U lies in (0, 1]
+    tile, scal, cols = model.fused_spec_batched(outcomes, locs, ep)
+    return tile, scal, lw - torch.logsumexp(lw, 1, keepdim=True), cols
+
+
+def phase_compare_b1_batched(device):
+    """Batched B1 against its plain version (within B1_TOL) and, trial by
+    trial, against single-bank launches (log-weights and log_norm
+    bit-equal), for three tiles at each B1_BATCH_SHAPES. Returns the worst
+    error against the plain version."""
+    worst = 0.0
+    for name in ("precession", "multicos", "born4"):
+        for n_trials, n in B1_BATCH_SHAPES:
+            tile, scal, lw, cols = batched_b1_inputs(name, n_trials, n,
+                                                     n_trials + n, device)
+            lw_k, ln_k, ess_k = b1.fused_bayes_update_batched(tile, scal, lw,
+                                                              cols)
+            lw_p, lse_p, _, ess_p = b1.fused_update_plain_batched(
+                tile, scal, lw, cols)
+            lw_p = lw_p - lse_p[:, None]
+            torch.cuda.synchronize()
+            err = float(torch.max(torch.abs(lw_k - lw_p)))
+            ln_err = float(torch.max(torch.abs(ln_k - lse_p)))
+            ess_rel = float(torch.max(torch.abs(ess_k / ess_p - 1.0)))
+            same = True
+            for i in range(n_trials):
+                lw_1, ln_1, _ = b1.fused_bayes_update(
+                    tile, scal[i], lw[i], tuple(c[i] for c in cols))
+                same &= torch.equal(lw_1, lw_k[i]) and torch.equal(ln_1,
+                                                                   ln_k[i])
+            ok = (err <= B1_TOL["lw_atol"] and ln_err <= B1_TOL["log_norm_atol"]
+                  and ess_rel <= B1_TOL["ess_rtol"]
+                  and bool(torch.isfinite(lw_k).all()) and same)
+            print(f"B1 batched {name} T={n_trials} N={n}: max|dlw|={err:.3g}"
+                  f" |dlog_norm|={ln_err:.3g} ess_rel={ess_rel:.3g}"
+                  f" per-trial single launches "
+                  f"{'bit-equal' if same else 'DIFFER'}"
+                  f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"batched B1 disagrees: {name} "
+                                     f"T={n_trials} N={n}")
+            worst = max(worst, err, ln_err)
+    return worst
+
+
+def batched_b2_inputs(n_trials, n, d, seed, device):
+    """(starts (T, N), values (T, N, D), μ (T, D)) with per-trial weights of
+    the three kinds of ``_weights`` in turn."""
+    rng = np.random.default_rng(seed)
+    kinds = ("random", "degenerate", "single_heavy")
+    log_w = torch.as_tensor(np.stack([_weights(kinds[i % 3], n, rng)
+                                      for i in range(n_trials)]),
+                            device=device)
+    u0 = torch.as_tensor(rng.random(n_trials), dtype=torch.float32,
+                         device=device)
+    starts = qt.resamplers.systematic_segment_starts_batched(log_w, n, u0=u0)
+    vals = torch.as_tensor(rng.standard_normal((n_trials, n, d)),
+                           dtype=torch.float32, device=device)
+    mu = torch.as_tensor(rng.standard_normal((n_trials, d)),
+                         dtype=torch.float32, device=device)
+    return starts, vals, mu
+
+
+def phase_compare_b2_batched(device):
+    """Batched B2 bit-equal to its plain version and to single-bank
+    launches, with and without the per-trial affine."""
+    for n_trials, n, d in B2_BATCH_SHAPES:
+        starts, vals, mu = batched_b2_inputs(n_trials, n, d, n, device)
+        for affine in (False, True):
+            scale, shift = (0.98, 0.02 * mu) if affine else (None, None)
+            out_k = b2.expand_sorted_segments_batched(starts, vals, scale=scale,
+                                                      shift=shift)
+            out_p = b2.expand_plain_batched(
+                starts, vals, n,
+                b2._affine_batched(scale, shift, n_trials, d, device))
+            singles = torch.stack([b2.expand_sorted_segments(
+                starts[i], vals[i], scale=scale,
+                shift=None if shift is None else shift[i])
+                for i in range(n_trials)])
+            torch.cuda.synchronize()
+            same = torch.equal(out_k, out_p) and torch.equal(out_k, singles)
+            print(f"B2 batched T={n_trials} N={n} D={d} affine={affine}: "
+                  f"{'bit-equal to plain and single launches' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"batched B2 differs at T={n_trials} "
+                                     f"N={n} D={d} affine={affine}")
+    return 0.0
 
 
 def _window(seed, record_seed, device):
@@ -667,6 +809,8 @@ def phase_configs(device):
 def _reset_counters():
     b1.fused_bayes_update.launches = 0
     b2.expand_sorted_segments.launches = 0
+    b1.fused_bayes_update_batched.launches = 0
+    b2.expand_sorted_segments_batched.launches = 0
     qt.LiuWestResampler.redraw_rounds = 0
 
 
@@ -753,6 +897,153 @@ def phase_tomography_2q(device):
     return counts
 
 
+# -- adaptive PGH loops (BASELINE config 1, config 4's known-T2) ----------------
+
+N_PGH_STEPS = 100
+# (name, model, true ω, gate slack): examples/config1_precession_quickstart.py
+# :12-32 and examples/config4_multiparameter_hamiltonian.py:31-47.
+PGH_PATHS = (
+    ("config1_quickstart_pgh", qt.SimplePrecessionModel(), 0.512, 1e-3),
+    ("config4_known_t2_pgh", qt.KnownT2PrecessionModel(t2=100.0), 0.44, 5e-3),
+)
+
+
+def pgh_window(model, truth, seed, device, n=N_FLAGSHIP, n_steps=N_PGH_STEPS,
+               **updater_kw):
+    """One adaptive window: ``n_steps`` of PGH → simulate_experiment at the
+    true ω on the card → update, on a fresh updater with the uniform prior
+    on [0, 1]. The simulator draws from its own generator (seed + 1).
+    Returns the window's time, estimate, σ and resample count."""
+    u = qt.SMCUpdater(model, n, qt.UniformDistribution([0, 1]),
+                      zero_weight_policy="reset", seed=seed, device=device,
+                      **updater_kw)
+    heuristic = qt.PGH(u)
+    sim = torch.Generator(device=device).manual_seed(seed + 1)
+    true_mp = torch.tensor([[truth]], device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ep = heuristic()
+        outcome = model.simulate_experiment(sim, true_mp, ep)[0, 0, 0]
+        u.update(outcome, ep)
+    est = float(u.est_mean()[0])  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    sd = float(torch.sqrt(u.est_covariance_mtx()[0, 0]))
+    return {"seconds": seconds, "est": est, "sd": sd,
+            "resamples": u.resample_count,
+            "finite": bool(torch.isfinite(u.particle_locations).all())}
+
+
+def phase_pgh_paths(device):
+    """Each PGH path at 2^20: a warm-up window, then three timed windows
+    (seeds 1–3) with every counter set to 0 just before them and read just
+    after; every window gated |est − ω| < 6σ + slack. One JSON line each."""
+    launches = {}
+    for name, model, truth, slack in PGH_PATHS:
+        pgh_window(model, truth, 0, device)  # warm-up
+        _reset_counters()
+        windows = [pgh_window(model, truth, s, device) for s in (1, 2, 3)]
+        counts, rounds = _read_counters()
+        for w in windows:
+            if not (w["finite"] and abs(w["est"] - truth)
+                    < 6 * w["sd"] + slack):
+                raise AssertionError(f"{name}: gate failed: est={w['est']} "
+                                     f"sd={w['sd']} truth={truth}")
+        n_resamples = [w["resamples"] for w in windows]
+        _check_launches(name, counts, 3 * N_PGH_STEPS, sum(n_resamples))
+        secs = [w["seconds"] for w in windows]
+        print(json.dumps({
+            "config": name, "n_particles": N_FLAGSHIP,
+            "n_updates": N_PGH_STEPS,
+            "particle_updates_per_s":
+                N_FLAGSHIP * N_PGH_STEPS / statistics.median(secs),
+            "window_s": secs, "est": [w["est"] for w in windows],
+            "sd": [w["sd"] for w in windows], "truth": truth,
+            "n_resamples": n_resamples, "redraw_rounds": rounds,
+            "launches": counts}))
+        launches[name] = counts
+    return launches
+
+
+# -- trial ensembles (perf_test_multiple) ---------------------------------------
+
+# (name, T, N, n_exp): bench_ensemble.py:54-58.
+ENSEMBLES = (("ensemble_small", 256, 2048, 100),
+             ("ensemble_big", 4, 1 << 18, 50))
+ENSEMBLE_SEEDS = (7, 8, 9)
+ENSEMBLE_GATE = 1e-3  # median final loss, bench_ensemble.py:47
+
+
+def ensemble_run(n_trials, n, n_exp, seed, device, **kw):
+    """perf_test_multiple with PGH on SimplePrecessionModel under a
+    uniform prior on [0, 1] (its own warm-up first). Returns the timed
+    run's seconds, the records and the number of timed steps in which a
+    trial resampled."""
+    perf, seconds = qt.perf_test_multiple(
+        n_trials, qt.SimplePrecessionModel(), n,
+        qt.UniformDistribution([0, 1]), n_exp, qt.PGH, seed=seed,
+        return_time=True, device=device, **kw)
+    counts = perf["resample_count"]
+    steps_resampled = int(np.sum(np.any(
+        np.diff(np.concatenate([np.zeros((n_trials, 1), int), counts], 1),
+                axis=1) > 0, axis=0)))
+    return seconds, perf, steps_resampled
+
+
+def phase_ensembles(device):
+    """Each ensemble regime: three runs (seeds 7–9), each with every
+    counter set to 0 just before it and read just after; each gated on its
+    median final loss. B1 batched must launch exactly once per step (the
+    timed run's n_exp and the warm-up's), single-bank B1 never, B2 batched
+    at least once per timed step that resampled."""
+    from qinfer_tpu_torch.perf_testing import _WARMUP_EXPERIMENTS
+
+    out = {}
+    for name, n_trials, n, n_exp in ENSEMBLES:
+        runs, counts = [], None
+        for seed in ENSEMBLE_SEEDS:
+            _reset_counters()
+            seconds, perf, steps_resampled = ensemble_run(n_trials, n, n_exp,
+                                                          seed, device)
+            run_counts = {"B1": b1.fused_bayes_update.launches,
+                          "B1_batched": b1.fused_bayes_update_batched.launches,
+                          "B2_batched":
+                              b2.expand_sorted_segments_batched.launches}
+            loss = float(np.median(perf["loss"][:, -1]))
+            steps = n_exp + min(n_exp, _WARMUP_EXPERIMENTS)
+            if not loss < ENSEMBLE_GATE or not np.all(
+                    np.isfinite(perf["est"])):
+                raise AssertionError(f"{name}: median final loss {loss}")
+            if run_counts["B1_batched"] != steps or run_counts["B1"] != 0:
+                raise AssertionError(f"{name}: B1 launches {run_counts}, "
+                                     f"expected {steps} batched, 0 single")
+            if (steps_resampled == 0
+                    or run_counts["B2_batched"] < steps_resampled):
+                raise AssertionError(f"{name}: B2 batched launched "
+                                     f"{run_counts['B2_batched']} times for "
+                                     f"{steps_resampled} resampling steps")
+            runs.append({"seconds": seconds, "loss": loss,
+                         "steps_resampled": steps_resampled,
+                         "resamples": int(perf["resample_count"][:, -1].sum()),
+                         "launches": run_counts})
+            counts = {k: (counts or {}).get(k, 0) + v
+                      for k, v in run_counts.items()}
+        secs = [r["seconds"] for r in runs]
+        print(json.dumps({
+            "config": name, "n_trials": n_trials, "n_particles": n,
+            "n_exp": n_exp,
+            "ensemble_particle_updates_per_s":
+                n_trials * n * n_exp / statistics.median(secs),
+            "wall_s": secs,
+            "ms_per_step": [1e3 * s / n_exp for s in secs],
+            "median_final_loss": [r["loss"] for r in runs],
+            "steps_resampled": [r["steps_resampled"] for r in runs],
+            "resamples": [r["resamples"] for r in runs],
+            "launches": counts}))
+        out[name] = counts
+    return out
+
+
 def _time_ms(fn, iters):
     """Device time per call. A device-side sleep queued first lets the host
     enqueue every call before the device starts them, so the events time
@@ -773,16 +1064,76 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _alternate(plain, kernel, iters=20):
-    """plain, kernel, kernel, plain; the mean of each pair."""
+def _alternate(plain, kernel, library=None, iters=20):
+    """plain, kernel, [library, library,] kernel, plain; the mean of each
+    pair, in ms: {"ms", "plain_ms", "library_ms"} (None without a library
+    call)."""
     p1 = _time_ms(plain, iters)
     k1 = _time_ms(kernel, iters)
+    lib = None
+    if library is not None:
+        lib = (_time_ms(library, iters) + _time_ms(library, iters)) / 2
     k2 = _time_ms(kernel, iters)
     p2 = _time_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib}
+
+
+# The card's peaks (H100 SXM data sheet, at 700 W): HBM bytes/s and f32
+# operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def b1_work(n_cols, n):
+    """(bytes, operations) of B1 over n particles: log_w and n_cols columns
+    read once, lw written once; per particle the pr1's product and sum per
+    column and about twelve more (outcome composition, clip, log, the
+    update's add and the streaming log-sum-exp's exp, compares and sums)."""
+    return (8 + 4 * n_cols) * n, (12 + 2 * n_cols) * n
+
+
+def b2_work(starts, n_cols, n_out):
+    """(bytes, operations) of B2 on these starts: every start read once,
+    the D values of each particle that this run picks read once, the
+    (n_out, D) output written once; per output row a binary search over
+    the starts and the affine's product and sum per column."""
+    n_in = starts.shape[-1]
+    last = torch.full(starts.shape[:-1] + (1,), n_out, dtype=torch.int64,
+                      device=starts.device)
+    counts = torch.diff(torch.cat([starts.to(torch.int64), last], -1), dim=-1)
+    picked = int((counts > 0).sum())
+    rows = n_out * (starts.numel() // n_in)
+    bytes_ = 4 * starts.numel() + 4 * n_cols * picked + 4 * n_cols * rows
+    ops = rows * (int(np.ceil(np.log2(n_in))) + 2 * n_cols)
+    return bytes_, ops
+
+
+def bound(work):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the f32 rate."""
+    bytes_, ops = work
+    by_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / F32_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def _repeat_interleave(starts, vals, n_out):
+    """The one PyTorch call that picks as B2 does (without the affine):
+    ``torch.repeat_interleave`` of the values by their segment lengths."""
+    last = torch.full(starts.shape[:-1] + (1,), n_out, dtype=torch.int64,
+                      device=starts.device)
+    counts = torch.diff(torch.cat([starts.to(torch.int64), last], -1),
+                        dim=-1).reshape(-1)
+    flat = vals.reshape(-1, vals.shape[-1])
+    total = n_out * (starts.numel() // starts.shape[-1])
+    return lambda: torch.repeat_interleave(flat, counts, dim=0,
+                                           output_size=total)
 
 
 def phase_timing(device):
+    """B1 (flagship tile) and B2 at D = 1, 4, 16 at 2^20: kernel, plain,
+    and for B2 the library call."""
     tile = b1.two_outcome_tile(b1.precession_pr1)
     omega, lw = _b1_inputs(N_FLAGSHIP, 7, device)
     scal = torch.tensor([1.0, 17.3], device=device)
@@ -793,6 +1144,7 @@ def phase_timing(device):
 
     times = {"B1": _alternate(
         b1_plain, lambda: b1.fused_bayes_update(tile, scal, lw, (omega,)))}
+    times["B1"]["work"] = b1_work(1, N_FLAGSHIP)
 
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(_weights("random", N_FLAGSHIP, rng), device=device)
@@ -800,17 +1152,22 @@ def phase_timing(device):
     for d in (1, 4, 16):
         vals = torch.rand((N_FLAGSHIP, d), device=device)
         affine = b2._affine(0.98, 0.02 * vals.mean(0), d, device)
-        times["B2" if d == 1 else f"B2[D={d}]"] = _alternate(
+        name = "B2" if d == 1 else f"B2[D={d}]"
+        times[name] = _alternate(
             lambda: b2.expand_plain(starts, vals, N_FLAGSHIP, affine),
-            lambda: b2._expand_cuda(starts, vals, N_FLAGSHIP, affine))
-    for name, (k, p) in times.items():
-        print(f"{name} at 2^20: kernel {k:.4f} ms, plain {p:.4f} ms")
+            lambda: b2._expand_cuda(starts, vals, N_FLAGSHIP, affine),
+            _repeat_interleave(starts, vals, N_FLAGSHIP))
+        times[name]["work"] = b2_work(starts, d, N_FLAGSHIP)
+    for name, t in times.items():
+        print(f"{name} at 2^20: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, "
+              f"bound {bound(t['work'])[0]:.4f} ms")
     return times
 
 
 def phase_timing_zoo(device):
     """B1 with each ZOO tile and each TOMO tile at 2^20, kernel against
-    plain."""
+    plain (no single PyTorch call computes B1)."""
     times = {}
     inputs = [(case[0], zoo_inputs(case, N_FLAGSHIP, 7, device))
               for case in ZOO]
@@ -824,9 +1181,55 @@ def phase_timing_zoo(device):
 
         times[name] = _alternate(
             plain, lambda: b1.fused_bayes_update(tile, scal, lw, cols))
+        times[name]["work"] = b1_work(len(cols), N_FLAGSHIP)
     print(json.dumps({"b1_tile_ms_at_2^20": {
-        name: {"ms": k, "plain_ms": p} for name, (k, p) in times.items()}}))
+        name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": bound(t["work"])[0]}
+        for name, t in times.items()}}))
     return times
+
+
+def phase_timing_batched(device):
+    """Batched B1 (the ensembles' precession tile) and batched B2 (D = 1)
+    in both ensemble regimes: kernel, plain, and for B2 the library call."""
+    times = {}
+    for n_trials, n in B1_BATCH_SHAPES[:2]:
+        tile, scal, lw, cols = batched_b1_inputs("precession", n_trials, n, 7,
+                                                 device)
+
+        def plain():
+            lw_u, lse, _, ess = b1.fused_update_plain_batched(tile, scal, lw,
+                                                              cols)
+            return lw_u - lse[:, None], lse, ess
+
+        t = _alternate(plain, lambda: b1.fused_bayes_update_batched(
+            tile, scal, lw, cols))
+        t["work"] = b1_work(1, n_trials * n)
+        times[f"B1_batched[{n_trials}x{n}]"] = t
+    for n_trials, n, d in B2_BATCH_SHAPES[:2]:
+        starts, vals, mu = batched_b2_inputs(n_trials, n, d, 7, device)
+        affine = b2._affine_batched(0.98, 0.02 * mu, n_trials, d, device)
+        t = _alternate(
+            lambda: b2.expand_plain_batched(starts, vals, n, affine),
+            lambda: b2._expand_cuda_batched(starts, vals, n, affine),
+            _repeat_interleave(starts, vals, n))
+        t["work"] = b2_work(starts, d, n)
+        times[f"B2_batched[{n_trials}x{n}]"] = t
+    print(json.dumps({"batched_ms": {
+        name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+               "library_ms": t["library_ms"], "bound_ms": bound(t["work"])[0]}
+        for name, t in times.items()}}))
+    return times
+
+
+def kernel_row(name, source, replaces, launches, max_abs_err, t):
+    """One entry of the kernels line from a timing record ``t``."""
+    bound_ms, bound_by = bound(t["work"])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"]}
 
 
 def main():
@@ -841,22 +1244,32 @@ def main():
     err = {"B1": phase_compare_b1(device), "B2": phase_compare_b2(device)}
     zoo_err = phase_compare_zoo(device)
     zoo_err.update(phase_compare_tomo(device))
+    batched_err = {"B1": phase_compare_b1_batched(device),
+                   "B2": phase_compare_b2_batched(device)}
     launches = phase_main_path(device)
     config_launches = phase_configs(device)
     config_launches["config5_adaptive_tomography"] = phase_config5(device)
     config_launches["tomography_2q_binomial"] = phase_tomography_2q(device)
+    pgh_launches = phase_pgh_paths(device)
+    ens_launches = phase_ensembles(device)
     times = phase_timing(device)
     zoo_times = phase_timing_zoo(device)
-    replaces = {"B1": "qinfer_tpu/ops/fused_update.py:36",
-                "B2": "qinfer_tpu/ops/resample_expand.py:115"}
-    names = {"B1": "fused_bayes_update", "B2": "expand_sorted_segments"}
-    sources = {"B1": "qinfer_tpu_torch/csrc/fused_update.cu",
-               "B2": "qinfer_tpu_torch/csrc/resample_expand.cu"}
+    batched_times = phase_timing_batched(device)
+    src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
+    src2 = "qinfer_tpu_torch/csrc/resample_expand.cu"
+    b1_line = "qinfer_tpu/ops/fused_update.py:{}".format
+    b2_kernel = "qinfer_tpu/ops/resample_expand.py:115"
     kernels = [
-        {"name": names[k], "route": "cuda", "source": sources[k],
-         "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in ("B1", "B2")
+        kernel_row("fused_bayes_update", src1, b1_line(36), launches["B1"],
+                   err["B1"], times["B1"]),
+        kernel_row("expand_sorted_segments", src2, b2_kernel, launches["B2"],
+                   err["B2"], times["B2"]),
+        kernel_row("expand_sorted_segments[D=4]", src2, b2_kernel,
+                   config_launches["config5_adaptive_tomography"]["B2"],
+                   err["B2"], times["B2[D=4]"]),
+        kernel_row("expand_sorted_segments[D=16]", src2, b2_kernel,
+                   config_launches["tomography_2q_binomial"]["B2"],
+                   err["B2"], times["B2[D=16]"]),
     ]
     tile_line = {case[0]: case[5] for case in ZOO}
     rows = [(cfg, tile, tile, tile_line[tile])
@@ -864,13 +1277,25 @@ def main():
     rows += [(cfg, tile, label, 347)  # make_born_pr1
              for cfg, (tile, label) in TOMO_TILE.items()]
     for cfg_name, tile, label, line in rows:
-        kernels.append({
-            "name": f"fused_bayes_update[{label}]",
-            "route": "cuda", "source": sources["B1"],
-            "replaces": f"qinfer_tpu/ops/fused_update.py:{line}",
-            "launches": config_launches[cfg_name]["B1"],
-            "max_abs_err": zoo_err[tile], "ms": zoo_times[tile][0],
-            "plain_ms": zoo_times[tile][1]})
+        kernels.append(kernel_row(
+            f"fused_bayes_update[{label}]", src1, b1_line(line),
+            config_launches[cfg_name]["B1"], zoo_err[tile], zoo_times[tile]))
+    kernels.append(kernel_row(
+        "fused_bayes_update[known_t2, PGH]", src1, b1_line(299),
+        pgh_launches["config4_known_t2_pgh"]["B1"], zoo_err["known_t2"],
+        zoo_times["known_t2"]))
+    for (name, n_trials, n, _), (b1_key, b2_key) in zip(ENSEMBLES, (
+            ("B1_batched[256x2048]", "B2_batched[256x2048]"),
+            ("B1_batched[4x262144]", "B2_batched[4x262144]"))):
+        kernels.append(kernel_row(
+            f"fused_bayes_update_batched[{n_trials}x{n}]", src1, b1_line(197),
+            ens_launches[name]["B1_batched"], batched_err["B1"],
+            batched_times[b1_key]))
+        kernels.append(kernel_row(
+            f"expand_sorted_segments_batched[{n_trials}x{n}]", src2,
+            "qinfer_tpu/ops/resample_expand.py:359",
+            ens_launches[name]["B2_batched"], batched_err["B2"],
+            batched_times[b2_key]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

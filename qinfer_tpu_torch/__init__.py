@@ -13,11 +13,31 @@ with its likelihood tile in B1; and ``tomography`` (bases, priors,
 ``TomographyModel`` with B1's Born tile) with the experiment-design half
 of the engine (``SMCUpdater.bayes_risk`` and
 ``SMCUpdater.expected_information_gain``), which drive BASELINE config 5's
-adaptive loop. It imports ``torch`` and never ``jax``.
+adaptive loop; and the adaptive and ensemble layer: the heuristics (``PGH``,
+``ExpSparseHeuristic``, the EIG and risk greedy cores), the simulator
+(``simulate_experiment``), ``ExperimentDesigner``, ``simple_est_prec`` and
+``simple_est_rb``, and ``perf_test`` / ``perf_test_multiple``, which run
+trial ensembles in lockstep through the batched forms of B1 and B2. Entry
+points run on the card unless the caller passes ``device="cpu"``. It
+imports ``torch`` and never ``jax``.
 """
 
 from ._exceptions import ApproximationWarning
-from .distributions import Distribution, ParticleDistribution, UniformDistribution
+from .distributions import (
+    ConstantDistribution,
+    Distribution,
+    ParticleDistribution,
+    PostselectedDistribution,
+    UniformDistribution,
+)
+from .expdesign import ExperimentDesigner, OptimizationAlgorithms
+from .heuristics import (
+    EIGHeuristic,
+    ExpSparseHeuristic,
+    Heuristic,
+    PGH,
+    RiskHeuristic,
+)
 from .models import (
     BinomialModel,
     CoinModel,
@@ -34,23 +54,32 @@ from .models import (
     Simulatable,
     rb,
 )
+from .perf_testing import perf_test, perf_test_multiple, run_episodes, timing
 from .resamplers import LiuWestResampler, Resampler
+from .simple_est import load_data_or_txt, simple_est_prec, simple_est_rb
 from .smc import (
     SMCConfig,
     SMCState,
     SMCUpdater,
+    init_batched_smc_state,
     init_smc_state,
     bayes_risk_fn,
     expected_information_gain_fn,
     hypothetical_log_update,
     smc_batch_update,
     smc_update_step,
+    smc_update_step_batched,
 )
 from . import tomography, utils
 
 __all__ = [
     "ApproximationWarning",
     "Distribution", "ParticleDistribution", "UniformDistribution",
+    "ConstantDistribution", "PostselectedDistribution",
+    "Heuristic", "ExpSparseHeuristic", "PGH", "EIGHeuristic",
+    "RiskHeuristic", "ExperimentDesigner", "OptimizationAlgorithms",
+    "perf_test", "perf_test_multiple", "run_episodes", "timing",
+    "simple_est_prec", "simple_est_rb", "load_data_or_txt",
     "Simulatable", "Model", "FiniteOutcomeModel", "SimplePrecessionModel",
     "SimpleInversionModel", "CoinModel", "NoisyCoinModel", "MultiCosModel",
     "KnownT2PrecessionModel", "DerivedModel", "BinomialModel",
@@ -58,6 +87,7 @@ __all__ = [
     "Resampler", "LiuWestResampler",
     "SMCConfig", "SMCState", "SMCUpdater", "init_smc_state",
     "smc_update_step", "smc_batch_update", "hypothetical_log_update",
+    "init_batched_smc_state", "smc_update_step_batched",
     "bayes_risk_fn", "expected_information_gain_fn",
     "tomography", "utils",
 ]

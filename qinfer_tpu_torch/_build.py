@@ -35,13 +35,15 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # name -> argtypes; every entry point returns its cudaGetLastError().
 _SIGNATURES = {
-    # (outcome, pr1, scalars, consts (host floats), n_consts, log_w,
-    #  cols (host array of device pointers), col_strides (host int64s),
-    #  n_cols, out_lw, partials, n_blocks, stats, n, stream)
-    "qt_fused_update": (_I32, _I32, _P, _P, _I32, _P, _P, _P, _I32, _P,
-                        _P, _I32, _P, _I64, _P),
-    # (starts, n_in, values, n_cols, affine or NULL, out, n_out, stream)
-    "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _P),
+    # (outcome, pr1, scalars, scalar_stride, consts (host floats), n_consts,
+    #  log_w, cols (host array of device pointers), col_strides (host
+    #  int64s), n_cols, trial_stride, out_lw, partials, n_blocks, stats, n,
+    #  n_trials, stream)
+    "qt_fused_update": (_I32, _I32, _P, _I32, _P, _I32, _P, _P, _P, _I32,
+                        _I64, _P, _P, _I32, _P, _I64, _I32, _P),
+    # (starts, n_in, values, n_cols, affine or NULL, out, n_out, n_trials,
+    #  stream)
+    "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _P),
 }
 
 

@@ -24,6 +24,16 @@
 // being padded. `scalars` stays a device pointer (the TPU kernel's SMEM ref),
 // so the caller feeds the outcome and t without a host sync.
 //
+// Trials. An ensemble of T independent banks (the JAX package's custom_vmap
+// rule, fused_update.py:197-209, which lax.maps the kernel over the trials
+// or falls back to XLA below 2^17 particles) is one launch on a (block,
+// trial) grid: blockIdx.y picks the trial's scalars row, log-weights and
+// columns, pass 1 writes a partials row per trial, and pass 2 runs one
+// block per trial over its row in the same fixed order. Each trial's result
+// is therefore bit-equal to a single-bank launch on it, and every bank size
+// runs the kernel. A single bank (T = 1) keeps its own instantiation, in
+// which nothing is shifted, so its registers do not grow.
+//
 // The likelihood is a device functor: an outcome composition over a pr1
 // functor, the tiles of fused_update.py:247-356. TwoOutcome<Pr1> is
 // two_outcome_tile (:247), Binomial<Pr1> is binomial_tile (:259, log C(n,k)
@@ -304,12 +314,27 @@ __device__ Lse block_reduce(Lse v) {
   return v;
 }
 
-template <class Tile>
+// kBatched: blockIdx.y is the trial. Trial y reads scalars row y (scalar_stride
+// floats apart), log_w and out_lw row y (n apart), each column shifted by
+// y·trial_stride elements, and writes its partials row y (gridDim.x partials).
+// A single bank (kBatched = false) is the same kernel with nothing shifted:
+// it keeps the registers of the single-bank instantiation.
+template <class Tile, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
-fused_update_pass1(const float* __restrict__ scalars, Consts consts, int n_cols,
-                   const float* __restrict__ log_w, Cols cols,
+fused_update_pass1(const float* __restrict__ scalars, int scalar_stride,
+                   Consts consts, int n_cols,
+                   const float* __restrict__ log_w, Cols cols, int64_t trial_stride,
                    float* __restrict__ out_lw, float* __restrict__ partials,
                    int64_t n) {
+  if constexpr (kBatched) {
+    const int64_t y = blockIdx.y;
+    scalars += y * scalar_stride;
+    log_w += y * n;
+    out_lw += y * n;
+    partials += y * 3 * static_cast<int64_t>(gridDim.x);
+#pragma unroll
+    for (int j = 0; j < Tile::P::kMaxColsUsed; ++j) cols.p[j] += y * trial_stride;
+  }
   const Tile tile(scalars, consts, n_cols);
   Lse st{kNegBig, 0.0f, 0.0f};
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -328,10 +353,12 @@ fused_update_pass1(const float* __restrict__ scalars, Consts consts, int n_cols,
   }
 }
 
-// stats = [lse, lse2, log_norm (= lse), ess].
+// One block per trial (blockIdx.x): stats row = [lse, lse2, log_norm (= lse), ess].
 __global__ void __launch_bounds__(kThreads)
 fused_update_pass2(const float* __restrict__ partials, int n_blocks,
                    float* __restrict__ stats) {
+  partials += static_cast<int64_t>(blockIdx.x) * 3 * n_blocks;
+  stats += 4 * static_cast<int64_t>(blockIdx.x);
   Lse st{kNegBig, 0.0f, 0.0f};
   for (int b = threadIdx.x; b < n_blocks; b += kThreads) {
     st = lse_merge(st, Lse{partials[3 * b], partials[3 * b + 1], partials[3 * b + 2]});
@@ -349,34 +376,56 @@ fused_update_pass2(const float* __restrict__ partials, int n_blocks,
 
 }  // namespace
 
+// What one launch needs besides the functor: the device pointers and the
+// (n_blocks, n_trials) grid.
+struct Launch {
+  const float* scalars;
+  int scalar_stride;
+  Consts consts;
+  int n_cols;
+  const float* log_w;
+  Cols cols;
+  int64_t trial_stride;
+  float* out;
+  float* partials;
+  int n_blocks;
+  int n_trials;
+  int64_t n;
+  cudaStream_t stream;
+};
+
 template <class Tile>
-static int launch(const float* sc, const Consts& k, int n_cols, const float* lw,
-                  const Cols& c, float* out, float* part, int n_blocks, int64_t n,
-                  cudaStream_t s) {
-  if (n_cols < Tile::P::kMinCols || n_cols > Tile::P::kMaxColsUsed) {
+static int launch(const Launch& a) {
+  if (a.n_cols < Tile::P::kMinCols || a.n_cols > Tile::P::kMaxColsUsed) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  fused_update_pass1<Tile><<<n_blocks, kThreads, 0, s>>>(sc, k, n_cols, lw, c, out, part, n);
+  if (a.n_trials == 1) {
+    fused_update_pass1<Tile, false><<<a.n_blocks, kThreads, 0, a.stream>>>(
+        a.scalars, a.scalar_stride, a.consts, a.n_cols, a.log_w, a.cols,
+        a.trial_stride, a.out, a.partials, a.n);
+  } else {
+    const dim3 grid(a.n_blocks, a.n_trials);
+    fused_update_pass1<Tile, true><<<grid, kThreads, 0, a.stream>>>(
+        a.scalars, a.scalar_stride, a.consts, a.n_cols, a.log_w, a.cols,
+        a.trial_stride, a.out, a.partials, a.n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <template <class> class Outcome>
-static int launch_pr1(int pr1, const float* sc, const Consts& k, int n_cols,
-                      const float* lw, const Cols& c, float* out, float* part,
-                      int n_blocks, int64_t n, cudaStream_t s) {
+static int launch_pr1(int pr1, const Launch& a) {
   switch (pr1) {
-    case 0: return launch<Outcome<PrecessionPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 1: return launch<Outcome<MultiCosPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 2: return launch<Outcome<KnownT2Pr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 3: return launch<Outcome<RbPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 4: return launch<Outcome<RbInterleavedPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 5: return launch<Outcome<InversionPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 6: return launch<Outcome<CoinPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
-    case 7: return launch<Outcome<NoisyCoinPr1>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+    case 0: return launch<Outcome<PrecessionPr1>>(a);
+    case 1: return launch<Outcome<MultiCosPr1>>(a);
+    case 2: return launch<Outcome<KnownT2Pr1>>(a);
+    case 3: return launch<Outcome<RbPr1>>(a);
+    case 4: return launch<Outcome<RbInterleavedPr1>>(a);
+    case 5: return launch<Outcome<InversionPr1>>(a);
+    case 6: return launch<Outcome<CoinPr1>>(a);
+    case 7: return launch<Outcome<NoisyCoinPr1>>(a);
     case 8:
-      return n_cols <= 4
-          ? launch<Outcome<BornPr1<4>>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s)
-          : launch<Outcome<BornPr1<kMaxCols>>>(sc, k, n_cols, lw, c, out, part, n_blocks, n, s);
+      return a.n_cols <= 4 ? launch<Outcome<BornPr1<4>>>(a)
+                           : launch<Outcome<BornPr1<kMaxCols>>>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -384,38 +433,50 @@ static int launch_pr1(int pr1, const float* sc, const Consts& k, int n_cols,
 // outcome: 0 = TwoOutcome, 1 = Binomial. pr1: the functor ids of
 // ops/fused_update.py (0 precession … 7 noisy coin, 8 Born). consts: host
 // array of n_consts floats. cols, col_strides: host arrays of n_cols device
-// pointers and their element strides. partials: 3·n_blocks floats;
-// stats: 4 floats. Returns the cudaError_t of the launches (0 on success).
+// pointers and their element strides. n_trials banks of n particles:
+// scalars (n_trials, scalar_stride), log_w and out_lw (n_trials, n), column
+// j of trial y starts trial_stride elements after trial y − 1's; partials:
+// 3·n_blocks·n_trials floats; stats: 4·n_trials floats. One bank is
+// n_trials = 1 (the strides are then not read). Returns the cudaError_t of
+// the launches (0 on success).
 extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
-                               const void* consts, int n_consts, const void* log_w,
-                               const void* const* cols, const int64_t* col_strides,
-                               int n_cols,
-                               void* out_lw, void* partials, int n_blocks, void* stats,
-                               int64_t n, void* stream) {
+                               int scalar_stride, const void* consts, int n_consts,
+                               const void* log_w, const void* const* cols,
+                               const int64_t* col_strides, int n_cols,
+                               int64_t trial_stride, void* out_lw, void* partials,
+                               int n_blocks, void* stats, int64_t n, int n_trials,
+                               void* stream) {
   if (n_cols < 0 || n_cols > kMaxCols || n_consts < 0 || n_consts > kMaxConsts ||
-      n_blocks <= 0 || n <= 0) {
+      n_blocks <= 0 || n <= 0 || n_trials <= 0 || n_trials > 65535 ||
+      scalar_stride < 0 || trial_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Cols c{};
+  Launch a{};
   for (int j = 0; j < n_cols; ++j) {
     if (col_strides[j] < 0) return static_cast<int>(cudaErrorInvalidValue);
-    c.p[j] = static_cast<const float*>(cols[j]);
-    c.stride[j] = col_strides[j];
+    a.cols.p[j] = static_cast<const float*>(cols[j]);
+    a.cols.stride[j] = col_strides[j];
   }
-  Consts k{};
-  for (int j = 0; j < n_consts; ++j) k.v[j] = static_cast<const float*>(consts)[j];
-  const float* sc = static_cast<const float*>(scalars);
-  const float* lw = static_cast<const float*>(log_w);
-  float* out = static_cast<float*>(out_lw);
-  float* part = static_cast<float*>(partials);
+  for (int j = 0; j < n_consts; ++j) a.consts.v[j] = static_cast<const float*>(consts)[j];
+  a.scalars = static_cast<const float*>(scalars);
+  a.scalar_stride = scalar_stride;
+  a.n_cols = n_cols;
+  a.log_w = static_cast<const float*>(log_w);
+  a.trial_stride = trial_stride;
+  a.out = static_cast<float*>(out_lw);
+  a.partials = static_cast<float*>(partials);
+  a.n_blocks = n_blocks;
+  a.n_trials = n_trials;
+  a.n = n;
+  a.stream = static_cast<cudaStream_t>(stream);
   int err;
   switch (outcome) {
-    case 0: err = launch_pr1<TwoOutcome>(pr1, sc, k, n_cols, lw, c, out, part, n_blocks, n, s); break;
-    case 1: err = launch_pr1<Binomial>(pr1, sc, k, n_cols, lw, c, out, part, n_blocks, n, s); break;
+    case 0: err = launch_pr1<TwoOutcome>(pr1, a); break;
+    case 1: err = launch_pr1<Binomial>(pr1, a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
-  fused_update_pass2<<<1, kThreads, 0, s>>>(part, n_blocks, static_cast<float*>(stats));
+  fused_update_pass2<<<n_trials, kThreads, 0, a.stream>>>(
+      a.partials, n_blocks, static_cast<float*>(stats));
   return static_cast<int>(cudaGetLastError());
 }

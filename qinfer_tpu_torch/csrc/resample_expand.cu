@@ -19,6 +19,13 @@
 // streams all work around Mosaic (see that module's docstring). The affine
 // is rounded as a product and then a sum (no FMA contraction), exactly as
 // the plain PyTorch version computes it, so the two agree bit for bit.
+//
+// Trials. T independent banks (the JAX package's sequential_vmap,
+// resample_expand.py:359, which runs the kernel once per trial) are one
+// launch on a (row block, trial) grid: blockIdx.y picks the trial's starts,
+// values, affine (μ differs per trial) and output rows. A single bank
+// (T = 1) keeps its own instantiation, in which nothing is shifted.
+// gridDim.y bounds T at 65535.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,6 +34,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
               const float* __restrict__ values, int n_cols,
@@ -34,6 +42,13 @@ expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
               int64_t n_out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n_out) return;
+  if constexpr (kBatched) {
+    const int64_t y = blockIdx.y;
+    starts += y * n_in;
+    values += y * n_in * n_cols;
+    out += y * n_out * n_cols;
+    if (affine != nullptr) affine += y * 2 * n_cols;
+  }
   // First k with starts[k] > i; ties resolve to the last j with starts[j] <= i.
   int64_t lo = 0;
   int64_t hi = n_in;
@@ -59,18 +74,27 @@ expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
 
 }  // namespace
 
-// starts: int32 (n_in,); values: f32 (n_in, n_cols) row-major; affine: f32
-// (2, n_cols) [scale; shift] or NULL; out: f32 (n_out, n_cols). Returns the
-// cudaError_t of the launch (0 on success).
+// n_trials banks, each: starts int32 (n_in,); values f32 (n_in, n_cols)
+// row-major; affine f32 (2, n_cols) [scale; shift] or NULL; out f32 (n_out,
+// n_cols). The banks lie back to back (trial y's arrays start y times their
+// size after trial 0's). Returns the cudaError_t of the launch (0 on success).
 extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
                          int n_cols, const void* affine, void* out, int64_t n_out,
-                         void* stream) {
-  if (n_in <= 0 || n_cols <= 0 || n_out <= 0) {
+                         int n_trials, void* stream) {
+  if (n_in <= 0 || n_cols <= 0 || n_out <= 0 || n_trials <= 0 || n_trials > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned blocks = static_cast<unsigned>((n_out + kThreads - 1) / kThreads);
-  expand_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(starts), n_in, static_cast<const float*>(values),
-      n_cols, static_cast<const float*>(affine), static_cast<float*>(out), n_out);
+  const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(n_trials));
+  const auto* s = static_cast<const int32_t*>(starts);
+  const auto* v = static_cast<const float*>(values);
+  const auto* a = static_cast<const float*>(affine);
+  auto* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_trials == 1) {
+    expand_kernel<false><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
+  } else {
+    expand_kernel<true><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Prior distributions and the weighted particle cloud.
 
 Counterpart of ``qinfer_tpu/distributions.py`` — ``Distribution``,
-``UniformDistribution`` and the part of ``ParticleDistribution`` that
+``UniformDistribution``, ``ConstantDistribution`` (a fixed truth prior),
+``PostselectedDistribution`` and the part of ``ParticleDistribution`` that
 ``SMCUpdater`` inherits. ``sample`` takes an explicit ``torch.Generator``
 (which fixes the device) where the JAX package takes a key.
 """
@@ -21,7 +22,8 @@ from .utils import (
     particle_mean,
 )
 
-__all__ = ["Distribution", "UniformDistribution", "ParticleDistribution"]
+__all__ = ["Distribution", "UniformDistribution", "ConstantDistribution",
+           "PostselectedDistribution", "ParticleDistribution"]
 
 
 class Distribution:
@@ -62,6 +64,55 @@ class UniformDistribution(Distribution):
                           device=device)
         u = torch.rand((n, self.n_rvs), generator=generator, device=device)
         return lo + u * (hi - lo)
+
+
+@dataclass(frozen=True, eq=False)
+class ConstantDistribution(Distribution):
+    """Dirac delta at ``values``."""
+
+    values: Tuple[float, ...]
+
+    def __init__(self, values):
+        arr = np.atleast_1d(np.asarray(values, dtype=np.float64))
+        object.__setattr__(self, "values", tuple(map(float, arr)))
+
+    @property
+    def n_rvs(self):
+        return len(self.values)
+
+    def sample(self, generator, n: int = 1):
+        v = torch.tensor(self.values, dtype=torch.float32,
+                         device=generator.device)
+        return v[None, :].expand(n, self.n_rvs).clone()
+
+
+@dataclass(frozen=True, eq=False)
+class PostselectedDistribution(Distribution):
+    """Samples of ``dist`` that ``model.are_models_valid`` accepts: the
+    invalid rows are redrawn for ``maxiters`` rounds, and what is still
+    invalid is clamped by ``model.canonicalize``. The rounds run without a
+    host read."""
+
+    dist: Distribution
+    model: object
+    maxiters: int = 100
+
+    @property
+    def n_rvs(self):
+        return self.dist.n_rvs
+
+    def sample(self, generator, n: int = 1):
+        samples = self.dist.sample(generator, n)
+        ok = self.model.are_models_valid(samples)
+        for _ in range(self.maxiters):
+            fresh = self.dist.sample(generator, n)
+            valid = self.model.are_models_valid(fresh)
+            samples = torch.where((~ok & valid)[:, None], fresh, samples)
+            ok = ok | valid
+        if hasattr(self.model, "canonicalize"):
+            samples = torch.where(ok[:, None], samples,
+                                  self.model.canonicalize(samples))
+        return samples
 
 
 class ParticleDistribution(Distribution):

@@ -11,19 +11,23 @@ carried: the port seeds its own ``torch.Generator``.
 turn, ``UniformDistribution``, ``LiuWestResampler``, ``SMCConfig``, and
 from ``tomography/`` the bases (by ``data``, ``dims``, ``labels``), both
 models (by basis, ``allow_subnormalized``, ``psd_tol``) and every prior (by
-basis, ``rank``, the fiducial state and ``max_alpha``)) by their fields;
+basis, ``rank``, the fiducial state and ``max_alpha``)), and the
+heuristics ``ExpSparseHeuristic`` and ``PGH`` (by their cores' fields,
+without an updater; ``inv_func`` and ``t_func`` only when they are the
+JAX package's identity, else the converter raises) by their fields;
 ``SMCConfig.canonicalize``, which the JAX engine never reads, is not
 carried. Nothing here imports ``jax``.
 """
 
 from __future__ import annotations
 
+import sys
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
-from . import models, tomography
+from . import heuristics, models, tomography
 from .distributions import UniformDistribution
 from .resamplers import LiuWestResampler
 from .smc import SMCConfig, SMCState
@@ -100,6 +104,29 @@ def _gadfli(obj):
         from_reference(obj.underlying), fiducial, max_alpha=obj.max_alpha)
 
 
+def _exp_sparse(obj):
+    core = obj.core
+    return heuristics.ExpSparseHeuristic(
+        None, scale=core.scale, base=core.base, t_field=core.t_field,
+        other_fields=core.other_fields)
+
+
+def _pgh(obj):
+    core = obj.core
+    # The JAX package's identity: its module's ``_identity``, looked up
+    # among the loaded modules (nothing is imported).
+    identity = getattr(sys.modules.get(type(obj).__module__), "_identity",
+                       None)
+    for name in ("inv_func", "t_func"):
+        if getattr(core, name) is not identity:
+            raise ValueError(
+                f"a PGH with a custom JAX {name} cannot be carried across; "
+                "pass a torch function to the port's PGH")
+    return heuristics.PGH(None, inv_field=core.inv_field,
+                          t_field=core.t_field, maxiters=core.maxiters,
+                          other_fields=core.other_fields)
+
+
 _CONVERTERS = {
     "SimplePrecessionModel":
         lambda obj: models.SimplePrecessionModel(min_freq=obj.min_freq),
@@ -133,6 +160,8 @@ _CONVERTERS = {
     "GinibreUniform": lambda obj: tomography.GinibreUniform(
         rank=obj.rank, dim=obj.basis.dim),
     "LiuWestResampler": _resampler,
+    "ExpSparseHeuristic": _exp_sparse,
+    "PGH": _pgh,
     "SMCConfig": lambda obj: SMCConfig(
         resample_thresh=obj.resample_thresh,
         zero_weight_policy=obj.zero_weight_policy,

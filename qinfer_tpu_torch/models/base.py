@@ -3,7 +3,9 @@
 Counterpart of ``qinfer_tpu/models/base.py``: ``expparams_field``,
 ``_n_exps``, ``Simulatable`` (with the combinator surface ``base_model``,
 ``model_chain``, ``underlying_model``, ``all_outcomes`` and ``Q``),
-``Model`` and ``FiniteOutcomeModel`` with the fused single-pass update. A
+``Model`` and ``FiniteOutcomeModel`` with the fused single-pass update and
+the simulator (``simulate_experiment``, and ``simulate_trials`` for an
+ensemble of trials, each at its own parameters and experiment). A
 model is a frozen dataclass of static metadata with pure methods;
 ``log_likelihood`` is the primitive, of shape (O, N, E). expparams are a
 tensor (single-field models) or a dict of named tensors with leading axis
@@ -48,6 +50,13 @@ def _expparams_device(expparams: ExpParams):
         if isinstance(leaf, torch.Tensor):
             return leaf.device
     return torch.device("cpu")
+
+
+def _expparams_row(expparams: ExpParams, i: int):
+    """Experiment i of ``expparams`` with leading axis 1."""
+    if isinstance(expparams, dict):
+        return {k: v[i:i + 1] for k, v in expparams.items()}
+    return expparams[i:i + 1]
 
 
 def _n_exps(expparams: ExpParams) -> int:
@@ -123,6 +132,41 @@ class Simulatable:
         del generator
         n_exp = _n_exps(expparams)
         return modelparams[:, :, None].expand(modelparams.shape + (n_exp,))
+
+    def experiment_cost(self, expparams):
+        """Cost of each experiment, (E,): 1 each by default."""
+        return torch.ones(_n_exps(expparams), dtype=torch.float32,
+                          device=_expparams_device(expparams))
+
+    # -- simulation-call bookkeeping (host-side count of simulated
+    # experiments: repeat · N · E per simulate_experiment call) ------------
+
+    @property
+    def sim_count(self) -> int:
+        return self.__dict__.get("_sim_count", 0)
+
+    def reset_sim_count(self):
+        object.__setattr__(self, "_sim_count", 0)
+
+    def _bump_sim_count(self, modelparams, expparams, repeat=1):
+        n = int(repeat) * int(modelparams.shape[0]) * _n_exps(expparams)
+        object.__setattr__(self, "_sim_count", self.sim_count + n)
+
+    def simulate_experiment(self, generator, modelparams, expparams,
+                            repeat: int = 1):
+        """Outcomes (repeat, N, E) drawn from ``generator``."""
+        raise NotImplementedError
+
+    def simulate_trials(self, generator, modelparams, expparams):
+        """One outcome per trial, (T,) int32: trial i's outcome at its own
+        parameters ``modelparams[i]`` and its own experiment (row i of
+        ``expparams``, E = T). The default runs ``simulate_experiment`` on
+        each trial (never the (T, T) table of every pairing)."""
+        return torch.stack([
+            self.simulate_experiment(generator, modelparams[i:i + 1],
+                                     _expparams_row(expparams, i))[0, 0, 0]
+            for i in range(modelparams.shape[0])
+        ]).to(torch.int32)
 
 
 @dataclass(frozen=True, eq=False)
@@ -208,6 +252,40 @@ class FiniteOutcomeModel(Model):
         )
         return two_outcome_tile(pr1_fn), scalars, cols
 
+    def fused_spec_batched(self, outcomes, modelparams, expparams):
+        """(tile, scalars (T, k), param_cols (T, N)) of the fused update of
+        T banks ``modelparams`` (T, N, D), trial i seeing outcome
+        ``outcomes[i]`` of experiment i of ``expparams`` (E = T). Built on
+        the device, with no host sync."""
+        from ..ops.fused_update import two_outcome_tile
+
+        pr1_fn, tail, cols = self._batched_pr1_parts(modelparams, expparams)
+        n_trials = modelparams.shape[0]
+        outcomes = torch.as_tensor(outcomes, device=modelparams.device)
+        scalars = torch.cat([outcomes.to(torch.float32).reshape(n_trials, 1),
+                             tail.to(torch.float32).reshape(n_trials, -1)],
+                            dim=1)
+        return two_outcome_tile(pr1_fn), scalars, cols
+
+    def _batched_pr1_parts(self, modelparams, expparams):
+        if _n_exps(expparams) != modelparams.shape[0]:
+            raise ValueError(
+                "a batched fused update takes one experiment per trial; got "
+                f"E == {_n_exps(expparams)} for {modelparams.shape[0]} trials")
+        parts = self._fused_pr1_parts(modelparams, expparams)
+        if parts is None:
+            raise NotImplementedError("model does not define _fused_pr1_parts")
+        return parts
+
+    def _trial_pr1(self, modelparams, expparams):
+        """Pr(1) of each trial at its own parameters (T, D) and experiment
+        (E = T), (T,), from the model's pr1 tile."""
+        pr1_fn, tail, cols = self._batched_pr1_parts(modelparams[:, None, :],
+                                                     expparams)
+        n_trials = modelparams.shape[0]
+        scal = tail.to(torch.float32).reshape(n_trials, -1).T[:, :, None]
+        return torch.clamp(pr1_fn(scal, 0, *cols)[:, 0], 0.0, 1.0)
+
     def _pr1_parts_or_raise(self, modelparams, expparams):
         if _n_exps(expparams) != 1:
             raise ValueError(
@@ -232,3 +310,31 @@ class FiniteOutcomeModel(Model):
 
     def n_outcomes(self, expparams: ExpParams = None) -> int:
         return 2
+
+    # -- simulator -----------------------------------------------------------
+
+    def simulate_experiment(self, generator, modelparams, expparams,
+                            repeat: int = 1):
+        """Categorical draws from the model's own likelihood, (repeat, N,
+        E) int32, by inverse CDF over the outcomes with uniforms from
+        ``generator``."""
+        self._bump_sim_count(modelparams, expparams, repeat)
+        outcomes = self.all_outcomes(expparams).to(modelparams.device)
+        probs = torch.softmax(
+            self.log_likelihood(outcomes, modelparams, expparams), dim=0)
+        cdf = torch.cumsum(probs, dim=0)  # (O, N, E)
+        u = torch.rand((repeat,) + tuple(cdf.shape[1:]), generator=generator,
+                       device=modelparams.device)
+        idx = torch.sum(u[None] >= cdf[:-1, None], dim=0)
+        return outcomes[idx].to(torch.int32)
+
+    def simulate_trials(self, generator, modelparams, expparams):
+        """Two-outcome models with a pr1 tile draw every trial at once:
+        outcome 1 with the tile's Pr(1) at the trial's own parameters and
+        experiment."""
+        if not self.fused_update_supported:
+            return super().simulate_trials(generator, modelparams, expparams)
+        self._bump_sim_count(modelparams, _expparams_row(expparams, 0))
+        pr1 = self._trial_pr1(modelparams, expparams)
+        u = torch.rand(pr1.shape, generator=generator, device=pr1.device)
+        return (u < pr1).to(torch.int32)

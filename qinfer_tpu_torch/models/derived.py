@@ -9,7 +9,7 @@ from dataclasses import dataclass
 import torch
 
 from ..utils import log_binomial_coefficient, log_binomial_pdf
-from .base import Model, _column, expparams_field
+from .base import Model, _column, _expparams_row, expparams_field
 
 __all__ = ["DerivedModel", "BinomialModel", "DifferentiableBinomialModel"]
 
@@ -116,6 +116,48 @@ class BinomialModel(DerivedModel):
         tile, scalars, cols = self.fused_spec(outcome, modelparams, expparams)
         return fused_bayes_update(tile, scalars, log_w, cols,
                                   return_stats=return_stats)
+
+    def fused_spec_batched(self, outcomes, modelparams, expparams):
+        """The binomial tile for T banks (T, N, D), trial i seeing count
+        ``outcomes[i]`` of experiment i: scalars (T, 3 + k) = [k, n_meas,
+        log C(n_meas, k), *pr1_scalars] per trial, on the device."""
+        from ..ops.fused_update import binomial_tile
+
+        pr1_fn, tail, cols = self.underlying_model._batched_pr1_parts(
+            modelparams, expparams)
+        dev = modelparams.device
+        n_trials = modelparams.shape[0]
+        n = _column(expparams, "n_meas", dev)
+        k = torch.as_tensor(outcomes, device=dev).to(torch.float32).reshape(-1)
+        scalars = torch.cat([torch.stack([k, n, log_binomial_coefficient(n, k)],
+                                         dim=1),
+                             tail.to(torch.float32).reshape(n_trials, -1)],
+                            dim=1)
+        return binomial_tile(pr1_fn), scalars, cols
+
+    def simulate_experiment(self, generator, modelparams, expparams,
+                            repeat=1):
+        """Counts of '1' in ``n_meas`` shots, (repeat, N, E) int32, drawn
+        binomially over the underlying model's Pr(1)."""
+        self._bump_sim_count(modelparams, expparams, repeat)
+        n_meas = _column(expparams, "n_meas", modelparams.device)
+        p1 = torch.clamp(
+            1.0 - self.underlying_model.pr0(modelparams, expparams), 0.0, 1.0)
+        shape = (repeat,) + tuple(p1.shape)
+        return torch.binomial(n_meas.expand(shape).contiguous(),
+                              p1.expand(shape).contiguous(),
+                              generator=generator).to(torch.int32)
+
+    def simulate_trials(self, generator, modelparams, expparams):
+        """One count per trial at its own parameters and experiment: a
+        binomial draw over the underlying pr1 tile when it has one."""
+        under = self.underlying_model
+        if not getattr(under, "fused_update_supported", False):
+            return super().simulate_trials(generator, modelparams, expparams)
+        self._bump_sim_count(modelparams, _expparams_row(expparams, 0))
+        p1 = under._trial_pr1(modelparams, expparams)
+        n_meas = _column(expparams, "n_meas", modelparams.device)
+        return torch.binomial(n_meas, p1, generator=generator).to(torch.int32)
 
 
 class DifferentiableBinomialModel(BinomialModel):

@@ -95,9 +95,10 @@ class RandomizedBenchmarkingModel(FiniteOutcomeModel):
     def _fused_pr1_parts(self, modelparams, expparams):
         from ..ops.fused_update import rb_interleaved_pr1, rb_pr1
 
-        m = _column(expparams, "m", modelparams.device)[:1]
-        cols = tuple(modelparams[:, i] for i in range(self.n_modelparams))
+        m = _column(expparams, "m", modelparams.device)
+        cols = tuple(modelparams[..., i] for i in range(self.n_modelparams))
         if self.interleaved:
-            ref = _column(expparams, "reference", modelparams.device)[:1]
-            return rb_interleaved_pr1, torch.cat([m, ref]), cols
+            ref = _column(expparams, "reference", modelparams.device)
+            return (rb_interleaved_pr1,
+                    torch.stack([m, ref], dim=1).reshape(-1), cols)
         return rb_pr1, m, cols

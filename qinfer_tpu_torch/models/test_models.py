@@ -60,8 +60,8 @@ class SimplePrecessionModel(_OmegaModel):
         """Fused single-pass update spec: ``precession_pr1`` over ω."""
         from ..ops.fused_update import precession_pr1
 
-        t = _t_column(expparams, modelparams.device)[:1]
-        return precession_pr1, t, (modelparams[:, 0],)
+        t = _t_column(expparams, modelparams.device)
+        return precession_pr1, t, (modelparams[..., 0],)
 
 
 @dataclass(frozen=True, eq=False)
@@ -85,9 +85,9 @@ class SimpleInversionModel(_OmegaModel):
         from ..ops.fused_update import inversion_pr1
 
         dev = modelparams.device
-        tail = torch.cat([_column(expparams, "w_", dev)[:1],
-                          _t_column(expparams, dev)[:1]])
-        return inversion_pr1, tail, (modelparams[:, 0],)
+        tail = torch.stack([_column(expparams, "w_", dev),
+                            _t_column(expparams, dev)], dim=1).reshape(-1)
+        return inversion_pr1, tail, (modelparams[..., 0],)
 
 
 @dataclass(frozen=True, eq=False)
@@ -128,7 +128,7 @@ class CoinModel(_BiasModel):
         from ..ops.fused_update import coin_pr1
 
         tail = torch.zeros(0, dtype=torch.float32, device=modelparams.device)
-        return coin_pr1, tail, (modelparams[:, 0],)
+        return coin_pr1, tail, (modelparams[..., 0],)
 
 
 @dataclass(frozen=True, eq=False)
@@ -150,9 +150,10 @@ class NoisyCoinModel(_BiasModel):
         from ..ops.fused_update import noisy_coin_pr1
 
         dev = modelparams.device
-        tail = torch.cat([_column(expparams, "alpha", dev)[:1],
-                          _column(expparams, "beta", dev)[:1]])
-        return noisy_coin_pr1, tail, (modelparams[:, 0],)
+        tail = torch.stack([_column(expparams, "alpha", dev),
+                            _column(expparams, "beta", dev)],
+                           dim=1).reshape(-1)
+        return noisy_coin_pr1, tail, (modelparams[..., 0],)
 
 
 @dataclass(frozen=True, eq=False)
@@ -189,8 +190,8 @@ class MultiCosModel(FiniteOutcomeModel):
     def _fused_pr1_parts(self, modelparams, expparams):
         from ..ops.fused_update import make_multicos_pr1
 
-        ts = _column(expparams, "ts", modelparams.device)[: self.n_terms]
-        cols = tuple(modelparams[:, i] for i in range(self.n_terms))
+        ts = _column(expparams, "ts", modelparams.device)
+        cols = tuple(modelparams[..., i] for i in range(self.n_terms))
         return make_multicos_pr1(self.n_terms), ts, cols
 
 
@@ -216,5 +217,5 @@ class KnownT2PrecessionModel(_OmegaModel):
     def _fused_pr1_parts(self, modelparams, expparams):
         from ..ops.fused_update import make_known_t2_pr1
 
-        t = _t_column(expparams, modelparams.device)[:1]
-        return make_known_t2_pr1(self.t2), t, (modelparams[:, 0],)
+        t = _t_column(expparams, modelparams.device)
+        return make_known_t2_pr1(self.t2), t, (modelparams[..., 0],)

@@ -22,6 +22,10 @@ launch it refuses raises.
 The kernel reads the parameter columns in place: it gets each column's
 pointer and element stride (views of one (N, D) bank have stride D), and
 no column is copied first.
+
+``fused_bayes_update_batched`` updates T independent banks (an ensemble of
+trials) in one launch on a (block, trial) grid, on every bank size; its
+plain version is ``fused_update_plain_batched``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .. import _build
 
 __all__ = [
     "fused_bayes_update", "fused_update_plain",
+    "fused_bayes_update_batched", "fused_update_plain_batched",
     "TwoOutcomeTile", "BinomialTile", "two_outcome_tile", "binomial_tile",
     "precession_pr1", "make_multicos_pr1", "make_known_t2_pr1", "rb_pr1",
     "rb_interleaved_pr1", "inversion_pr1", "coin_pr1", "noisy_coin_pr1",
@@ -47,6 +52,7 @@ _THREADS = 256  # kThreads in csrc/fused_update.cu
 _ITEMS_PER_THREAD = 4
 _MAX_BLOCKS = 1024
 MAX_COLS = 16  # kMaxCols in csrc/fused_update.cu
+MAX_TRIALS = 65535  # gridDim.y
 _MAX_CONSTS = 4  # kMaxConsts
 
 
@@ -254,21 +260,40 @@ def binomial_tile(pr1_fn):
 
 # -- the update ----------------------------------------------------------------
 
+def _lse_stats(lw):
+    """(lse, lse2, ess) over the last axis of unnormalized log-weights."""
+    m = torch.amax(lw, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(lw - m[..., None]), dim=-1))
+    lw2 = 2.0 * lw
+    m2 = torch.amax(lw2, dim=-1)
+    lse2 = m2 + torch.log(torch.sum(torch.exp(lw2 - m2[..., None]), dim=-1))
+    ess = torch.exp(-(lse2 - 2.0 * lse))
+    return lse, lse2, ess
+
+
 def fused_update_plain(tile_fn, scalars, log_w, param_cols):
     """Plain PyTorch version of the kernel: (lw, lse, lse2, ess) with lw
     unnormalized. Runs on any device."""
     log_l = tile_fn(scalars, *param_cols)
     lw = log_w + torch.clamp(log_l, min=_LOG_TINY)
-    m = torch.max(lw)
-    lse = m + torch.log(torch.sum(torch.exp(lw - m)))
-    lw2 = 2.0 * lw
-    m2 = torch.max(lw2)
-    lse2 = m2 + torch.log(torch.sum(torch.exp(lw2 - m2)))
-    ess = torch.exp(-(lse2 - 2.0 * lse))
-    return lw, lse, lse2, ess
+    return (lw, *_lse_stats(lw))
+
+
+def fused_update_plain_batched(tile_fn, scalars, log_w, param_cols):
+    """Plain PyTorch version of the kernel on T banks: ``scalars`` (T, k),
+    ``log_w`` and each column (T, N). Returns (lw (T, N) unnormalized, lse,
+    lse2, ess, each (T,)). The tile runs unchanged: each scalar becomes a
+    (T, 1) column that broadcasts over its trial's particles."""
+    log_l = tile_fn(scalars.T[:, :, None], *param_cols)
+    lw = log_w + torch.clamp(log_l, min=_LOG_TINY)
+    return (lw, *_lse_stats(lw))
 
 
 def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
+    """Kernel B1 on T banks: ``scalars`` (T, k), ``log_w`` (T, N), each
+    column (T, N) with one trial stride shared by all columns (views of
+    one (T, N, D) bank). Returns (lw, lse, lse2, ess) as the plain version.
+    T = 1 launches the single-bank instantiation."""
     spec = getattr(tile_fn, "kernel_tile", None)
     if spec is None:
         raise NotImplementedError(
@@ -281,36 +306,45 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
             f"columns; got {len(param_cols)}"
         )
     device = log_w.device
-    n = log_w.shape[0]
-    if log_w.dtype != torch.float32 or log_w.ndim != 1 or n == 0:
-        raise ValueError("log_w must be a non-empty 1-D float32 tensor")
+    if log_w.dtype != torch.float32 or log_w.ndim != 2 or log_w.numel() == 0:
+        raise ValueError("log_w must be a non-empty float32 (T, N) tensor")
+    n_trials, n = log_w.shape
+    if n_trials > MAX_TRIALS:
+        raise ValueError(f"the fused update kernel takes at most {MAX_TRIALS} "
+                         f"trials; got {n_trials}")
     log_w = log_w.contiguous()
     scalars = scalars.to(device=device, dtype=torch.float32).contiguous()
+    if scalars.ndim != 2 or scalars.shape[0] != n_trials:
+        raise ValueError("scalars must be (T, k) with one row per trial")
     cols = [c.to(torch.float32) for c in param_cols]
-    if any(c.device != device or c.shape != (n,) for c in cols):
-        raise ValueError("param_cols must be (N,) tensors on log_w's device")
+    if any(c.device != device or c.shape != (n_trials, n) for c in cols):
+        raise ValueError("param_cols must be (T, N) tensors on log_w's device")
+    trial_stride = cols[0].stride(0) if cols and n_trials > 1 else 0
+    if any(c.stride(0) != trial_stride for c in cols[1:]) and n_trials > 1:
+        raise ValueError("param_cols must share one trial stride (views of "
+                         "one (T, N, D) bank)")
     n_blocks = max(1, min(_MAX_BLOCKS,
                           -(-n // (_THREADS * _ITEMS_PER_THREAD))))
     out = torch.empty_like(log_w)
-    partials = torch.empty(3 * n_blocks, dtype=torch.float32, device=device)
-    stats = torch.empty(4, dtype=torch.float32, device=device)
+    partials = torch.empty((n_trials, 3 * n_blocks), dtype=torch.float32,
+                           device=device)
+    stats = torch.empty((n_trials, 4), dtype=torch.float32, device=device)
     col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
-    col_strides = (ctypes.c_int64 * len(cols))(*[c.stride(0) for c in cols])
+    col_strides = (ctypes.c_int64 * len(cols))(*[c.stride(1) for c in cols])
     const_buf = (ctypes.c_float * _MAX_CONSTS)(*consts)
     lib, _ = _build.library()
     with torch.cuda.device(device):
         err = lib.qt_fused_update(
-            outcome_id, functor_id, scalars.data_ptr(),
+            outcome_id, functor_id, scalars.data_ptr(), scalars.shape[1],
             ctypes.cast(const_buf, ctypes.c_void_p), len(consts),
             log_w.data_ptr(), ctypes.cast(col_ptrs, ctypes.c_void_p),
             ctypes.cast(col_strides, ctypes.c_void_p), len(cols),
-            out.data_ptr(), partials.data_ptr(),
-            n_blocks, stats.data_ptr(), n,
+            trial_stride, out.data_ptr(), partials.data_ptr(),
+            n_blocks, stats.data_ptr(), n, n_trials,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_fused_update")
-    fused_bayes_update.launches += 1
-    return out, stats[0], stats[1], stats[3]
+    return out, stats[:, 0], stats[:, 1], stats[:, 3]
 
 
 def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
@@ -326,8 +360,11 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
     lse = logsumexp(lw) and lse2 = logsumexp(2·lw).
     """
     if log_w.is_cuda:
-        lw, lse, lse2, ess = _fused_update_cuda(tile_fn, scalars, log_w,
-                                                param_cols)
+        lw, lse, lse2, ess = _fused_update_cuda(
+            tile_fn, scalars.reshape(1, -1), log_w[None],
+            tuple(c[None] for c in param_cols))
+        lw, lse, lse2, ess = lw[0], lse[0], lse2[0], ess[0]
+        fused_bayes_update.launches += 1
     else:
         lw, lse, lse2, ess = fused_update_plain(tile_fn, scalars, log_w,
                                                 param_cols)
@@ -337,3 +374,33 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
 
 
 fused_bayes_update.launches = 0
+
+
+def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
+                               return_stats=False):
+    """One fused SMC update of each of T independent banks, in one launch.
+
+    The counterpart of the JAX package's ``custom_vmap`` rule of
+    ``fused_bayes_update``. ``scalars``: (T, k), one row per trial;
+    ``log_w``: (T, N); ``param_cols``: (T, N) columns, views of one
+    (T, N, D) bank. Every bank size runs the kernel on CUDA. Returns
+    (log_w_normalized (T, N), log_norm (T,), ess (T,)), or with
+    ``return_stats`` the raw (lw, lse, lse2). Each trial's result is that
+    of ``fused_bayes_update`` on it, bit for bit.
+    """
+    if log_w.shape[0] > MAX_TRIALS:
+        raise ValueError(f"the fused update kernel takes at most {MAX_TRIALS} "
+                         f"trials; got {log_w.shape[0]}")
+    if log_w.is_cuda:
+        lw, lse, lse2, ess = _fused_update_cuda(tile_fn, scalars, log_w,
+                                                param_cols)
+        fused_bayes_update_batched.launches += 1
+    else:
+        lw, lse, lse2, ess = fused_update_plain_batched(tile_fn, scalars,
+                                                        log_w, param_cols)
+    if return_stats:
+        return lw, lse, lse2
+    return lw - lse[:, None], lse, ess
+
+
+fused_bayes_update_batched.launches = 0

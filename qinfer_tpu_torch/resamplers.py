@@ -20,19 +20,60 @@ from typing import Callable, ClassVar, Optional
 
 import torch
 
-from .ops.resample_expand import systematic_expand
-from .utils import normalize_log_weights, sqrtm_psd, weighted_moments
+from .ops.resample_expand import (
+    expand_sorted_segments_batched,
+    systematic_expand,
+)
+from .utils import (
+    cumsum_rows,
+    normalize_log_weights,
+    sqrtm_psd,
+    weighted_moments,
+    weighted_moments_batched,
+)
 
 __all__ = [
     "Resampler",
     "LiuWestResampler",
     "systematic_segment_starts",
+    "systematic_segment_starts_batched",
     "systematic_resample_indices",
     "multinomial_resample_indices",
 ]
 
 # Weight-quantization scale of the integer CDF.
 _CDF_QUANT = float(1 << 30)
+
+
+def _check_n_draws(n_draws):
+    if n_draws >= 1 << 24:
+        raise ValueError(
+            "systematic_segment_starts carries starts in f32 — exact only "
+            f"for n_draws < 2^24 (got {n_draws})"
+        )
+
+
+def _starts_from_weights(w, n_draws, u0):
+    """Segment starts over the last axis of normalized weights ``w``, with
+    one stratum offset per row (``u0`` of the leading shape)."""
+    device = w.device
+    q = torch.round(w * _CDF_QUANT).to(torch.int64)
+    icdf = torch.cumsum(q, dim=0) if q.ndim == 1 else cumsum_rows(q)
+    total = torch.clamp(icdf[..., -1], min=1)
+    scale = torch.full((), float(n_draws), device=device) / total.to(
+        torch.float32)
+    t = torch.ceil(icdf.to(torch.float32) * scale[..., None] - u0[..., None])
+    starts = torch.cat([torch.zeros(t.shape[:-1] + (1,), dtype=torch.float32,
+                                    device=device), t[..., :-1]], dim=-1)
+    return torch.clamp(starts, min=0.0).to(torch.int32)
+
+
+def _as_u0(u0, shape, generator, device):
+    if u0 is None:
+        u0 = torch.rand(shape, generator=generator, device=device)
+    elif not isinstance(u0, torch.Tensor):
+        u0 = torch.full(shape, float(u0), device=device)
+    return u0.to(device=device, dtype=torch.float32).reshape(shape)
 
 
 def systematic_segment_starts(log_w, n_draws, u0=None, generator=None):
@@ -44,27 +85,21 @@ def systematic_segment_starts(log_w, n_draws, u0=None, generator=None):
     sorted by construction. ``u0`` ~ U[0, 1) is drawn from ``generator``
     unless given (a float or a 0-d tensor).
     """
-    if n_draws >= 1 << 24:
-        raise ValueError(
-            "systematic_segment_starts carries starts in f32 — exact only "
-            f"for n_draws < 2^24 (got {n_draws})"
-        )
-    device = log_w.device
+    _check_n_draws(n_draws)
     w = torch.exp(normalize_log_weights(log_w)[0])
-    q = torch.round(w * _CDF_QUANT).to(torch.int64)
-    icdf = torch.cumsum(q, dim=0)
-    total = torch.clamp(icdf[-1], min=1)
-    if u0 is None:
-        u0 = torch.rand((), generator=generator, device=device)
-    elif not isinstance(u0, torch.Tensor):
-        u0 = torch.full((), float(u0), device=device)
-    u0 = u0.to(device=device, dtype=torch.float32)
-    scale = torch.full((), float(n_draws), device=device) / total.to(
-        torch.float32)
-    t = torch.ceil(icdf.to(torch.float32) * scale - u0)
-    starts = torch.cat([torch.zeros(1, dtype=torch.float32, device=device),
-                        t[:-1]])
-    return torch.clamp(starts, min=0.0).to(torch.int32)
+    return _starts_from_weights(
+        w, n_draws, _as_u0(u0, (), generator, log_w.device))
+
+
+def systematic_segment_starts_batched(log_w, n_draws, u0=None,
+                                      generator=None):
+    """``systematic_segment_starts`` of each of T banks, ``log_w`` (T, N):
+    (T, N) int32, one stratum offset per trial (``u0`` (T,), drawn from
+    ``generator`` unless given)."""
+    _check_n_draws(n_draws)
+    w = torch.exp(log_w - torch.logsumexp(log_w, dim=1, keepdim=True))
+    return _starts_from_weights(
+        w, n_draws, _as_u0(u0, (log_w.shape[0],), generator, log_w.device))
 
 
 def systematic_resample_indices(log_w, n_draws=None, u0=None, generator=None):
@@ -165,6 +200,59 @@ class LiuWestResampler(Resampler):
                                     device=locs.device)
             return centers + noise @ S.T
 
+        return self._postselect(model, draw)
+
+    def batched(self, generator, model, particle_locations,
+                particle_log_weights, u0=None):
+        """The resample of T banks at once: ``particle_locations`` (T, N,
+        D), ``particle_log_weights`` (T, N), ``u0`` (T,) or None. Per trial
+        the same steps as ``__call__`` (its own moments, its own
+        Σ^{1/2}, its own stratum offset; kernel B2 for all trials in one
+        launch on CUDA); the smear noise (T, N, D) comes from ``kernel``
+        when given, and postselection tests the flattened (T·N, D) bank.
+        Returns the new (T, N, D) locations."""
+        locs = particle_locations
+        log_w = particle_log_weights
+        n_trials, n, d = locs.shape
+
+        mu, cov = weighted_moments_batched(log_w, locs)
+        cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
+                                                   device=cov.device)
+        h = self._h
+        S = sqrtm_psd((h * h) * cov)  # (T, D, D)
+
+        use_expand = (locs.is_cuda if self.use_expand_kernel is None
+                      else bool(self.use_expand_kernel))
+        if use_expand:
+            starts = systematic_segment_starts_batched(
+                log_w, n, u0=u0, generator=generator)
+            centers = expand_sorted_segments_batched(
+                starts, locs, scale=self.a, shift=(1.0 - self.a) * mu)
+        else:
+            if not self.use_systematic:
+                raise NotImplementedError(
+                    "the batched resample draws systematic strata only")
+            starts = systematic_segment_starts_batched(
+                log_w, n, u0=u0, generator=generator)
+            rows = torch.arange(n, dtype=torch.int32, device=locs.device)
+            idx = torch.searchsorted(
+                starts, rows.expand(n_trials, n).contiguous(), right=True) - 1
+            picked = torch.gather(locs, 1, idx[:, :, None].expand(-1, -1, d))
+            centers = self.a * picked + (1.0 - self.a) * mu[:, None, :]
+
+        def draw():
+            if self.kernel is not None:
+                noise = self.kernel(generator, (n_trials, n, d))
+            else:
+                noise = torch.randn((n_trials, n, d), generator=generator,
+                                    device=locs.device)
+            return (centers + noise @ S.transpose(1, 2)).reshape(-1, d)
+
+        return self._postselect(model, draw).reshape(n_trials, n, d)
+
+    def _postselect(self, model, draw):
+        """``draw()``'s rows, each redrawn while invalid (bounded) and
+        clamped by ``model.canonicalize`` if still invalid."""
         new_locs = draw()
         if not self.postselect:
             return new_locs

@@ -13,6 +13,16 @@ sync per update; its ``lax.scan`` over the record becomes a Python loop.
 On CUDA the Bayes update runs kernel B1 and the resample kernel B2. The
 design functions are plain torch products over the bank (the JAX package
 leaves them to XLA, outside any kernel).
+
+An ensemble of T independent trials (the JAX package's ``vmap`` over
+``smc_update_step``) is an ``SMCState`` with a leading trial axis, built by
+``init_batched_smc_state`` and advanced by ``smc_update_step_batched``:
+one launch of B1 for all trials, one host read of the resample mask, and a
+resample (one launch of B2) of only the trials that need it.
+
+Entry points run on the card unless the caller asks for the CPU:
+``SMCUpdater`` defaults to ``device="cuda"`` and raises when torch sees no
+CUDA device.
 """
 
 from __future__ import annotations
@@ -28,7 +38,12 @@ import torch
 
 from ._exceptions import ApproximationWarning
 from .distributions import Distribution, ParticleDistribution
-from .models.base import FiniteOutcomeModel, Simulatable, _n_exps
+from .models.base import (
+    FiniteOutcomeModel,
+    Simulatable,
+    _expparams_row,
+    _n_exps,
+)
 from .models.derived import DerivedModel
 from .resamplers import LiuWestResampler
 from .utils import (
@@ -42,6 +57,7 @@ __all__ = [
     "SMCState", "SMCConfig", "SMCUpdater", "init_smc_state",
     "smc_update_step", "smc_batch_update", "hypothetical_log_update",
     "bayes_risk_fn", "expected_information_gain_fn",
+    "init_batched_smc_state", "smc_update_step_batched", "resolve_device",
 ]
 
 _LOG_TINY = -87.0  # exp(-87) ~ 1.6e-38, smallest safe f32 log-likelihood
@@ -75,8 +91,20 @@ class SMCConfig:
     use_fused_update: Optional[bool] = None
 
 
-def _uniform_log_weights(n, device):
-    return torch.full((n,), -math.log(n), dtype=torch.float32, device=device)
+def resolve_device(device):
+    """``device`` as a ``torch.device``; a CUDA device that torch cannot
+    see raises (an entry point never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "qinfer_tpu_torch runs on a CUDA device by default and torch "
+            "sees none; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _uniform_log_weights(n, device, n_trials=None):
+    shape = (n,) if n_trials is None else (n_trials, n)
+    return torch.full(shape, -math.log(n), dtype=torch.float32, device=device)
 
 
 def init_smc_state(generator, model, n_particles: int,
@@ -99,6 +127,32 @@ def init_smc_state(generator, model, n_particles: int,
         log_total_likelihood=scalar(0.0, torch.float32),
         just_resampled=scalar(False, torch.bool),
         n_zero_weight_events=scalar(0, torch.int32),
+    )
+
+
+def init_batched_smc_state(generator, model, n_trials: int, n_particles: int,
+                           prior: Distribution) -> SMCState:
+    """T independent initial clouds: an ``SMCState`` whose tensors carry a
+    leading trial axis (locations (T, N, D), log-weights (T, N), counters
+    (T,)), drawn in one call from ``generator``."""
+    del model
+    locs = prior.sample(generator, n_trials * n_particles).to(torch.float32)
+    locs = locs.reshape(n_trials, n_particles, -1)
+    device = locs.device
+
+    def per_trial(value, dtype):
+        return torch.full((n_trials,), value, dtype=dtype, device=device)
+
+    return SMCState(
+        particle_locations=locs,
+        particle_log_weights=_uniform_log_weights(n_particles, device,
+                                                  n_trials),
+        generator=generator,
+        n_resamples=per_trial(0, torch.int32),
+        min_n_ess=per_trial(float(n_particles), torch.float32),
+        log_total_likelihood=per_trial(0.0, torch.float32),
+        just_resampled=per_trial(False, torch.bool),
+        n_zero_weight_events=per_trial(0, torch.int32),
     )
 
 
@@ -198,6 +252,106 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
     return state, log_norm
 
 
+def _batched_log_likelihood(model, outcomes, locs, expparams):
+    """(T, N) log-likelihood of trial i's outcome at its own experiment,
+    one trial at a time (never the (T, T) table of every pairing)."""
+    return torch.stack([
+        model.log_likelihood(outcomes[i:i + 1], locs[i],
+                             _expparams_row(expparams, i))[0, :, 0]
+        for i in range(locs.shape[0])
+    ])
+
+
+def smc_update_step_batched(model, resampler, config: SMCConfig,
+                            state: SMCState, outcomes, expparams, u0=None):
+    """One Bayes update + conditional resample of each of T trials.
+
+    ``state`` carries a leading trial axis (``init_batched_smc_state``);
+    ``outcomes``: (T,); ``expparams``: one experiment per trial (E = T).
+    The update of every trial is one launch of kernel B1 on CUDA (its plain
+    version on the CPU, or the unfused likelihood trial by trial when the
+    model has no fused tile or the config turns it off). The resample mask
+    is read once on the host, and only the trials below the threshold are
+    resampled, together (``resampler.batched``; ``u0`` (T,) injects their
+    stratum offsets). ``zero_weight_policy="reset"`` acts per trial.
+    Returns (new_state, log_norm (T,)).
+    """
+    log_w = state.particle_log_weights  # (T, N)
+    locs = state.particle_locations  # (T, N, D)
+    device = log_w.device
+    n_trials, n = log_w.shape
+    outcomes = torch.as_tensor(outcomes, device=device).reshape(n_trials)
+    use_fused = getattr(model, "fused_update_supported", False) and (
+        config.use_fused_update
+        if config.use_fused_update is not None
+        else log_w.is_cuda
+    )
+    if use_fused:
+        from .ops.fused_update import fused_bayes_update_batched
+
+        tile, scalars, cols = model.fused_spec_batched(outcomes, locs,
+                                                       expparams)
+        log_w_norm, log_norm, ess = fused_bayes_update_batched(
+            tile, scalars, log_w, cols)
+    else:
+        log_L = torch.clamp(
+            _batched_log_likelihood(model, outcomes, locs, expparams),
+            min=_LOG_TINY)
+        log_w_new = log_w + log_L
+        m = torch.amax(log_w_new, dim=1, keepdim=True)
+        shifted = torch.exp(log_w_new - m)
+        s1 = torch.sum(shifted, dim=1)
+        s2 = torch.sum(shifted * shifted, dim=1)
+        log_norm = m[:, 0] + torch.log(s1)
+        log_w_norm = log_w_new - log_norm[:, None]
+        ess = s1 * s1 / s2
+
+    is_zero = log_norm < math.log(config.zero_weight_thresh)  # (T,)
+    if config.zero_weight_policy == "reset":
+        log_w_norm = torch.where(is_zero[:, None],
+                                 _uniform_log_weights(n, device), log_w_norm)
+        ess = torch.where(is_zero, torch.full((), float(n), device=device),
+                          ess)
+    need = ess < config.resample_thresh * n
+    state = dataclasses.replace(
+        state,
+        particle_log_weights=log_w_norm,
+        log_total_likelihood=state.log_total_likelihood + log_norm,
+        min_n_ess=torch.minimum(state.min_n_ess, ess),
+        n_zero_weight_events=state.n_zero_weight_events + is_zero.to(
+            torch.int32),
+        n_resamples=state.n_resamples + need.to(torch.int32),
+        just_resampled=need,
+    )
+
+    # The one host sync of the step: which trials resample.
+    idx = torch.nonzero(need).squeeze(1)
+    if idx.numel() > 0:
+        new_locs = resampler.batched(
+            state.generator, model, state.particle_locations[idx],
+            state.particle_log_weights[idx],
+            u0=None if u0 is None else torch.as_tensor(u0, device=device)[idx])
+        state = dataclasses.replace(
+            state,
+            particle_locations=state.particle_locations.index_copy(
+                0, idx, new_locs),
+            particle_log_weights=state.particle_log_weights.index_fill(
+                0, idx, -math.log(n)),
+        )
+
+    if _is_time_dependent(model):
+        walked = [
+            model.update_timestep(state.particle_locations[i],
+                                  _expparams_row(expparams, i),
+                                  generator=state.generator)[:, :, 0]
+            for i in range(n_trials)
+        ]
+        state = dataclasses.replace(state,
+                                    particle_locations=torch.stack(walked))
+
+    return state, log_norm
+
+
 def _is_time_dependent(model) -> bool:
     """True iff the model overrides ``Simulatable.update_timestep``,
     directly or through a combinator chain (``DerivedModel`` only
@@ -219,12 +373,6 @@ def _expparams_to(expparams, device):
         return {k: torch.as_tensor(v, device=device)
                 for k, v in expparams.items()}
     return torch.as_tensor(expparams, device=device)
-
-
-def _expparams_row(expparams, i):
-    if isinstance(expparams, dict):
-        return {k: v[i:i + 1] for k, v in expparams.items()}
-    return expparams[i:i + 1]
 
 
 def smc_batch_update(model, resampler, config: SMCConfig, state: SMCState,
@@ -372,8 +520,10 @@ class SMCUpdater(ParticleDistribution):
     """Sequential-Monte-Carlo Bayesian updater.
 
     Same constructor as the JAX package's ``SMCUpdater`` (less
-    ``track_resampling_divergence``), plus ``device`` and an optional
-    ``generator`` (which then fixes the device) in place of ``key``.
+    ``track_resampling_divergence``), plus ``device`` (``"cuda"`` unless
+    the caller asks for the CPU; raises when torch sees no CUDA device)
+    and an optional ``generator`` (which then fixes the device) in place
+    of ``key``.
     ``bayes_risk`` and ``expected_information_gain`` take candidate
     expparams (E,) and return (E,) tensors on the bank's device, or a 0-d
     tensor when E == 1.
@@ -391,7 +541,7 @@ class SMCUpdater(ParticleDistribution):
         zero_weight_thresh: float = 1e-10,
         seed: int = 0,
         generator: Optional[torch.Generator] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.model = model
         self.prior = prior
@@ -419,7 +569,7 @@ class SMCUpdater(ParticleDistribution):
         self._call_count = 0
 
         if generator is None:
-            generator = torch.Generator(device=torch.device(device))
+            generator = torch.Generator(device=resolve_device(device))
             generator.manual_seed(seed)
         self.device = generator.device
         self._init_generator_state = generator.get_state()

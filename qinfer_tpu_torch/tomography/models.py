@@ -101,8 +101,8 @@ class TomographyModel(FiniteOutcomeModel):
         from ..ops.fused_update import make_born_pr1
 
         n_el = self.basis.n_elements
-        meas = _column(expparams, "meas", modelparams.device)[:n_el]
-        cols = tuple(modelparams[:, d] for d in range(n_el))
+        meas = _column(expparams, "meas", modelparams.device)
+        cols = tuple(modelparams[..., d] for d in range(n_el))
         return make_born_pr1(n_el), meas, cols
 
     def are_models_valid(self, modelparams):

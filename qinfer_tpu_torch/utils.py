@@ -21,8 +21,10 @@ __all__ = [
     "particle_mean",
     "particle_covariance_mtx",
     "weighted_moments",
+    "weighted_moments_batched",
     "sqrtm_psd",
     "eigh_batched",
+    "cumsum_rows",
     "pytree_to_expparams",
 ]
 
@@ -102,13 +104,24 @@ def weighted_moments(log_w, locations):
     return mu, 0.5 * (cov + cov.T)
 
 
+def weighted_moments_batched(log_w, locations):
+    """(mean (T, D), cov (T, D, D)) of T banks: ``log_w`` (T, N),
+    ``locations`` (T, N, D); centered, as ``weighted_moments``."""
+    w = torch.exp(log_w - torch.logsumexp(log_w, dim=1, keepdim=True))
+    mu = torch.einsum("tn,tnd->td", w, locations)
+    centered = locations - mu[:, None, :]
+    cov = torch.einsum("tn,tnd,tne->tde", w, centered, centered)
+    return mu, 0.5 * (cov + cov.transpose(1, 2))
+
+
 def sqrtm_psd(mat, est_error=False):
-    """Symmetric PSD square root via eigh, clipping negative eigenvalues."""
-    vals, vecs = torch.linalg.eigh(mat)
+    """Symmetric PSD square root via eigh, clipping negative eigenvalues;
+    ``mat`` is (D, D) or a batch (…, D, D)."""
+    vals, vecs = eigh_batched(mat)
     vals_c = torch.clamp(vals, min=0.0)
-    root = (vecs * torch.sqrt(vals_c)[None, :]) @ vecs.T
+    root = (vecs * torch.sqrt(vals_c)[..., None, :]) @ vecs.transpose(-1, -2)
     if est_error:
-        return root, torch.sum(torch.abs(vals - vals_c))
+        return root, torch.sum(torch.abs(vals - vals_c), dim=-1)
     return root
 
 
@@ -124,6 +137,19 @@ def eigh_batched(mat):
     evals = torch.cat([p[0] for p in parts])
     evecs = torch.cat([p[1] for p in parts])
     return evals.reshape(lead + (m,)), evecs.reshape(lead + (m, m))
+
+
+def cumsum_rows(x):
+    """Inclusive cumsum of each row of an integer (T, N) tensor, exact.
+
+    One scan over the flattened rows, less each row's start. torch's scan
+    along the last axis of a (T, N) tensor gives each row one block, which
+    for a few long rows is slow (0.3–0.4 ms a call for 4 rows of 2^18 on
+    an H100, ``chip_profile.py``)."""
+    flat = torch.cumsum(x.reshape(-1), dim=0).reshape(x.shape)
+    before = torch.cat([torch.zeros(1, dtype=flat.dtype, device=flat.device),
+                        flat[:-1, -1]])
+    return flat - before[:, None]
 
 
 def pytree_to_expparams(record_array):

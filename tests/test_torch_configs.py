@@ -57,7 +57,7 @@ def runs(request):
     state0 = jax.tree_util.tree_map(np.asarray, ju.state)
     ju.batch_update(cfg.outcomes, cfg.expparams)
     tu = qt.SMCUpdater(cfg.model, N, qt.UniformDistribution(cfg.prior),
-                       zero_weight_policy="reset", seed=0)
+                       zero_weight_policy="reset", seed=0, device="cpu")
     tu.state = state_from_numpy(state0)
     tu.batch_update(cfg.outcomes, cfg.expparams)
     return cfg, ju, tu
@@ -91,7 +91,7 @@ def test_config_matches_jax_by_moments(runs):
 def test_config2_matches_the_oracle():
     cfg = chip_smoke.config2_binomial_precession()
     tu = qt.SMCUpdater(cfg.model, N, qt.UniformDistribution(cfg.prior),
-                       zero_weight_policy="reset", seed=1)
+                       zero_weight_policy="reset", seed=1, device="cpu")
     tu.batch_update(cfg.outcomes, cfg.expparams)
     rng = np.random.default_rng(0)
     oracle = OracleSMC(OracleBinomialPrecession(40), N,

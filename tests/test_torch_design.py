@@ -160,7 +160,7 @@ def _updaters(name, seed=0):
     ju.state = st_j
     tu = qt.SMCUpdater(from_reference(model_j), N,
                        qt.UniformDistribution([[0, 1]] * locs.shape[1]),
-                       seed=seed)
+                       seed=seed, device="cpu")
     tu.state = st_t
     return ju, tu, ep
 
@@ -227,7 +227,8 @@ def test_estimators_match_jax():
 def test_reset_replays_or_redraws_the_cloud():
     basis = qt.tomography.pauli_basis(1)
     u = qt.SMCUpdater(qt.tomography.TomographyModel(basis), 256,
-                      qt.tomography.GinibreDistribution(basis), seed=4)
+                      qt.tomography.GinibreDistribution(basis), seed=4,
+                      device="cpu")
     first = u.particle_locations.clone()
     u.update(1, {"meas": np.array([[0.5, 0.5, 0.0, 0.0]], np.float32)})
     assert len(u.data_record) == 1

@@ -153,7 +153,8 @@ def test_design_on_a_cuda_bank(cuda, model_case):
                 "n_meas": np.full(3, 50, np.int32)}
     else:
         cand = {"meas": chip_smoke.EFFECTS_1Q}
-    host = qt.SMCUpdater(model, 1 << 14, prior, zero_weight_policy="reset")
+    host = qt.SMCUpdater(model, 1 << 14, prior, zero_weight_policy="reset",
+                         device="cpu")
     host.state = state_from_numpy(state_to_numpy(u.state))
     for name in ("bayes_risk", "expected_information_gain"):
         on_card = getattr(u, name)(cand)
@@ -236,3 +237,80 @@ def test_main_path_runs_through_both_kernels(cuda):
     assert abs(float(u.est_mean()[0]) - 0.70710678) < 0.05
     assert b1.fused_bayes_update.launches - l1 == 100
     assert b2.expand_sorted_segments.launches - l2 >= u.resample_count > 0
+
+
+@pytest.mark.parametrize("shape", chip_smoke.B1_BATCH_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", ["precession", "multicos", "born4"])
+def test_batched_fused_update_kernel(cuda, name, shape):
+    """One launch for T banks: within the kernel tolerances of its plain
+    version, and each trial bit-equal to a single-bank launch."""
+    tile, scal, lw, cols = chip_smoke.batched_b1_inputs(name, *shape, 3,
+                                                        cuda)
+    launches = b1.fused_bayes_update_batched.launches
+    lw_k, ln_k, ess_k = b1.fused_bayes_update_batched(tile, scal, lw, cols)
+    assert b1.fused_bayes_update_batched.launches == launches + 1
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain_batched(tile, scal, lw,
+                                                          cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lw_k, lw_p - lse_p[:, None], atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(ln_k, lse_p, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ess_k, ess_p, rtol=1e-3, atol=0)
+    for i in range(shape[0]):
+        lw_1, ln_1, _ = b1.fused_bayes_update(tile, scal[i], lw[i],
+                                              tuple(c[i] for c in cols))
+        assert torch.equal(lw_1, lw_k[i]) and torch.equal(ln_1, ln_k[i])
+
+
+@pytest.mark.parametrize("shape", chip_smoke.B2_BATCH_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_batched_expand_kernel_bit_equal(cuda, shape):
+    n_trials, n, d = shape
+    starts, vals, mu = chip_smoke.batched_b2_inputs(n_trials, n, d, 1, cuda)
+    launches = b2.expand_sorted_segments_batched.launches
+    out = b2.expand_sorted_segments_batched(starts, vals, scale=0.98,
+                                            shift=0.02 * mu)
+    assert b2.expand_sorted_segments_batched.launches == launches + 1
+    ref = b2.expand_plain_batched(
+        starts, vals, n, b2._affine_batched(0.98, 0.02 * mu, n_trials, d,
+                                            cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    for i in range(n_trials):
+        assert torch.equal(out[i], b2.expand_sorted_segments(
+            starts[i], vals[i], scale=0.98, shift=0.02 * mu[i]))
+
+
+def test_ensemble_runs_through_the_batched_kernels(cuda):
+    b1_single = b1.fused_bayes_update.launches
+    l1 = b1.fused_bayes_update_batched.launches
+    l2 = b2.expand_sorted_segments_batched.launches
+    seconds, perf, steps_resampled = chip_smoke.ensemble_run(32, 2048, 30, 7,
+                                                             cuda)
+    assert float(np.median(perf["loss"][:, -1])) < 1e-3
+    assert b1.fused_bayes_update_batched.launches - l1 == 30 + 2  # warm-up
+    assert b1.fused_bayes_update.launches == b1_single
+    assert (b2.expand_sorted_segments_batched.launches - l2
+            >= steps_resampled > 0)
+    assert seconds > 0
+
+
+@pytest.mark.parametrize("path", chip_smoke.PGH_PATHS, ids=lambda p: p[0])
+def test_pgh_paths_run_through_both_kernels(cuda, path):
+    _, model, truth, slack = path
+    l1 = b1.fused_bayes_update.launches
+    l2 = b2.expand_sorted_segments.launches
+    w = chip_smoke.pgh_window(model, truth, 1, cuda, n=1 << 16)
+    assert w["finite"] and abs(w["est"] - truth) < 6 * w["sd"] + slack
+    assert b1.fused_bayes_update.launches - l1 == chip_smoke.N_PGH_STEPS
+    assert b2.expand_sorted_segments.launches - l2 >= w["resamples"] > 0
+
+
+def test_entry_points_default_to_the_card(cuda):
+    u = qt.SMCUpdater(qt.SimplePrecessionModel(), 1024,
+                      qt.UniformDistribution([0, 1]))
+    assert u.particle_locations.device.type == "cuda"
+    perf = qt.perf_test_multiple(2, qt.SimplePrecessionModel(), 256,
+                                 qt.UniformDistribution([0, 1]), 3, qt.PGH)
+    assert perf.shape == (2, 3)

@@ -262,7 +262,7 @@ def test_record_array_expparams_match_dict_form():
 
     def fresh():
         return qt.SMCUpdater(model, 2048, qt.UniformDistribution([0, 1]),
-                             zero_weight_policy="reset", seed=4)
+                             zero_weight_policy="reset", seed=4, device="cpu")
 
     by_rec, by_dict = fresh(), fresh()
     by_rec.update(int(counts[0]), rec[:1])

@@ -157,7 +157,7 @@ def slice_runs():
     ju.batch_update(outcomes, {"t": ts})
     tu = qt.SMCUpdater(qt.SimplePrecessionModel(), n,
                        qt.UniformDistribution([0.0, 1.0]),
-                       zero_weight_policy="reset", seed=0)
+                       zero_weight_policy="reset", seed=0, device="cpu")
     tu.state = state_from_numpy(j_state0)  # same initial cloud
     tu.batch_update(outcomes, {"t": ts})
     rng = np.random.default_rng(0)
@@ -208,7 +208,8 @@ def test_updater_update_matches_jax():
     ju = qi.SMCUpdater(qi.SimplePrecessionModel(), 1024,
                        qi.UniformDistribution([0.0, 1.0]), seed=2)
     tu = qt.SMCUpdater(qt.SimplePrecessionModel(), 1024,
-                       qt.UniformDistribution([0.0, 1.0]), seed=2)
+                       qt.UniformDistribution([0.0, 1.0]), seed=2,
+                       device="cpu")
     tu.state = state_from_numpy(jax.tree_util.tree_map(np.asarray, ju.state))
     for o, t in ((1, 0.5), (0, 1.5), (1, 2.5)):
         ju.update(o, {"t": np.float32(t)}, check_for_resample=False)
@@ -237,7 +238,7 @@ def test_zero_weight_policies():
     def run(policy):
         u = qt.SMCUpdater(qt.SimplePrecessionModel(), 256,
                           qt.UniformDistribution([0.0, 1.0]),
-                          zero_weight_policy=policy)
+                          zero_weight_policy=policy, device="cpu")
         u.update(1, {"t": np.float32(0.0)})
         return u
 
@@ -254,7 +255,7 @@ def test_zero_weight_policies():
     with pytest.raises(ValueError, match="zero_weight_policy"):
         qt.SMCUpdater(qt.SimplePrecessionModel(), 8,
                       qt.UniformDistribution([0.0, 1.0]),
-                      zero_weight_policy="bogus")
+                      zero_weight_policy="bogus", device="cpu")
 
 
 def test_interop_state_round_trip():
