@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of each chip_smoke.py path goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--paths NAME ...] [--parent DIR]
+    python3 chip_profile.py [--paths [NAME ...]] [--parent DIR ...]
 
 For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
 the PGH loops of config 1 and config 4's known-T2, all at 2^20 particles,
 and the two trial ensembles, as ``chip_smoke.py`` runs them; ``--paths``
-picks some) it prints one JSON line with:
+picks some, and ``--paths`` with no name none) it prints one JSON line
+with:
 
 - ``window_ms``: unprofiled windows, after one warm-up window;
 - ``no_resample_ms``: windows with ``resample_thresh=-1`` (no resampling);
@@ -19,11 +20,12 @@ picks some) it prints one JSON line with:
   window, the number of device events and of scalar reads to the host
   (``aten::_local_scalar_dense``), and the eight largest device items.
 
-``--parent DIR`` also times B1's tiles (``chip_smoke.phase_timing_zoo``)
+``--parent DIR ...`` also times B1's tiles (``chip_smoke.phase_timing_zoo``)
 and B1's flagship tile and B2 at D = 1, 4, 16 (``chip_smoke.phase_timing``)
-in the tree at DIR and in this one, in the order parent, this, this,
-parent, each in a fresh process that builds its kernels, and prints the
-means and each tree's ptxas register lines. Imports nothing of JAX.
+in each tree DIR and in this one, in the order DIR…, this, this, …DIR,
+twice, each in a fresh process that builds its kernels, and prints each
+tree's ptxas register lines, then per tile and tree the µs of every
+process and their mean. Imports nothing of JAX.
 """
 
 import argparse
@@ -172,11 +174,14 @@ TIMING = ("import json, torch, chip_smoke as cs; cs.phase_build(); "
           "print('TILE_MS', json.dumps(t))")
 
 
-def compare_tiles(parent):
-    """B1 tile µs at 2^20 in the parent tree and this one, alternated."""
+def compare_tiles(parents, rounds=2):
+    """B1 tile and B2 µs at 2^20 in each tree of ``parents`` and in this
+    one ("this"), alternated: parents, this, this, parents reversed, per
+    round."""
+    trees = [(p, p) for p in parents] + [("this", ".")]
+    order = (trees + trees[::-1]) * rounds
     out, regs = {}, {}
-    for label, tree in (("parent", parent), ("this", "."), ("this", "."),
-                        ("parent", parent)):
+    for label, tree in order:
         res = subprocess.run([sys.executable, "-c", TIMING], cwd=tree,
                              capture_output=True, text=True, timeout=900,
                              check=True)
@@ -190,13 +195,15 @@ def compare_tiles(parent):
     for label, lines in regs.items():
         print(f"ptxas {label}:", json.dumps(lines))
     print(json.dumps({"tile_us_at_2^20": {
-        tile: {label: float(np.mean(v)) for label, v in by.items()}
+        tile: {label: {"mean": float(np.mean(v)), "runs": v}
+               for label, v in by.items()}
         for tile, by in out.items()}}))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="a tree to time the kernels against")
+    ap.add_argument("--parent", nargs="+", default=[],
+                    help="trees to time the kernels against")
     ap.add_argument("--paths", nargs="*", choices=sorted(PATHS),
                     help="profile only these paths (default: all)")
     args = ap.parse_args()
@@ -209,7 +216,7 @@ def main():
     cs.phase_device()
     cs.phase_build()
     for name, run in PATHS.items():
-        if not args.paths or name in args.paths:
+        if args.paths is None or name in args.paths:
             profile_path(name, run, device)
     if args.parent:
         compare_tiles(args.parent)

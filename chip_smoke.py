@@ -55,7 +55,9 @@ Phases, in order; any failure exits non-zero before the result line:
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
    Born tiles of the paths; B2 at D = 1, 4 and 16, and beside it
    ``torch.repeat_interleave`` (the pick without the affine); the batched
-   B1 and B2 in both ensemble regimes.
+   B1 in both ensemble regimes; the batched B2 on the inputs of each
+   regime's median resample (``B2Capture``), checked bit-equal to its plain
+   version there too.
 
 The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version and bit-equal per trial to single-bank
@@ -468,8 +470,7 @@ def phase_build():
             trials = " [trial grid]" if "Lb1E" in line else ""
             kernel = (f"{m.group(1)}<{m.group(2)}{bound}>{trials}" if m
                       else "fused_update_pass2" if "pass2" in line
-                      else "expand_kernel" + (" [trial grid]"
-                                              if "ILb1E" in line else ""))
+                      else "expand_kernel")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}:", line.split(":", 1)[-1].strip())
 
@@ -990,15 +991,47 @@ def ensemble_run(n_trials, n, n_exp, seed, device, **kw):
     return seconds, perf, steps_resampled
 
 
+class B2Capture:
+    """Within ``with``: keeps a copy of the inputs of every batched B2
+    call that ``LiuWestResampler.batched`` makes (its launch count is the
+    wrapper's own, untouched)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._wrapped = qt.resamplers.expand_sorted_segments_batched
+
+        def spy(starts, values, n_out=None, scale=None, shift=None):
+            dense = torch.contiguous_format
+            self.calls.append((starts.clone(memory_format=dense),
+                               values.clone(memory_format=dense), scale,
+                               shift.clone()))
+            return self._wrapped(starts, values, n_out=n_out, scale=scale,
+                                 shift=shift)
+
+        qt.resamplers.expand_sorted_segments_batched = spy
+        return self
+
+    def __exit__(self, *exc):
+        qt.resamplers.expand_sorted_segments_batched = self._wrapped
+
+    def median_call(self):
+        """(starts, values, scale, shift) of the call with the median
+        number of resampled trials."""
+        calls = sorted(self.calls, key=lambda c: c[0].shape[0])
+        return calls[len(calls) // 2]
+
+
 def phase_ensembles(device):
     """Each ensemble regime: three runs (seeds 7–9), each with every
     counter set to 0 just before it and read just after; each gated on its
     median final loss. B1 batched must launch exactly once per step (the
     timed run's n_exp and the warm-up's), single-bank B1 never, B2 batched
-    at least once per timed step that resampled."""
+    at least once per timed step that resampled. Then one more run of seed
+    7 under ``B2Capture`` (so that its copies touch no timed run). Returns
+    the launch counts and, per regime, the inputs of its median B2 call."""
     from qinfer_tpu_torch.perf_testing import _WARMUP_EXPERIMENTS
 
-    out = {}
+    out, b2_inputs = {}, {}
     for name, n_trials, n, n_exp in ENSEMBLES:
         runs, counts = [], None
         for seed in ENSEMBLE_SEEDS:
@@ -1041,7 +1074,10 @@ def phase_ensembles(device):
             "resamples": [r["resamples"] for r in runs],
             "launches": counts}))
         out[name] = counts
-    return out
+        with B2Capture() as capture:
+            ensemble_run(n_trials, n, n_exp, ENSEMBLE_SEEDS[0], device)
+        b2_inputs[name] = capture.median_call()
+    return out, b2_inputs
 
 
 def _time_ms(fn, iters):
@@ -1189,9 +1225,12 @@ def phase_timing_zoo(device):
     return times
 
 
-def phase_timing_batched(device):
-    """Batched B1 (the ensembles' precession tile) and batched B2 (D = 1)
-    in both ensemble regimes: kernel, plain, and for B2 the library call."""
+def phase_timing_batched(device, b2_inputs):
+    """Batched B1 (the ensembles' precession tile) in both ensemble
+    regimes, and batched B2 on ``b2_inputs`` (per regime, the inputs of a
+    resample that the path made, from ``phase_ensembles``; bit-equal to its
+    plain version or it raises): kernel, plain, and for B2 the library
+    call."""
     times = {}
     for n_trials, n in B1_BATCH_SHAPES[:2]:
         tile, scal, lw, cols = batched_b1_inputs("precession", n_trials, n, 7,
@@ -1205,19 +1244,28 @@ def phase_timing_batched(device):
         t = _alternate(plain, lambda: b1.fused_bayes_update_batched(
             tile, scal, lw, cols))
         t["work"] = b1_work(1, n_trials * n)
+        t["shape"] = [n_trials, n, 1]
         times[f"B1_batched[{n_trials}x{n}]"] = t
-    for n_trials, n, d in B2_BATCH_SHAPES[:2]:
-        starts, vals, mu = batched_b2_inputs(n_trials, n, d, 7, device)
-        affine = b2._affine_batched(0.98, 0.02 * mu, n_trials, d, device)
+    for name, (starts, vals, scale, shift) in b2_inputs.items():
+        n_trials, n, d = vals.shape
+        affine = b2._affine_batched(scale, shift, n_trials, d, device)
+        out_k = b2._expand_cuda_batched(starts, vals, n, affine)
+        out_p = b2.expand_plain_batched(starts, vals, n, affine)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"batched B2 differs from its plain version "
+                                 f"on {name}'s resample")
         t = _alternate(
             lambda: b2.expand_plain_batched(starts, vals, n, affine),
             lambda: b2._expand_cuda_batched(starts, vals, n, affine),
             _repeat_interleave(starts, vals, n))
         t["work"] = b2_work(starts, d, n)
-        times[f"B2_batched[{n_trials}x{n}]"] = t
+        t["shape"] = [n_trials, n, d]
+        times[f"B2_batched[{name}]"] = t
     print(json.dumps({"batched_ms": {
         name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
-               "library_ms": t["library_ms"], "bound_ms": bound(t["work"])[0]}
+               "library_ms": t["library_ms"], "bound_ms": bound(t["work"])[0],
+               "shape": t["shape"]}
         for name, t in times.items()}}))
     return times
 
@@ -1251,10 +1299,10 @@ def main():
     config_launches["config5_adaptive_tomography"] = phase_config5(device)
     config_launches["tomography_2q_binomial"] = phase_tomography_2q(device)
     pgh_launches = phase_pgh_paths(device)
-    ens_launches = phase_ensembles(device)
+    ens_launches, b2_inputs = phase_ensembles(device)
     times = phase_timing(device)
     zoo_times = phase_timing_zoo(device)
-    batched_times = phase_timing_batched(device)
+    batched_times = phase_timing_batched(device, b2_inputs)
     src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
     src2 = "qinfer_tpu_torch/csrc/resample_expand.cu"
     b1_line = "qinfer_tpu/ops/fused_update.py:{}".format
@@ -1284,18 +1332,17 @@ def main():
         "fused_bayes_update[known_t2, PGH]", src1, b1_line(299),
         pgh_launches["config4_known_t2_pgh"]["B1"], zoo_err["known_t2"],
         zoo_times["known_t2"]))
-    for (name, n_trials, n, _), (b1_key, b2_key) in zip(ENSEMBLES, (
-            ("B1_batched[256x2048]", "B2_batched[256x2048]"),
-            ("B1_batched[4x262144]", "B2_batched[4x262144]"))):
+    for name, n_trials, n, _ in ENSEMBLES:
         kernels.append(kernel_row(
             f"fused_bayes_update_batched[{n_trials}x{n}]", src1, b1_line(197),
             ens_launches[name]["B1_batched"], batched_err["B1"],
-            batched_times[b1_key]))
+            batched_times[f"B1_batched[{n_trials}x{n}]"]))
+        t = batched_times[f"B2_batched[{name}]"]
         kernels.append(kernel_row(
-            f"expand_sorted_segments_batched[{n_trials}x{n}]", src2,
+            "expand_sorted_segments_batched[{}x{} of {}]".format(
+                *t["shape"][:2], name), src2,
             "qinfer_tpu/ops/resample_expand.py:359",
-            ens_launches[name]["B2_batched"], batched_err["B2"],
-            batched_times[b2_key]))
+            ens_launches[name]["B2_batched"], batched_err["B2"], t))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,9 @@
 // Trials. T independent banks (the JAX package's sequential_vmap,
 // resample_expand.py:359, which runs the kernel once per trial) are one
 // launch on a (row block, trial) grid: blockIdx.y picks the trial's starts,
-// values, affine (μ differs per trial) and output rows. A single bank
-// (T = 1) keeps its own instantiation, in which nothing is shifted.
-// gridDim.y bounds T at 65535.
+// values, affine (μ differs per trial) and output rows. A single bank is
+// T = 1, where blockIdx.y is 0 and nothing moves. gridDim.y bounds T at
+// 65535.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +34,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
               const float* __restrict__ values, int n_cols,
@@ -42,24 +41,26 @@ expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
               int64_t n_out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n_out) return;
-  if constexpr (kBatched) {
-    const int64_t y = blockIdx.y;
-    starts += y * n_in;
-    values += y * n_in * n_cols;
-    out += y * n_out * n_cols;
-    if (affine != nullptr) affine += y * 2 * n_cols;
-  }
-  // First k with starts[k] > i; ties resolve to the last j with starts[j] <= i.
-  int64_t lo = 0;
-  int64_t hi = n_in;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(__ldg(starts + mid)) <= i) {
-      lo = mid + 1;
+  const int64_t y = blockIdx.y;
+  starts += y * n_in;
+  values += y * n_in * n_cols;
+  out += y * n_out * n_cols;
+  if (affine != nullptr) affine += y * 2 * n_cols;
+  // First k with starts[k] > i (ties resolve to the last j with starts[j] <=
+  // i), by halving a (first, count) range. The probe is a pointer step, so
+  // the trial's offset is added once and not in every probe's address.
+  const int32_t* first = starts;
+  int64_t count = n_in;
+  while (count > 0) {
+    const int64_t half = count >> 1;
+    if (static_cast<int64_t>(__ldg(first + half)) <= i) {
+      first += half + 1;
+      count -= half + 1;
     } else {
-      hi = mid;
+      count = half;
     }
   }
+  const int64_t lo = first - starts;
   const int64_t j = lo > 0 ? lo - 1 : 0;
   const float* src = values + j * n_cols;
   float* dst = out + i * n_cols;
@@ -86,15 +87,8 @@ extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
   }
   const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
                   static_cast<unsigned>(n_trials));
-  const auto* s = static_cast<const int32_t*>(starts);
-  const auto* v = static_cast<const float*>(values);
-  const auto* a = static_cast<const float*>(affine);
-  auto* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_trials == 1) {
-    expand_kernel<false><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
-  } else {
-    expand_kernel<true><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
-  }
+  expand_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(starts), n_in, static_cast<const float*>(values),
+      n_cols, static_cast<const float*>(affine), static_cast<float*>(out), n_out);
   return static_cast<int>(cudaGetLastError());
 }

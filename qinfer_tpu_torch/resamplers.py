@@ -21,6 +21,8 @@ from typing import Callable, ClassVar, Optional
 import torch
 
 from .ops.resample_expand import (
+    _affine_batched,
+    expand_plain_batched,
     expand_sorted_segments_batched,
     systematic_expand,
 )
@@ -208,8 +210,10 @@ class LiuWestResampler(Resampler):
         D), ``particle_log_weights`` (T, N), ``u0`` (T,) or None. Per trial
         the same steps as ``__call__`` (its own moments, its own
         Σ^{1/2}, its own stratum offset; kernel B2 for all trials in one
-        launch on CUDA); the smear noise (T, N, D) comes from ``kernel``
-        when given, and postselection tests the flattened (T·N, D) bank.
+        launch on CUDA, its plain version on the CPU or when
+        ``use_expand_kernel`` is False); the smear noise (T, N, D) comes
+        from ``kernel`` when given, and postselection tests the flattened
+        (T·N, D) bank.
         Returns the new (T, N, D) locations."""
         locs = particle_locations
         log_w = particle_log_weights
@@ -221,24 +225,19 @@ class LiuWestResampler(Resampler):
         h = self._h
         S = sqrtm_psd((h * h) * cov)  # (T, D, D)
 
-        use_expand = (locs.is_cuda if self.use_expand_kernel is None
-                      else bool(self.use_expand_kernel))
-        if use_expand:
-            starts = systematic_segment_starts_batched(
-                log_w, n, u0=u0, generator=generator)
-            centers = expand_sorted_segments_batched(
-                starts, locs, scale=self.a, shift=(1.0 - self.a) * mu)
+        if not self.use_systematic:
+            raise NotImplementedError(
+                "the batched resample draws systematic strata only")
+        starts = systematic_segment_starts_batched(
+            log_w, n, u0=u0, generator=generator)
+        shift = (1.0 - self.a) * mu
+        if self.use_expand_kernel is False:
+            centers = expand_plain_batched(
+                starts, locs, n,
+                _affine_batched(self.a, shift, n_trials, d, locs.device))
         else:
-            if not self.use_systematic:
-                raise NotImplementedError(
-                    "the batched resample draws systematic strata only")
-            starts = systematic_segment_starts_batched(
-                log_w, n, u0=u0, generator=generator)
-            rows = torch.arange(n, dtype=torch.int32, device=locs.device)
-            idx = torch.searchsorted(
-                starts, rows.expand(n_trials, n).contiguous(), right=True) - 1
-            picked = torch.gather(locs, 1, idx[:, :, None].expand(-1, -1, d))
-            centers = self.a * picked + (1.0 - self.a) * mu[:, None, :]
+            centers = expand_sorted_segments_batched(starts, locs,
+                                                     scale=self.a, shift=shift)
 
         def draw():
             if self.kernel is not None:

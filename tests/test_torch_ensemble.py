@@ -352,6 +352,34 @@ def test_batched_step_resets_zero_weight_trials_alone():
     assert st.just_resampled.tolist() == [False, False]
 
 
+def test_batched_resample_goes_through_the_b2_wrapper(monkeypatch):
+    """``LiuWestResampler.batched`` calls the batched B2 wrapper once (on
+    the CPU the wrapper runs its plain version), and
+    ``use_expand_kernel=False`` gives the same cloud bit for bit."""
+    import qinfer_tpu_torch.resamplers as trs
+
+    rng = np.random.default_rng(5)
+    locs = torch.from_numpy(rng.random((3, 1024, 2)).astype(np.float32))
+    lw = torch.from_numpy(rng.standard_normal((3, 1024)).astype(np.float32))
+    noise = rng.standard_normal((3, 1024, 2)).astype(np.float32)
+    u0 = torch.tensor([0.1, 0.5, 0.9])
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return tre.expand_sorted_segments_batched(*args, **kw)
+
+    monkeypatch.setattr(trs, "expand_sorted_segments_batched", spy)
+    model = qt.MultiCosModel(n_terms=2)
+    out = {}
+    for use in (None, False):
+        rs = qt.LiuWestResampler(kernel=_Noise(noise, slice(None)),
+                                 postselect=False, use_expand_kernel=use)
+        out[use] = rs.batched(None, model, locs, lw, u0=u0)
+    assert calls == [(3, 1024)]
+    assert torch.equal(out[None], out[False])
+
+
 # -- simulator ------------------------------------------------------------------
 
 _SIM_CASES = [
