@@ -20,12 +20,18 @@ with:
   window, the number of device events and of scalar reads to the host
   (``aten::_local_scalar_dense``), and the eight largest device items.
 
-``--parent DIR ...`` also times B1's tiles (``chip_smoke.phase_timing_zoo``)
-and B1's flagship tile and B2 at D = 1, 4, 16 (``chip_smoke.phase_timing``)
-in each tree DIR and in this one, in the order DIR…, this, this, …DIR,
-twice, each in a fresh process that builds its kernels, and prints each
-tree's ptxas register lines, then per tile and tree the µs of every
-process and their mean. Imports nothing of JAX.
+``--parent DIR ...`` also times B1's tiles (``chip_smoke.phase_timing_zoo``),
+B1's flagship tile and B2 at D = 1, 4, 16 (``chip_smoke.phase_timing``)
+and both batched kernels in both ensemble regimes
+(``chip_smoke.phase_timing_batched``) in each tree DIR and in this one, in
+the order DIR…, this, this, …DIR, twice, each in a fresh process that
+builds its kernels, and prints each tree's ptxas register lines, then per
+tile and tree the µs of every process and their mean. ``--b2-forms``
+times B2's two forms against each other at each width
+(``compare_b2_forms``), ``--b1-paths`` B1's two column paths at each
+row stride (``compare_b1_paths``); ``--kernel-split`` gives the device µs of each
+kernel that a tile's call launches (``kernel_split``). Imports nothing of
+JAX.
 """
 
 import argparse
@@ -163,14 +169,19 @@ def profile_path(name, run, device):
     print(json.dumps(rec), flush=True)
 
 
-# Both trees' timing phases; a record is (kernel ms, plain ms) in older
-# trees and a dict with "ms" in newer ones.
+# Both trees' timing phases (a chip_smoke.py with phase_timing_batched): B1's
+# flagship tile, B2 at D = 1, 4, 16, every B1 tile, and both batched
+# kernels in both ensemble regimes (batched B2 on synthetic inputs of every
+# trial, chip_smoke.batched_b2_inputs).
 TIMING = ("import json, torch, chip_smoke as cs; cs.phase_build(); "
           "torch.backends.cuda.matmul.allow_tf32 = False; "
           "d = torch.device('cuda', 0); "
-          "t = {**cs.phase_timing(d), **cs.phase_timing_zoo(d)}; "
-          "t = {k: v['ms'] if isinstance(v, dict) else v[0] "
-          "for k, v in t.items()}; "
+          "b = {f'{t}x{n}': (lambda s, v, m: (s, v, 0.98, 0.02 * m))("
+          "*cs.batched_b2_inputs(t, n, 1, 7, d)) "
+          "for t, n, _ in cs.B2_BATCH_SHAPES[:2]}; "
+          "t = {**cs.phase_timing(d), **cs.phase_timing_zoo(d), "
+          "**cs.phase_timing_batched(d, b)}; "
+          "t = {k: v['ms'] for k, v in t.items()}; "
           "print('TILE_MS', json.dumps(t))")
 
 
@@ -200,12 +211,113 @@ def compare_tiles(parents, rounds=2):
         for tile, by in out.items()}}))
 
 
+def kernel_split(device, iters=20):
+    """Device µs of each kernel that one call of a B1 tile or of B2 at
+    2^20 launches (``torch.profiler``, mean over ``iters`` calls), beside
+    the call's µs from CUDA events (``chip_smoke._time_ms``); the
+    difference is the device's idle time between the kernels."""
+    cases = [(name, cs.zoo_inputs(case, N, 7, device))
+             for case in cs.ZOO for name in [case[0]]]
+    cases += [(case[0], cs.tomo_inputs(case, N, 7, device))
+              for case in cs.TOMO]
+    calls = {name: (lambda t=t: cs.b1.fused_bayes_update(*t))
+             for name, t in cases}
+    rng = np.random.default_rng(1)
+    log_w = torch.as_tensor(cs._weights("random", N, rng), device=device)
+    starts = cs.systematic_segment_starts(log_w, N, u0=0.37)
+    for d in (1, 4, 16):
+        vals = torch.rand((N, d), device=device)
+        aff = cs.b2._affine(0.98, 0.02 * vals.mean(0), d, device)
+        calls[f"B2[D={d}]"] = (lambda v=vals, a=aff:
+                               cs.b2._expand_cuda(starts, v, N, a))
+    out = {}
+    for name, fn in calls.items():
+        event_us = 1e3 * cs._time_ms(fn, iters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {k.key[:48]: k.device_time_total / k.count
+                   for k in prof.key_averages() if k.device_time_total > 0}
+        out[name] = {"event_us": event_us, "kernels_us": kernels}
+    print(json.dumps({"kernel_split": out}))
+
+
+B1_PATH_STRIDES = (2, 3, 4, 5, 8, 12, 16, 17)
+
+
+def compare_b1_paths(device, rounds=2):
+    """B1's two column paths, forced, on the same views of a 2^20 × s bank
+    (a binomial Born tile over min(s, 16) columns, ``chip_smoke.
+    span_inputs``) at each row stride of B1_PATH_STRIDES, in turns row
+    span, per column, per column, row span; µs of each timing and their
+    mean, per stride and path."""
+    out = {}
+    for s in B1_PATH_STRIDES:
+        tile, scal, lw, cols = cs.span_inputs(s, min(s, 16), "rows", N, 7,
+                                              device)
+        args = (tile, scal[None], lw[None], tuple(c[None] for c in cols))
+        runs = {True: [], False: []}
+        for _ in range(rounds):
+            for path in (True, False, False, True):
+                runs[path].append(1e3 * cs._time_ms(
+                    lambda: cs.b1._fused_update_cuda(*args, row_span=path),
+                    20))
+        out[f"s={s}"] = {label: {"mean": float(np.mean(runs[path])),
+                                 "runs": runs[path]}
+                         for label, path in (("row_span", True),
+                                             ("per_column", False))}
+    print(json.dumps({"b1_path_us": out}))
+
+
+B2_FORM_WIDTHS = (1, 2, 3, 4, 5, 8, 12, 16, 17)
+
+
+def compare_b2_forms(device, rounds=2):
+    """B2's two forms (one thread per row, a block per span of rows) at
+    2^20 rows and each width of B2_FORM_WIDTHS, and on the batched
+    ensemble shapes at D = 1, in turns rows, span, span, rows; µs of each
+    timing and their mean, per width and form."""
+    b2 = cs.b2
+    rng = np.random.default_rng(1)
+    log_w = torch.as_tensor(cs._weights("random", N, rng), device=device)
+    starts = cs.systematic_segment_starts(log_w, N, u0=0.37)[None]
+    cases = {}
+    for d in B2_FORM_WIDTHS:
+        vals = torch.rand((1, N, d), device=device)
+        cases[f"D={d}"] = (starts, vals, N, b2._affine_batched(
+            0.98, 0.02 * vals[0].mean(0), 1, d, device))
+    for n_trials, n, d in cs.B2_BATCH_SHAPES[:2]:
+        s, v, mu = cs.batched_b2_inputs(n_trials, n, d, 7, device)
+        cases[f"{n_trials}x{n}"] = (s, v, n, b2._affine_batched(
+            0.98, 0.02 * mu, n_trials, d, device))
+    out = {}
+    for name, (s, v, n, aff) in cases.items():
+        runs = {b2.ROWS: [], b2.SPAN: []}
+        for _ in range(rounds):
+            for form in (b2.ROWS, b2.SPAN, b2.SPAN, b2.ROWS):
+                runs[form].append(1e3 * cs._time_ms(
+                    lambda: b2._expand_cuda_batched(s, v, n, aff, form=form),
+                    20))
+        out[name] = {label: {"mean": float(np.mean(runs[form])),
+                             "runs": runs[form]}
+                     for label, form in (("rows", b2.ROWS),
+                                         ("span", b2.SPAN))}
+    print(json.dumps({"b2_form_us": out}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", nargs="+", default=[],
                     help="trees to time the kernels against")
     ap.add_argument("--paths", nargs="*", choices=sorted(PATHS),
                     help="profile only these paths (default: all)")
+    ap.add_argument("--b2-forms", action="store_true",
+                    help="time B2's two forms at each width")
+    ap.add_argument("--b1-paths", action="store_true",
+                    help="time B1's two column paths at each row stride")
+    ap.add_argument("--kernel-split", action="store_true",
+                    help="device µs of each kernel of each tile's call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: torch sees no CUDA device", file=sys.stderr)
@@ -220,6 +332,12 @@ def main():
             profile_path(name, run, device)
     if args.parent:
         compare_tiles(args.parent)
+    if args.b2_forms:
+        compare_b2_forms(device)
+    if args.b1_paths:
+        compare_b1_paths(device)
+    if args.kernel_split:
+        kernel_split(device)
     return 0
 
 

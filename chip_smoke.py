@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel test (atol 1e-4 on log-weights and log_norm, rtol 1e-3 on ESS),
    for the flagship tile, for each of the ten tiles of ``ZOO`` and for the
    three Born-tile cases of ``TOMO`` (priors drawn on the card with
-   ``GinibreDistribution``) at n ∈ {1000, 2^20 + 3, 2^20}; B2 (systematic
-   expand) bit for bit at D ∈ {1, 2, 3, 4, 16}.
+   ``GinibreDistribution``) at n ∈ {1000, 2^20 + 3, 2^20}; B1's row-span
+   path (``SPAN_CASES``: banks of row stride 4, 5, 16, 17, offset views)
+   also bit for bit against its per-column path, single and batched; B2
+   (systematic expand) bit for bit at D ∈ {1, 2, 3, 4, 5, 16, 17}.
 4. main path: ``SMCUpdater`` with 2^20 particles on ``SimplePrecessionModel``
    and the Liu–West resampler, one warm-up window and three timed windows,
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
@@ -467,10 +469,17 @@ def phase_build():
             m = re.search(r"(TwoOutcome|Binomial)INS_\d+(\w+?Pr1)"
                           r"(?:ILi(\d+)E)?E", line)
             bound = f"<{m.group(3)}>" if m and m.group(3) else ""
-            trials = " [trial grid]" if "Lb1E" in line else ""
-            kernel = (f"{m.group(1)}<{m.group(2)}{bound}>{trials}" if m
+            if "fused_update_span" in line:
+                form = (" [row span, float4]" if "Lb1E" in line
+                        else " [row span]")
+            else:
+                form = " [trial grid]" if "Lb1E" in line else ""
+            b2_form = ("expand_rows" if "expand_rows" in line
+                       else "expand_span<float4>" if "Lb1E" in line
+                       else "expand_span")
+            kernel = (f"{m.group(1)}<{m.group(2)}{bound}>{form}" if m
                       else "fused_update_pass2" if "pass2" in line
-                      else "expand_kernel")
+                      else b2_form)
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}:", line.split(":", 1)[-1].strip())
 
@@ -538,6 +547,74 @@ def phase_compare_tomo(device):
     return worst
 
 
+# B1's row-span path (columns that are views of one row-major (N, s)
+# bank): (s, columns read, view). "rows" reads columns 0…k−1 of the bank,
+# "from_row_1" the same of bank[1:], "from_col_1" columns 1…k. s = 4 and
+# 16 are config 5's and the two-qubit bank; 5 and 17 the diffusive models'
+# (ε unread). Below s = 8 the wrapper keeps the per-column path, so the
+# compare forces each path on the same views.
+SPAN_CASES = ((4, 4, "rows"), (5, 4, "rows"), (16, 16, "rows"),
+              (17, 16, "rows"), (16, 16, "from_row_1"),
+              (5, 4, "from_row_1"), (5, 4, "from_col_1"),
+              (17, 16, "from_col_1"))
+
+
+def span_inputs(s, k, view, n, seed, device, n_trials=None):
+    """(tile, scalars, log_w, cols) of a binomial Born update whose k
+    columns are views of one (n, s) bank (or (T, n, s) with ``n_trials``)
+    of Ginibre-like draws; ``cols[j]`` is (n,) or (T, n)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lead = () if n_trials is None else (n_trials,)
+    rows = n + (view == "from_row_1")
+    bank = 0.5 * torch.rand(lead + (rows, s), generator=g, device=device)
+    bank = bank[..., 1:, :] if view == "from_row_1" else bank
+    c0 = 1 if view == "from_col_1" else 0
+    cols = tuple(bank[..., c0 + j] for j in range(k))
+    meas = torch.rand(lead + (k,), generator=g, device=device) / k
+    n_meas = 50.0
+    count = torch.full(lead + (1,), 31.0, device=device)
+    log_c = (torch.lgamma(torch.tensor(n_meas + 1.0, device=device))
+             - torch.lgamma(count + 1.0) - torch.lgamma(n_meas - count + 1.0))
+    scal = torch.cat([count, torch.full_like(count, n_meas), log_c, meas], -1)
+    lw = torch.log(1.0 - torch.rand(lead + (n,), generator=g, device=device))
+    return (b1.binomial_tile(b1.make_born_pr1(k)), scal,
+            lw - torch.logsumexp(lw, -1, keepdim=True), cols)
+
+
+def both_paths(tile, scal, lw, cols):
+    """B1 on T banks through the row-span path and through the per-column
+    path, forced, on the same columns: two (lw, lse, lse2, ess)."""
+    return tuple(b1._fused_update_cuda(tile, scal, lw, cols, row_span=path)
+                 for path in (True, False))
+
+
+def phase_compare_span(device):
+    """B1's row-span path on SPAN_CASES at n ∈ {1000, 2^20 + 3}: the
+    wrapper's path within B1_TOL of the plain version, and the row-span
+    path bit-equal (log-weights, lse, lse2, ESS) to the per-column path on
+    the same views, for one bank and for T = 3. Returns the worst error."""
+    worst = 0.0
+    for s, k, view in SPAN_CASES:
+        for n in (1000, N_FLAGSHIP + 3):
+            label = f"row span s={s} k={k} {view} n={n}"
+            tile, scal, lw, cols = span_inputs(s, k, view, n, n + s, device)
+            worst = max(worst, _b1_check(label, tile, scal, lw, cols))
+            span, per_col = both_paths(tile, scal[None], lw[None],
+                                       tuple(c[None] for c in cols))
+            batched = span_inputs(s, k, view, n, n + s, device, n_trials=3)
+            span_t, per_col_t = both_paths(*batched)
+            torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(span, per_col))
+                    and all(torch.equal(a, b)
+                            for a, b in zip(span_t, per_col_t)))
+            print(f"B1 {label}: row span and per column "
+                  f"{'bit-equal (single and T=3)' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"B1 row span differs from the "
+                                     f"per-column path: {label}")
+    return worst
+
+
 def _weights(kind, n, rng):
     if kind == "random":
         w = rng.random(n) ** 3
@@ -555,7 +632,7 @@ def phase_compare_b2(device):
     worst = 0.0
     rng = np.random.default_rng(0)
     for n in (257, 16385, N_FLAGSHIP):
-        for d in (1, 2, 3, 4, 16):
+        for d in (1, 2, 3, 4, 5, 16, 17):
             vals = torch.as_tensor(rng.standard_normal((n, d)),
                                    dtype=torch.float32, device=device)
             mu = torch.as_tensor(rng.standard_normal(d), dtype=torch.float32,
@@ -1292,6 +1369,8 @@ def main():
     err = {"B1": phase_compare_b1(device), "B2": phase_compare_b2(device)}
     zoo_err = phase_compare_zoo(device)
     zoo_err.update(phase_compare_tomo(device))
+    zoo_err["binomial_tomography_2q"] = max(
+        zoo_err["binomial_tomography_2q"], phase_compare_span(device))
     batched_err = {"B1": phase_compare_b1_batched(device),
                    "B2": phase_compare_b2_batched(device)}
     launches = phase_main_path(device)

@@ -37,13 +37,14 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     # (outcome, pr1, scalars, scalar_stride, consts (host floats), n_consts,
     #  log_w, cols (host array of device pointers), col_strides (host
-    #  int64s), n_cols, trial_stride, out_lw, partials, n_blocks, stats, n,
-    #  n_trials, stream)
+    #  int64s), n_cols, span_base, span_offsets (host int32s), span_stride
+    #  (0: per-column path), trial_stride, out_lw, partials, n_blocks,
+    #  stats, n, n_trials, stream)
     "qt_fused_update": (_I32, _I32, _P, _I32, _P, _I32, _P, _P, _P, _I32,
-                        _I64, _P, _P, _I32, _P, _I64, _I32, _P),
+                        _P, _P, _I32, _I64, _P, _P, _I32, _P, _I64, _I32, _P),
     # (starts, n_in, values, n_cols, affine or NULL, out, n_out, n_trials,
-    #  stream)
-    "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _P),
+    #  form, stream)
+    "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _I32, _P),
 }
 
 

@@ -48,13 +48,30 @@
 // contraction), as the plain PyTorch version of the same function computes
 // them.
 //
-// Columns are read in place: column j of particle i is p[j][i·stride[j]].
-// The parameter columns of a model are views of one (N, D) row-major bank,
-// so every stride is D and no column is copied out first. Each functor
-// names its own column bound (kMaxColsUsed), so a wide functor does not
-// widen the unrolled loops or the registers of the others: MultiCos keeps
-// 8, and the Born rule is instantiated at 4 columns (a qubit) and at 16
-// (two qubits).
+// Columns are read in place, by one of two paths chosen at launch:
+//  - per column: column j of particle i is p[j][i·stride[j]], any layout.
+//    Lanes of a warp are `stride` floats apart, so a warp-wide load of a
+//    16-column bank touches 32 lines for 128 useful bytes;
+//  - row span (fused_update_span), when the columns are views of one
+//    row-major (N, s) bank with 8 ≤ s ≤ 20 (the wrapper's choice: on an
+//    H100 the per-column path measured faster for the tiles with s ≤ 5):
+//    column j of particle i is base[i·s + off_j].
+//    For each grid step a block's 256 rows are one contiguous span of
+//    256·s floats. The block stages it in shared memory with coalesced
+//    cp.async copies (16 bytes where address and size allow, 4 bytes at
+//    an unaligned head and tail, and only up to the last row's largest
+//    offset), double-buffered so that step k + 1 is in flight while step k
+//    is computed. Each thread then reads its own row from shared memory:
+//    as float4s when s % 4 == 0, the span is 16-byte aligned and the
+//    columns are 0…n−1 in order (rows 16·s bytes apart then hit all banks
+//    through an XOR swizzle of the 16-byte chunks when s % 8 == 0), else
+//    one float per column (odd s is conflict-free as it stands).
+// Both paths keep the element-to-thread schedule (block b, thread t takes
+// rows b·256 + t + k·gridDim.x·256) and the same arithmetic, so they give
+// the same bits. Each functor names its own column bound (kMaxColsUsed),
+// so a wide functor does not widen the unrolled loops or the registers of
+// the others: MultiCos keeps 8, and the Born rule is instantiated at 4
+// columns (a qubit) and at 16 (two qubits).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,13 +85,38 @@ constexpr int kMaxConsts = 4;
 constexpr float kNegBig = -3.0e38f;
 constexpr float kLogTiny = -87.0f;
 
-// Column j of particle i is p[j][i * stride[j]].
+constexpr int kMaxSpanStride = 20;  // two stages of 256 rows: ≤ 41 KB of shared memory
+
+// A functor reads column j of particle i as c(j, i) through one of three
+// accessors. Cols: in place, p[j][i * stride[j]].
 struct Cols {
   const float* p[kMaxCols];
   int64_t stride[kMaxCols];
   __device__ __forceinline__ float operator()(int j, int64_t i) const {
     return p[j][i * stride[j]];
   }
+};
+
+// Row-span layout: column j of particle i is base[i * stride + off[j]].
+struct Span {
+  const float* base;
+  int stride;
+  int max_off;
+  int off[kMaxCols];
+};
+
+// SmemRow: the thread's staged row in shared memory, one float per column.
+struct SmemRow {
+  const float* row;
+  const int* off;
+  __device__ __forceinline__ float operator()(int j, int64_t) const { return row[off[j]]; }
+};
+
+// RegRow: the thread's first K floats of its row, loaded as float4s.
+template <int K>
+struct RegRow {
+  float v[K];
+  __device__ __forceinline__ float operator()(int j, int64_t) const { return v[j]; }
 };
 
 struct Consts {
@@ -101,7 +143,8 @@ struct PrecessionPr1 {
   static constexpr int kMinCols = 1, kMaxColsUsed = 1;
   float t;
   __device__ PrecessionPr1(const float* s, const Consts&, int) : t(s[0]) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     return one_minus_cos2(mul(mul(0.5f, c(0, i)), t));
   }
 };
@@ -116,7 +159,8 @@ struct MultiCosPr1 {
 #pragma unroll
     for (int j = 0; j < kMaxColsUsed; ++j) ts[j] = j < n_cols ? s[j] : 0.0f;
   }
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     float arg = mul(c(0, i), ts[0]);
 #pragma unroll
     for (int j = 1; j < kMaxColsUsed; ++j) {
@@ -133,7 +177,8 @@ struct KnownT2Pr1 {
   __device__ KnownT2Pr1(const float* s, const Consts& k, int)
       : t(s[0]), damp(expf(-s[0] / k.v[0])),  // IEEE division (no fast-math)
         mix(mul(0.5f, sub(1.0f, damp))) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     const float co = cosf(mul(mul(0.5f, c(0, i)), t));
     return sub(1.0f, add(mul(mul(damp, co), co), mix));
   }
@@ -150,7 +195,8 @@ struct RbPr1 {
   static constexpr int kMinCols = 3, kMaxColsUsed = 3;
   float m;
   __device__ RbPr1(const float* s, const Consts&, int) : m(s[0]) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     return rb_pr1(m, c(0, i), c(1, i), c(2, i));
   }
 };
@@ -163,7 +209,8 @@ struct RbInterleavedPr1 {
   bool reference;
   __device__ RbInterleavedPr1(const float* s, const Consts&, int)
       : m(s[0]), reference(s[1] == 1.0f) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     const float p_ref = c(1, i);
     const float decay = reference ? p_ref : mul(c(0, i), p_ref);
     return rb_pr1(m, decay, c(2, i), c(3, i));
@@ -175,7 +222,8 @@ struct InversionPr1 {
   static constexpr int kMinCols = 1, kMaxColsUsed = 1;
   float w, t;
   __device__ InversionPr1(const float* s, const Consts&, int) : w(s[0]), t(s[1]) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     return one_minus_cos2(mul(mul(0.5f, sub(c(0, i), w)), t));
   }
 };
@@ -184,7 +232,8 @@ struct InversionPr1 {
 struct CoinPr1 {
   static constexpr int kMinCols = 1, kMaxColsUsed = 1;
   __device__ CoinPr1(const float*, const Consts&, int) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     return c(0, i);
   }
 };
@@ -194,7 +243,8 @@ struct NoisyCoinPr1 {
   static constexpr int kMinCols = 1, kMaxColsUsed = 1;
   float alpha, beta;
   __device__ NoisyCoinPr1(const float* s, const Consts&, int) : alpha(s[0]), beta(s[1]) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     const float p = c(0, i);
     return sub(1.0f, add(mul(alpha, sub(1.0f, p)), mul(beta, p)));
   }
@@ -212,7 +262,8 @@ struct BornPr1 {
 #pragma unroll
     for (int j = 0; j < kMaxColsUsed; ++j) e[j] = j < n_cols ? s[j] : 0.0f;
   }
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     float acc = mul(c(0, i), e[0]);
 #pragma unroll
     for (int j = 1; j < kMaxColsUsed; ++j) {
@@ -233,7 +284,8 @@ struct TwoOutcome {
   bool one;
   __device__ TwoOutcome(const float* s, const Consts& k, int n_cols)
       : pr1(s + kHead, k, n_cols), one(s[0] == 1.0f) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     const float p1 = pr1(c, i);
     const float pr = one ? p1 : sub(1.0f, p1);
     return logf(pr < 1e-35f ? 1e-35f : pr);
@@ -250,7 +302,8 @@ struct Binomial {
   float k, n_k, log_c;
   __device__ Binomial(const float* s, const Consts& kc, int n_cols)
       : pr1(s + kHead, kc, n_cols), k(s[0]), n_k(sub(s[1], s[0])), log_c(s[2]) {}
-  __device__ __forceinline__ float operator()(const Cols& c, int64_t i) const {
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
     const float p1 = clampf(pr1(c, i), 0.0f, 1.0f);
     const float q1 = sub(1.0f, p1);
     const float lp = logf(p1 < 1e-30f ? 1e-30f : p1);
@@ -354,6 +407,138 @@ fused_update_pass1(const float* __restrict__ scalars, int scalar_stride,
   }
 }
 
+// -- row-span path ---------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Shared position of staged float x (counted from the stage's start): its
+// 16-byte chunk XOR-swizzled within aligned groups of eight chunks when
+// `swz` is 7, in place when it is 0.
+__device__ __forceinline__ int swizzle(int x, int swz) {
+  const int c = x >> 2;
+  return ((c ^ ((c >> 3) & swz)) << 2) | (x & 3);
+}
+
+// Shared floats of one stage: 256 rows of s floats, up to 3 floats of
+// head alignment, rounded up to whole swizzle groups (32 floats).
+__host__ __device__ constexpr int span_stage_floats(int s) {
+  return (kThreads * s + 3 + 31) / 32 * 32;
+}
+
+// Stages the rows [r0, min(r0 + 256, n)) of the span, from base + r0·s to
+// the last row's largest offset: float x of the range lands at
+// swizzle(h + x), h = the range's start modulo 16 bytes, so that 16-byte
+// chunks of global memory are 16-byte chunks of shared memory.
+__device__ __forceinline__ void stage_span(float* stage, const float* base, int64_t r0,
+                                           int64_t n, int s, int max_off, int swz) {
+  const int64_t last = (r0 + kThreads < n ? r0 + kThreads : n) - 1;
+  const float* p0 = base + r0 * s;
+  const int len = static_cast<int>(last - r0) * s + max_off + 1;
+  const int h = static_cast<int>((reinterpret_cast<uintptr_t>(p0) >> 2) & 3);
+  const int head = (4 - h) & 3;                  // floats before the first 16-byte boundary
+  const int body = len > head ? (len - head) & ~3 : 0;
+  if (body > 0) {
+    for (int c = threadIdx.x; c < (body >> 2); c += kThreads) {
+      cp_async16(stage + swizzle(h + head + 4 * c, swz), p0 + head + 4 * c);
+    }
+  }
+  // The unaligned head and tail, one float a thread from each end.
+  const int tail0 = body > 0 ? head + body : 0;  // no body: every float is "tail"
+  if (body > 0 && static_cast<int>(threadIdx.x) < head) {
+    cp_async4(stage + swizzle(h + threadIdx.x, swz), p0 + threadIdx.x);
+  }
+  for (int x = tail0 + kThreads - 1 - static_cast<int>(threadIdx.x); x < len; x += kThreads) {
+    cp_async4(stage + swizzle(h + x, swz), p0 + x);
+  }
+}
+
+// B1 pass 1 over a row-major bank, row spans staged in shared memory (see
+// the header). kVec: rows are read as float4s (s % 4 == 0, the span
+// 16-byte aligned in every trial, columns 0…n_cols−1 in order). One
+// instantiation serves every T: blockIdx.y is the trial (0 for one bank),
+// and its offsets are added once, to the pointers.
+template <class Tile, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+fused_update_span(const float* __restrict__ scalars, int scalar_stride, Consts consts,
+                  int n_cols, const float* __restrict__ log_w, __grid_constant__ const Span span,
+                  int64_t trial_stride, float* __restrict__ out_lw,
+                  float* __restrict__ partials, int64_t n) {
+  extern __shared__ __align__(16) float stage[];
+  const int64_t y = blockIdx.y;
+  scalars += y * scalar_stride;
+  log_w += y * n;
+  out_lw += y * n;
+  partials += y * 3 * static_cast<int64_t>(gridDim.x);
+  const float* base = span.base + y * trial_stride;
+  const int s = span.stride;
+  const int stage_floats = span_stage_floats(s);
+  const int swz = kVec && s % 8 == 0 ? 7 : 0;
+  const Tile tile(scalars, consts, n_cols);
+  Lse st{kNegBig, 0.0f, 0.0f};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
+  int64_t r0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  if (r0 < n) stage_span(stage, base, r0, n, s, span.max_off, swz);
+  cp_async_commit();
+  for (int k = 0; r0 < n; ++k, r0 += step) {
+    if (r0 + step < n) {
+      stage_span(stage + ((k + 1) & 1) * stage_floats, base, r0 + step, n, s, span.max_off,
+                 swz);
+    }
+    cp_async_commit();
+    const int64_t i = r0 + threadIdx.x;
+    const float lwi = i < n ? log_w[i] : 0.0f;
+    cp_async_wait<1>();  // every group but the one just committed: step k
+    __syncthreads();
+    if (i < n) {
+      const float* buf = stage + (k & 1) * stage_floats;
+      float log_l;
+      if constexpr (kVec) {
+        constexpr int K = (Tile::P::kMaxColsUsed + 3) / 4 * 4;
+        RegRow<K> row;
+        const int c0 = threadIdx.x * (s >> 2);
+#pragma unroll
+        for (int q = 0; q < K / 4; ++q) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (4 * q < n_cols) {
+            v = *reinterpret_cast<const float4*>(buf + swizzle(4 * (c0 + q), swz));
+          }
+          row.v[4 * q] = v.x;
+          row.v[4 * q + 1] = v.y;
+          row.v[4 * q + 2] = v.z;
+          row.v[4 * q + 3] = v.w;
+        }
+        log_l = tile(row, i);
+      } else {
+        // Unswizzled (swz == 0): the row starts at its head offset h + t·s.
+        const int h = static_cast<int>((reinterpret_cast<uintptr_t>(base + r0 * s) >> 2) & 3);
+        log_l = tile(SmemRow{buf + h + threadIdx.x * s, span.off}, i);
+      }
+      const float lw = __fadd_rn(lwi, log_l < kLogTiny ? kLogTiny : log_l);
+      out_lw[i] = lw;
+      lse_push(st, lw);
+    }
+    __syncthreads();  // stage k & 1 is refilled at step k + 1
+  }
+  st = block_reduce(st);
+  if (threadIdx.x == 0) {
+    partials[3 * blockIdx.x + 0] = st.m;
+    partials[3 * blockIdx.x + 1] = st.s;
+    partials[3 * blockIdx.x + 2] = st.s2;
+  }
+}
+
 // One block per trial (blockIdx.x): stats row = [lse, lse2, log_norm (= lse), ess].
 __global__ void __launch_bounds__(kThreads)
 fused_update_pass2(const float* __restrict__ partials, int n_blocks,
@@ -378,7 +563,7 @@ fused_update_pass2(const float* __restrict__ partials, int n_blocks,
 }  // namespace
 
 // What one launch needs besides the functor: the device pointers and the
-// (n_blocks, n_trials) grid.
+// (n_blocks, n_trials) grid. span.stride > 0 takes the row-span path.
 struct Launch {
   const float* scalars;
   int scalar_stride;
@@ -386,6 +571,7 @@ struct Launch {
   int n_cols;
   const float* log_w;
   Cols cols;
+  Span span;
   int64_t trial_stride;
   float* out;
   float* partials;
@@ -395,12 +581,45 @@ struct Launch {
   cudaStream_t stream;
 };
 
+// Rows as float4s: s % 4 == 0, every trial's span 16-byte aligned, and the
+// columns 0…n_cols−1 in order.
+static bool span_vec(const Launch& a) {
+  if (a.span.stride % 4 != 0 || reinterpret_cast<uintptr_t>(a.span.base) % 16 != 0 ||
+      (a.n_trials > 1 && a.trial_stride % 4 != 0)) {
+    return false;
+  }
+  for (int j = 0; j < a.n_cols; ++j) {
+    if (a.span.off[j] != j) return false;
+  }
+  return true;
+}
+
+template <class Tile, bool kVec>
+static void launch_span(const Launch& a) {
+  const dim3 grid(a.n_blocks, a.n_trials);
+  const size_t smem = 2 * sizeof(float) * span_stage_floats(a.span.stride);
+  fused_update_span<Tile, kVec><<<grid, kThreads, smem, a.stream>>>(
+      a.scalars, a.scalar_stride, a.consts, a.n_cols, a.log_w, a.span, a.trial_stride,
+      a.out, a.partials, a.n);
+}
+
 template <class Tile>
 static int launch(const Launch& a) {
   if (a.n_cols < Tile::P::kMinCols || a.n_cols > Tile::P::kMaxColsUsed) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.n_trials == 1) {
+  if (a.span.stride > 0) {
+    // Only multi-column functors read a bank by rows.
+    if constexpr (Tile::P::kMaxColsUsed >= 2) {
+      if (span_vec(a)) {
+        launch_span<Tile, true>(a);
+      } else {
+        launch_span<Tile, false>(a);
+      }
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (a.n_trials == 1) {
     fused_update_pass1<Tile, false><<<a.n_blocks, kThreads, 0, a.stream>>>(
         a.scalars, a.scalar_stride, a.consts, a.n_cols, a.log_w, a.cols,
         a.trial_stride, a.out, a.partials, a.n);
@@ -434,9 +653,13 @@ static int launch_pr1(int pr1, const Launch& a) {
 // outcome: 0 = TwoOutcome, 1 = Binomial. pr1: the functor ids of
 // ops/fused_update.py (0 precession … 7 noisy coin, 8 Born). consts: host
 // array of n_consts floats. cols, col_strides: host arrays of n_cols device
-// pointers and their element strides. n_trials banks of n particles:
-// scalars (n_trials, scalar_stride), log_w and out_lw (n_trials, n), column
-// j of trial y starts trial_stride elements after trial y − 1's; partials:
+// pointers and their element strides. span_stride > 0 takes the row-span
+// path instead: column j of particle i is span_base[i·span_stride +
+// span_offsets[j]] (span_offsets: host array of n_cols ints in [0,
+// span_stride), span_stride ≤ kMaxSpanStride; cols and col_strides are
+// then not read). n_trials banks of n particles: scalars (n_trials,
+// scalar_stride), log_w and out_lw (n_trials, n), column j of trial y
+// starts trial_stride elements after trial y − 1's; partials:
 // 3·n_blocks·n_trials floats; stats: 4·n_trials floats. One bank is
 // n_trials = 1 (the strides are then not read). Returns the cudaError_t of
 // the launches (0 on success).
@@ -444,19 +667,32 @@ extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
                                int scalar_stride, const void* consts, int n_consts,
                                const void* log_w, const void* const* cols,
                                const int64_t* col_strides, int n_cols,
-                               int64_t trial_stride, void* out_lw, void* partials,
-                               int n_blocks, void* stats, int64_t n, int n_trials,
-                               void* stream) {
+                               const void* span_base, const int32_t* span_offsets,
+                               int span_stride, int64_t trial_stride, void* out_lw,
+                               void* partials, int n_blocks, void* stats, int64_t n,
+                               int n_trials, void* stream) {
   if (n_cols < 0 || n_cols > kMaxCols || n_consts < 0 || n_consts > kMaxConsts ||
       n_blocks <= 0 || n <= 0 || n_trials <= 0 || n_trials > 65535 ||
-      scalar_stride < 0 || trial_stride < 0) {
+      scalar_stride < 0 || trial_stride < 0 || span_stride < 0 ||
+      span_stride > kMaxSpanStride) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Launch a{};
-  for (int j = 0; j < n_cols; ++j) {
-    if (col_strides[j] < 0) return static_cast<int>(cudaErrorInvalidValue);
-    a.cols.p[j] = static_cast<const float*>(cols[j]);
-    a.cols.stride[j] = col_strides[j];
+  if (span_stride > 0) {
+    a.span.base = static_cast<const float*>(span_base);
+    a.span.stride = span_stride;
+    for (int j = 0; j < n_cols; ++j) {
+      const int off = span_offsets[j];
+      if (off < 0 || off >= span_stride) return static_cast<int>(cudaErrorInvalidValue);
+      a.span.off[j] = off;
+      a.span.max_off = off > a.span.max_off ? off : a.span.max_off;
+    }
+  } else {
+    for (int j = 0; j < n_cols; ++j) {
+      if (col_strides[j] < 0) return static_cast<int>(cudaErrorInvalidValue);
+      a.cols.p[j] = static_cast<const float*>(cols[j]);
+      a.cols.stride[j] = col_strides[j];
+    }
   }
   for (int j = 0; j < n_consts; ++j) a.consts.v[j] = static_cast<const float*>(consts)[j];
   a.scalars = static_cast<const float*>(scalars);

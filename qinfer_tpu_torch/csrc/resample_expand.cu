@@ -12,13 +12,30 @@
 // 2^20 rows at D = 1 (about 4 µs at 3.35 TB/s). The binary search reads
 // ~20 starts per row, but the 4 MB of starts sits in the 50 MB L2 cache.
 //
-// Design: one thread per output row, a binary search upper_bound(starts, i)
-// − 1, then a direct read of the row's D values with the affine applied at
-// the write. None of the TPU kernel's machinery carries over: the DMA ring,
-// the bf16 plane splits, the MXU one-hot selects and the shifted value
-// streams all work around Mosaic (see that module's docstring). The affine
-// is rounded as a product and then a sum (no FMA contraction), exactly as
-// the plain PyTorch version computes it, so the two agree bit for bit.
+// Design: two forms (`form`, chosen by the caller from D, ops/
+// resample_expand.py:kernel_form):
+//  - rows (form 0, D ≤ 8): one thread per output row binary-searches
+//    upper_bound(starts, i) − 1 and reads and writes its D values. At
+//    D = 1 neighbouring lanes write neighbouring floats; the time is the
+//    search's ~20 dependent probes, mostly cache hits;
+//  - span (form 1, D > 8): a warp writes its 32 consecutive rows, one
+//    contiguous span of 32·D floats. The warp finds the bounds of its rows'
+//    sources together (32 probes a round, four rounds for 2^20 starts) and
+//    each lane its own source among the ≤ 32 starts between them by
+//    shuffles; then neighbouring lanes copy neighbouring 16 bytes of the
+//    span as float4s (D % 4 == 0 and aligned arrays), else neighbouring
+//    floats, each taking its row's source by shuffle. At D = 16 the rows
+//    form's lanes were 64 bytes apart, so every store instruction wrote 32
+//    partial sectors (171 µs at 2^20 on an H100, against 64 µs).
+// Measured on an H100 (chip_profile.py --b2-forms): the rows form is
+// faster up to D = 8, the span form from D = 12; a block-wide search (256
+// probes a round, the starts window in shared memory) and the per-lane
+// search in the span form were both slower at D = 16.
+// None of the TPU kernel's machinery carries over: the DMA ring, the bf16
+// plane splits, the MXU one-hot selects and the shifted value streams all
+// work around Mosaic (see that module's docstring). The affine is rounded
+// as a product and then a sum (no FMA contraction), exactly as the plain
+// PyTorch version computes it, so the two agree bit for bit in both forms.
 //
 // Trials. T independent banks (the JAX package's sequential_vmap,
 // resample_expand.py:359, which runs the kernel once per trial) are one
@@ -34,21 +51,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
-              const float* __restrict__ values, int n_cols,
-              const float* __restrict__ affine, float* __restrict__ out,
-              int64_t n_out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const int64_t y = blockIdx.y;
-  starts += y * n_in;
-  values += y * n_in * n_cols;
-  out += y * n_out * n_cols;
-  if (affine != nullptr) affine += y * 2 * n_cols;
-  // First k with starts[k] > i (ties resolve to the last j with starts[j] <=
-  // i), by halving a (first, count) range. The probe is a pointer step, so
-  // the trial's offset is added once and not in every probe's address.
+// j(i) = max{j : starts[j] ≤ i} (0 if none): the first k with starts[k] >
+// i, less one, by halving a (first, count) range. The probe is a pointer
+// step, so the trial's offset is added once and not in every probe's
+// address.
+__device__ __forceinline__ int64_t source_row(const int32_t* starts, int64_t n_in,
+                                              int64_t i) {
   const int32_t* first = starts;
   int64_t count = n_in;
   while (count > 0) {
@@ -61,15 +69,141 @@ expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
     }
   }
   const int64_t lo = first - starts;
-  const int64_t j = lo > 0 ? lo - 1 : 0;
-  const float* src = values + j * n_cols;
+  return lo > 0 ? lo - 1 : 0;
+}
+
+__device__ __forceinline__ float affine_at(float v, const float* affine, int n_cols, int d) {
+  return __fadd_rn(__fmul_rn(v, __ldg(affine + d)), __ldg(affine + n_cols + d));
+}
+
+// Form 0: one thread per output row.
+__global__ void __launch_bounds__(kThreads)
+expand_rows(const int32_t* __restrict__ starts, int64_t n_in,
+            const float* __restrict__ values, int n_cols,
+            const float* __restrict__ affine, float* __restrict__ out, int64_t n_out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int64_t y = blockIdx.y;
+  starts += y * n_in;
+  values += y * n_in * n_cols;
+  out += y * n_out * n_cols;
+  if (affine != nullptr) affine += y * 2 * n_cols;
+  const float* src = values + source_row(starts, n_in, i) * n_cols;
   float* dst = out + i * n_cols;
   for (int d = 0; d < n_cols; ++d) {
-    float v = __ldg(src + d);
-    if (affine != nullptr) {
-      v = __fadd_rn(__fmul_rn(v, __ldg(affine + d)), __ldg(affine + n_cols + d));
+    const float v = __ldg(src + d);
+    dst[d] = affine != nullptr ? affine_at(v, affine, n_cols, d) : v;
+  }
+}
+
+// ub(x0) and ub(x1), ub(x) = the first k < n_in with starts[k] > x (n_in
+// if none), found by the 32 lanes of a warp together: each round a lane
+// probes one start of each range and a ballot counts the probes at or
+// below x, so each range shrinks 32-fold (four rounds for 2^20 starts,
+// against ~20 dependent probes of one lane's binary search).
+__device__ __forceinline__ void warp_upper_bounds(const int32_t* starts, int64_t n_in,
+                                                  int64_t x0, int64_t x1, int lane,
+                                                  int64_t& ub0, int64_t& ub1) {
+  int64_t a0 = 0, b0 = n_in, a1 = 0, b1 = n_in;  // ub ∈ [a, b]
+  while (a0 < b0 || a1 < b1) {  // warp-uniform
+    const int64_t s0 = (b0 - a0 + 31) >> 5;
+    const int64_t s1 = (b1 - a1 + 31) >> 5;
+    const int64_t p0 = a0 + lane * s0;
+    const int64_t p1 = a1 + lane * s1;
+    const bool le0 = p0 < b0 && static_cast<int64_t>(__ldg(starts + p0)) <= x0;
+    const bool le1 = p1 < b1 && static_cast<int64_t>(__ldg(starts + p1)) <= x1;
+    const int c0 = __popc(__ballot_sync(0xffffffffu, le0));
+    const int c1 = __popc(__ballot_sync(0xffffffffu, le1));
+    // c probes at or below x: ub lies after probe c − 1 and at or before probe c.
+    if (c0 > 0) {
+      b0 = a0 + c0 * s0 < b0 ? a0 + c0 * s0 : b0;
+      a0 += (c0 - 1) * s0 + 1;
+    } else {
+      b0 = a0;
     }
-    dst[d] = v;
+    if (c1 > 0) {
+      b1 = a1 + c1 * s1 < b1 ? a1 + c1 * s1 : b1;
+      a1 += (c1 - 1) * s1 + 1;
+    } else {
+      b1 = a1;
+    }
+  }
+  ub0 = a0;
+  ub1 = a1;
+}
+
+// j(r0 + lane) for the warp's rows [r0, r0 + rows): every row's ub lies in
+// [ub(r0), ub(r0 + rows − 1)]. When that window holds at most 32 starts,
+// lane k keeps the k-th in a register and each lane counts the starts at or
+// below its row with six shuffles; else each lane binary-searches the
+// window in global memory.
+__device__ __forceinline__ int warp_source_rows(const int32_t* starts, int64_t n_in,
+                                                int64_t r0, int rows, int lane) {
+  int64_t lo, hi;
+  warp_upper_bounds(starts, n_in, r0, r0 + rows - 1, lane, lo, hi);
+  const int64_t i = r0 + lane;
+  if (hi - lo <= 32) {  // warp-uniform
+    const int32_t w = lane < hi - lo ? __ldg(starts + lo + lane) : INT32_MAX;
+    int pos = 0;  // the largest pos ≤ 31 with window[pos − 1] ≤ i
+#pragma unroll
+    for (int bit = 16; bit > 0; bit >>= 1) {
+      if (static_cast<int64_t>(__shfl_sync(0xffffffffu, w, pos + bit - 1)) <= i) pos += bit;
+    }
+    pos += static_cast<int64_t>(__shfl_sync(0xffffffffu, w, pos)) <= i ? 1 : 0;
+    const int64_t ub = lo + pos;
+    return static_cast<int>(ub > 0 ? ub - 1 : 0);
+  }
+  // starts[lo − 1] ≤ r0 ≤ i, so j(i) lies in [lo − 1, hi − 1].
+  return static_cast<int>(lo > 0 ? lo - 1 + source_row(starts + lo - 1, hi - lo + 1, i)
+                                 : source_row(starts, hi, i));
+}
+
+// Form 1: each warp writes the span of its 32 rows, 32·D contiguous
+// floats. The warp finds its rows' sources together (warp_source_rows);
+// the copy then walks the span in lane order, each lane taking its
+// element's source row from the lane that holds it (a shuffle), so the
+// warp needs no shared memory and no block barrier. kVec: float4 copies (n_cols % 4 == 0, every array 16-byte
+// aligned).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+expand_span(const int32_t* __restrict__ starts, int64_t n_in,
+            const float* __restrict__ values, int n_cols,
+            const float* __restrict__ affine, float* __restrict__ out, int64_t n_out) {
+  const int64_t y = blockIdx.y;
+  starts += y * n_in;
+  values += y * n_in * n_cols;
+  out += y * n_out * n_cols;
+  if (affine != nullptr) affine += y * 2 * n_cols;
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
+  if (r0 >= n_out) return;  // the whole warp
+  const int rows = static_cast<int>(n_out - r0 < 32 ? n_out - r0 : 32);
+  const int j = warp_source_rows(starts, n_in, r0, rows, lane);
+  float* dst = out + r0 * n_cols;
+  const int per_row = kVec ? n_cols >> 2 : n_cols;  // elements (float4 or float) a row
+  const int n_elems = rows * per_row;
+  for (int e0 = 0; e0 < n_elems; e0 += 32) {
+    const int e = e0 + lane;
+    const int r = e / per_row;  // < rows for every e < n_elems
+    const int64_t jr = __shfl_sync(0xffffffffu, j, r < 32 ? r : 31);  // widened after the shuffle
+    if (e < n_elems) {
+      const int c = e - r * per_row;
+      if constexpr (kVec) {
+        float4 v = __ldg(reinterpret_cast<const float4*>(values + jr * n_cols) + c);
+        if (affine != nullptr) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(affine) + c);
+          const float4 b = __ldg(reinterpret_cast<const float4*>(affine + n_cols) + c);
+          v.x = __fadd_rn(__fmul_rn(v.x, a.x), b.x);
+          v.y = __fadd_rn(__fmul_rn(v.y, a.y), b.y);
+          v.z = __fadd_rn(__fmul_rn(v.z, a.z), b.z);
+          v.w = __fadd_rn(__fmul_rn(v.w, a.w), b.w);
+        }
+        reinterpret_cast<float4*>(dst)[e] = v;
+      } else {
+        const float v = __ldg(values + jr * n_cols + c);
+        dst[e] = affine != nullptr ? affine_at(v, affine, n_cols, c) : v;
+      }
+    }
   }
 }
 
@@ -78,17 +212,31 @@ expand_kernel(const int32_t* __restrict__ starts, int64_t n_in,
 // n_trials banks, each: starts int32 (n_in,); values f32 (n_in, n_cols)
 // row-major; affine f32 (2, n_cols) [scale; shift] or NULL; out f32 (n_out,
 // n_cols). The banks lie back to back (trial y's arrays start y times their
-// size after trial 0's). Returns the cudaError_t of the launch (0 on success).
+// size after trial 0's). form: 0 one thread per row, 1 a block per span of
+// 256 rows. n_in < 2^31. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
                          int n_cols, const void* affine, void* out, int64_t n_out,
-                         int n_trials, void* stream) {
-  if (n_in <= 0 || n_cols <= 0 || n_out <= 0 || n_trials <= 0 || n_trials > 65535) {
+                         int n_trials, int form, void* stream) {
+  if (n_in <= 0 || n_in > INT32_MAX || n_cols <= 0 || n_out <= 0 || n_trials <= 0 ||
+      n_trials > 65535 || (form != 0 && form != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
                   static_cast<unsigned>(n_trials));
-  expand_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(starts), n_in, static_cast<const float*>(values),
-      n_cols, static_cast<const float*>(affine), static_cast<float*>(out), n_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* s = static_cast<const int32_t*>(starts);
+  const auto* v = static_cast<const float*>(values);
+  const auto* a = static_cast<const float*>(affine);
+  auto* o = static_cast<float*>(out);
+  if (form == 0) {
+    expand_rows<<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
+  } else if (n_cols % 4 == 0 &&
+             ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(a) |
+               reinterpret_cast<uintptr_t>(o)) & 15) == 0) {
+    expand_span<true><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
+  } else {
+    expand_span<false><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,11 @@ JAX layout. The kernel takes at most ``MAX_COLS`` parameter columns; each
 functor's own bound (8 for MultiCos) is checked by the kernel, and a
 launch it refuses raises.
 
-The kernel reads the parameter columns in place: it gets each column's
-pointer and element stride (views of one (N, D) bank have stride D), and
-no column is copied first.
+The kernel reads the parameter columns in place, and no column is copied
+first. When the columns are views of one row-major (N, s) bank with s ≥ 8
+(``_row_span``), it stages each block's rows in shared memory with
+coalesced copies (the row-span path); otherwise it gets each column's
+pointer and element stride (the per-column path). Both give the same bits.
 
 ``fused_bayes_update_batched`` updates T independent banks (an ensemble of
 trials) in one launch on a (block, trial) grid, on every bank size; its
@@ -54,6 +56,11 @@ _MAX_BLOCKS = 1024
 MAX_COLS = 16  # kMaxCols in csrc/fused_update.cu
 MAX_TRIALS = 65535  # gridDim.y
 _MAX_CONSTS = 4  # kMaxConsts
+_MAX_SPAN_STRIDE = 20  # kMaxSpanStride
+# Row strides below this keep the per-column path. On an H100 at 2^20 the
+# tiles with s = 2…5 ran 3.5–5.6 µs slower on the row span, and from s = 8
+# to 17 the row span was 10–16 µs faster (chip_profile.py, PERF.md).
+_MIN_SPAN_STRIDE = 8
 
 
 # -- pr1 functions (the ids are the functor switch in qt_fused_update) -------
@@ -289,11 +296,36 @@ def fused_update_plain_batched(tile_fn, scalars, log_w, param_cols):
     return (lw, *_lse_stats(lw))
 
 
-def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
+def _row_span(cols, min_stride=_MIN_SPAN_STRIDE):
+    """``(s, offsets)`` when the kernel takes the row-span path for these
+    f32 columns, else None. The path needs two columns or more, one element
+    stride ``s`` shared by all (``min_stride`` ≤ s ≤ 20, s ≥ the number of
+    columns), one trial stride when the columns are (T, N), and every
+    column's pointer at ``base + offsets[j]`` elements with ``0 ≤
+    offsets[j] < s``, ``base`` the lowest: views of one row-major (…, N, s)
+    bank."""
+    if len(cols) < 2:
+        return None
+    s = cols[0].stride(-1)
+    if (not max(len(cols), min_stride) <= s <= _MAX_SPAN_STRIDE
+            or any(c.stride(-1) != s or c.stride()[:-1] != cols[0].stride()[:-1]
+                   for c in cols)):
+        return None
+    base = min(c.data_ptr() for c in cols)
+    gaps = [c.data_ptr() - base for c in cols]
+    if any(g % 4 or g // 4 >= s for g in gaps):
+        return None
+    return s, [g // 4 for g in gaps]
+
+
+def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None):
     """Kernel B1 on T banks: ``scalars`` (T, k), ``log_w`` (T, N), each
     column (T, N) with one trial stride shared by all columns (views of
     one (T, N, D) bank). Returns (lw, lse, lse2, ess) as the plain version.
-    T = 1 launches the single-bank instantiation."""
+    T = 1 launches the single-bank instantiation. ``row_span``: None takes
+    the path ``_row_span`` picks; True the row-span path at any stride ≥ 2
+    (raises when the layout has none), False the per-column path, both for
+    comparing the two."""
     spec = getattr(tile_fn, "kernel_tile", None)
     if spec is None:
         raise NotImplementedError(
@@ -331,6 +363,13 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
     stats = torch.empty((n_trials, 4), dtype=torch.float32, device=device)
     col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
     col_strides = (ctypes.c_int64 * len(cols))(*[c.stride(1) for c in cols])
+    span = None if row_span is False else _row_span(
+        cols, 2 if row_span else _MIN_SPAN_STRIDE)
+    if row_span and span is None:
+        raise ValueError("the columns are not views of one row-major bank")
+    span_stride, offsets = span if span else (0, [])
+    span_offsets = (ctypes.c_int32 * len(cols))(*offsets)
+    span_base = min(c.data_ptr() for c in cols) if span else None
     const_buf = (ctypes.c_float * _MAX_CONSTS)(*consts)
     lib, _ = _build.library()
     with torch.cuda.device(device):
@@ -339,6 +378,7 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols):
             ctypes.cast(const_buf, ctypes.c_void_p), len(consts),
             log_w.data_ptr(), ctypes.cast(col_ptrs, ctypes.c_void_p),
             ctypes.cast(col_strides, ctypes.c_void_p), len(cols),
+            span_base, ctypes.cast(span_offsets, ctypes.c_void_p), span_stride,
             trial_stride, out.data_ptr(), partials.data_ptr(),
             n_blocks, stats.data_ptr(), n, n_trials,
             torch.cuda.current_stream(device).cuda_stream,

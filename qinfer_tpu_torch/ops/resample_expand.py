@@ -6,7 +6,8 @@ Counterpart of ``qinfer_tpu/ops/resample_expand.py``:
 tensor ``expand_sorted_segments`` launches the hand-written kernel in
 ``csrc/resample_expand.cu`` (its header says what bounds it and how it is
 laid out); on a CPU tensor it runs ``expand_plain``, the same function in
-plain PyTorch. The two agree bit for bit. A failed build or launch raises:
+plain PyTorch. The two agree bit for bit. The kernel has two forms,
+chosen from D by ``kernel_form``. A failed build or launch raises:
 nothing falls back. ``expand_sorted_segments_batched`` does the same for T
 independent banks in one launch (its plain version is
 ``expand_plain_batched``).
@@ -22,6 +23,15 @@ __all__ = ["expand_sorted_segments", "expand_plain", "systematic_expand",
            "expand_sorted_segments_batched", "expand_plain_batched"]
 
 MAX_TRIALS = 65535  # gridDim.y of the kernel
+ROWS, SPAN = 0, 1  # the kernel's forms (csrc/resample_expand.cu)
+
+
+def kernel_form(n_cols):
+    """The kernel's form for D = ``n_cols``: one thread per row up to D = 8,
+    a warp per span of 32 rows above. On an H100 at 2^20 rows the rows form
+    was faster at D ≤ 8 (by 0.4 µs at D = 8) and the span form at D ≥ 12
+    (D = 16: 63.6 against 171.5 µs; ``chip_profile.py --b2-forms``)."""
+    return ROWS if n_cols <= 8 else SPAN
 
 
 def _affine(scale, shift, n_cols, device):
@@ -51,10 +61,11 @@ def expand_plain_batched(starts, values, n_out, affine=None):
     return out
 
 
-def _expand_cuda_batched(starts, values, n_out, affine):
+def _expand_cuda_batched(starts, values, n_out, affine, form=None):
     """Kernel B2 on T banks laid out back to back: ``starts`` int32 (T,
     n_in), ``values`` f32 (T, n_in, D), ``affine`` (T, 2, D) or None, all
-    contiguous. Returns (T, n_out, D)."""
+    contiguous. ``form``: ROWS or SPAN, ``kernel_form(D)`` by default.
+    Returns (T, n_out, D)."""
     device = values.device
     if starts.device != device:
         raise ValueError("starts and values must be on the same device")
@@ -79,6 +90,7 @@ def _expand_cuda_batched(starts, values, n_out, affine):
             starts.data_ptr(), n_in, values.data_ptr(), n_cols,
             None if affine is None else affine.data_ptr(),
             out.data_ptr(), n_out, n_trials,
+            kernel_form(n_cols) if form is None else form,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_expand")

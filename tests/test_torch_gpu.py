@@ -138,6 +138,66 @@ def test_strided_and_contiguous_columns_agree(cuda, copy):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n", [1000, N + 3])
+@pytest.mark.parametrize("case", chip_smoke.SPAN_CASES,
+                         ids=lambda c: f"s{c[0]}_k{c[1]}_{c[2]}")
+def test_row_span_path_bit_equal_to_per_column(cuda, case, n):
+    """On the same views of one (N, s) bank, the row-span path's
+    log-weights, lse, lse2 and ESS equal the per-column path's bit for
+    bit, for one bank and for T = 3 (each trial also bit-equal to a
+    single-bank launch); the wrapper's own path stays within the kernel
+    tolerances of the plain version."""
+    s, k, view = case
+    tile, scal, lw, cols = chip_smoke.span_inputs(s, k, view, n, 11, cuda)
+    assert (b1._row_span(cols) is not None) == (s >= 8)
+    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
+    span, per_col = chip_smoke.both_paths(tile, scal[None], lw[None],
+                                          tuple(c[None] for c in cols))
+    torch.cuda.synchronize()
+    for a, b in zip(span, per_col):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(lw_k, lw_p - lse_p, atol=1e-4, rtol=0)
+    assert float(ess_k) == pytest.approx(float(ess_p), rel=1e-3)
+    tile, scal, lw, cols = chip_smoke.span_inputs(s, k, view, n, 12, cuda,
+                                                  n_trials=3)
+    span, per_col = chip_smoke.both_paths(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    for a, b in zip(span, per_col):
+        assert torch.equal(a, b)
+    for i in range(3):
+        single = b1._fused_update_cuda(tile, scal[i:i + 1], lw[i:i + 1],
+                                       tuple(c[i:i + 1] for c in cols),
+                                       row_span=True)
+        assert torch.equal(single[0][0], span[0][i])
+        assert torch.equal(single[1][0], span[1][i])
+
+
+@pytest.mark.parametrize("d", [1, 4, 5, 16, 17])
+@pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_expand_forms_bit_equal(cuda, d, kind, affine):
+    """B2 with n_out < n_in: the wrapper's form (the span form at D ≥ 9)
+    and both forms forced are bit-equal to the plain version."""
+    n_in, n_out = 16385, 10007
+    rng = np.random.default_rng(d)
+    vals = torch.as_tensor(rng.standard_normal((n_in, d)),
+                           dtype=torch.float32, device=cuda)
+    log_w = torch.as_tensor(_log_weights(kind, n_in, rng), device=cuda)
+    starts = systematic_segment_starts(log_w, n_in, u0=0.37)
+    aff = b2._affine(0.98, 0.02 * vals[0], d, cuda) if affine else None
+    out = b2.expand_sorted_segments(starts, vals, n_out=n_out,
+                                    scale=0.98 if affine else None,
+                                    shift=0.02 * vals[0] if affine else None)
+    forms = [b2._expand_cuda_batched(starts[None], vals[None], n_out,
+                                     None if aff is None else aff[None],
+                                     form=form)[0]
+             for form in (b2.ROWS, b2.SPAN)]
+    ref = b2.expand_plain(starts, vals, n_out, aff)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ref) for o in [out] + forms)
+
+
 @pytest.mark.parametrize("model_case", [0, 2], ids=["qubit", "binomial_2q"])
 def test_design_on_a_cuda_bank(cuda, model_case):
     """bayes_risk and expected_information_gain on a CUDA bank: the
