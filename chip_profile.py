@@ -2,6 +2,7 @@
 """Where the time of each chip_smoke.py path goes, on one NVIDIA GPU.
 
     python3 chip_profile.py [--paths [NAME ...]] [--parent DIR ...]
+        [--b1-forms] [--b1-paths] [--b2-forms] [--kernel-split]
 
 For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
 the PGH loops of config 1 and config 4's known-T2, all at 2^20 particles,
@@ -27,11 +28,12 @@ and both batched kernels in both ensemble regimes
 the order DIR…, this, this, …DIR, twice, each in a fresh process that
 builds its kernels, and prints each tree's ptxas register lines, then per
 tile and tree the µs of every process and their mean. ``--b2-forms``
-times B2's two forms against each other at each width
-(``compare_b2_forms``), ``--b1-paths`` B1's two column paths at each
-row stride (``compare_b1_paths``); ``--kernel-split`` gives the device µs of each
-kernel that a tile's call launches (``kernel_split``). Imports nothing of
-JAX.
+times B2's forms against each other at each width (``compare_b2_forms``),
+``--b1-paths`` B1's two column paths at each row stride
+(``compare_b1_paths``), ``--b1-forms`` the per-column path's one-launch
+and two-pass forms (``compare_b1_forms``); ``--kernel-split`` gives the
+device µs of each kernel that a tile's call launches (``kernel_split``).
+Imports nothing of JAX.
 """
 
 import argparse
@@ -222,6 +224,10 @@ def kernel_split(device, iters=20):
               for case in cs.TOMO]
     calls = {name: (lambda t=t: cs.b1.fused_bayes_update(*t))
              for name, t in cases}
+    tile, scal, lw, cols = cases[0][1]  # ZOO's first tile, in two passes
+    calls[f"{cases[0][0]}[two passes]"] = lambda: cs.b1._fused_update_cuda(
+        tile, scal[None], lw[None], tuple(c[None] for c in cols),
+        form=cs.b1.TWO_PASS, normalize=True)
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(cs._weights("random", N, rng), device=device)
     starts = cs.systematic_segment_starts(log_w, N, u0=0.37)
@@ -270,14 +276,65 @@ def compare_b1_paths(device, rounds=2):
     print(json.dumps({"b1_path_us": out}))
 
 
+ALL_RESIDENT = "one_launch_all_resident"
+
+
+def compare_b1_forms(device, rounds=2):
+    """B1's per-column forms, one launch (its grid at most half the
+    resident blocks, and ALL_RESIDENT: up to every resident block) and two
+    passes (with the wrapper's lw − lse), forced on the same inputs: the
+    flagship tile, each ZOO tile and the qubit Born tiles at 2^20, and the
+    ensembles' precession tile at both ensemble shapes, in turns one, two,
+    all, all, two, one; µs of each timing and their mean, per case and
+    form."""
+    b1 = cs.b1
+    tile = b1.two_outcome_tile(b1.precession_pr1)
+    omega, lw = cs._b1_inputs(N, 7, device)
+    cases = {"precession": (tile, torch.tensor([[1.0, 17.3]], device=device),
+                            lw[None], (omega[None],))}
+    singles = [(case[0], cs.zoo_inputs(case, N, 7, device)) for case in cs.ZOO]
+    singles += [(case[0], cs.tomo_inputs(case, N, 7, device))
+                for case in cs.TOMO[:2]]
+    for name, (t, scal, w, cols) in singles:
+        cases[name] = (t, scal[None], w[None], tuple(c[None] for c in cols))
+    for n_trials, n in cs.B1_BATCH_SHAPES[:2]:
+        cases[f"precession {n_trials}x{n}"] = cs.batched_b1_inputs(
+            "precession", n_trials, n, 7, device)
+    capacity = b1._capacity
+    forms = (b1.ONE_LAUNCH, b1.TWO_PASS, ALL_RESIDENT)
+    out = {}
+    for name, args in cases.items():
+        runs = {form: [] for form in forms}
+        for _ in range(rounds):
+            for form in forms + forms[::-1]:
+                # ALL_RESIDENT: the one-launch form's grid planned for twice
+                # the card's capacity, i.e. up to every resident block.
+                b1._capacity = (capacity if form != ALL_RESIDENT else
+                                lambda *key: 2 * capacity(*key))
+                runs[form].append(1e3 * cs._time_ms(
+                    lambda: b1._fused_update_cuda(
+                        *args, row_span=False, normalize=True,
+                        form=b1.ONE_LAUNCH if form == ALL_RESIDENT else form),
+                    20))
+                b1._capacity = capacity
+        out[name] = {form: {"mean": float(np.mean(v)), "runs": v}
+                     for form, v in runs.items()}
+        out[name]["plan"] = cs.b1_plan(args[0], args[2], args[3])
+    print(json.dumps({"b1_form_us": out}))
+
+
 B2_FORM_WIDTHS = (1, 2, 3, 4, 5, 8, 12, 16, 17)
+# (T, N, D) of each ensemble's median batched resample (chip_smoke.py's
+# B2Capture: 74 of ensemble_small's 256 trials, 1 of ensemble_big's 4).
+ENSEMBLE_RESAMPLES = ((74, 2048, 1), (1, 1 << 18, 1))
 
 
 def compare_b2_forms(device, rounds=2):
-    """B2's two forms (one thread per row, a block per span of rows) at
-    2^20 rows and each width of B2_FORM_WIDTHS, and on the batched
-    ensemble shapes at D = 1, in turns rows, span, span, rows; µs of each
-    timing and their mean, per width and form."""
+    """B2's forms (one thread per row, a warp per span of rows, and up to
+    D = 8 the merge path) at 2^20 rows and each width of B2_FORM_WIDTHS,
+    and on the batched ensemble shapes and ENSEMBLE_RESAMPLES at D = 1, in
+    turns rows, span, [merge, merge,] span, rows; µs of each timing and
+    their mean, per width and form."""
     b2 = cs.b2
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(cs._weights("random", N, rng), device=device)
@@ -287,22 +344,22 @@ def compare_b2_forms(device, rounds=2):
         vals = torch.rand((1, N, d), device=device)
         cases[f"D={d}"] = (starts, vals, N, b2._affine_batched(
             0.98, 0.02 * vals[0].mean(0), 1, d, device))
-    for n_trials, n, d in cs.B2_BATCH_SHAPES[:2]:
+    for n_trials, n, d in cs.B2_BATCH_SHAPES[:2] + ENSEMBLE_RESAMPLES:
         s, v, mu = cs.batched_b2_inputs(n_trials, n, d, 7, device)
         cases[f"{n_trials}x{n}"] = (s, v, n, b2._affine_batched(
             0.98, 0.02 * mu, n_trials, d, device))
+    labels = {b2.ROWS: "rows", b2.SPAN: "span", b2.MERGE: "merge"}
     out = {}
     for name, (s, v, n, aff) in cases.items():
-        runs = {b2.ROWS: [], b2.SPAN: []}
+        forms = (b2.ROWS, b2.SPAN) + ((b2.MERGE,) if v.shape[2] <= 8 else ())
+        runs = {form: [] for form in forms}
         for _ in range(rounds):
-            for form in (b2.ROWS, b2.SPAN, b2.SPAN, b2.ROWS):
+            for form in forms + forms[::-1]:
                 runs[form].append(1e3 * cs._time_ms(
                     lambda: b2._expand_cuda_batched(s, v, n, aff, form=form),
                     20))
-        out[name] = {label: {"mean": float(np.mean(runs[form])),
-                             "runs": runs[form]}
-                     for label, form in (("rows", b2.ROWS),
-                                         ("span", b2.SPAN))}
+        out[name] = {labels[form]: {"mean": float(np.mean(r)), "runs": r}
+                     for form, r in runs.items()}
     print(json.dumps({"b2_form_us": out}))
 
 
@@ -316,6 +373,8 @@ def main():
                     help="time B2's two forms at each width")
     ap.add_argument("--b1-paths", action="store_true",
                     help="time B1's two column paths at each row stride")
+    ap.add_argument("--b1-forms", action="store_true",
+                    help="time B1's one-launch and two-pass forms")
     ap.add_argument("--kernel-split", action="store_true",
                     help="device µs of each kernel of each tile's call")
     args = ap.parse_args()
@@ -336,6 +395,8 @@ def main():
         compare_b2_forms(device)
     if args.b1_paths:
         compare_b1_paths(device)
+    if args.b1_forms:
+        compare_b1_forms(device)
     if args.kernel_split:
         kernel_split(device)
     return 0

@@ -16,8 +16,12 @@ Phases, in order; any failure exits non-zero before the result line:
    three Born-tile cases of ``TOMO`` (priors drawn on the card with
    ``GinibreDistribution``) at n ∈ {1000, 2^20 + 3, 2^20}; B1's row-span
    path (``SPAN_CASES``: banks of row stride 4, 5, 16, 17, offset views)
-   also bit for bit against its per-column path, single and batched; B2
-   (systematic expand) bit for bit at D ∈ {1, 2, 3, 4, 5, 16, 17}.
+   also bit for bit against its per-column path, single and batched; at
+   every B1 case the per-column path's one-launch form bit for bit
+   against its two-pass form, both forced (lw − lse, lse, lse2, ESS and
+   the raw lw of ``return_stats``); B2 (systematic expand) bit for bit at
+   D ∈ {1, 2, 3, 4, 5, 16, 17}, in the wrapper's form (the merge path up
+   to D = 8) and, up to D = 8, in the rows form forced.
 4. main path: ``SMCUpdater`` with 2^20 particles on ``SimplePrecessionModel``
    and the Liu–West resampler, one warm-up window and three timed windows,
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
@@ -59,12 +63,16 @@ Phases, in order; any failure exits non-zero before the result line:
    ``torch.repeat_interleave`` (the pick without the affine); the batched
    B1 in both ensemble regimes; the batched B2 on the inputs of each
    regime's median resample (``B2Capture``), checked bit-equal to its plain
-   version there too.
+   version there too. Each timing of a dispatched form that replaced
+   another (B1's one launch, B2's merge path) times the old form in the
+   same turns (B1 two passes, B2 rows), printed with the form and grid
+   the wrapper took on earlier JSON lines.
 
 The compare phase also holds the batched kernels: batched B1 within
-``B1_TOL`` of its plain version and bit-equal per trial to single-bank
-launches (``B1_BATCH_SHAPES``, three tiles), batched B2 bit-equal to its
-plain version and to single-bank launches (``B2_BATCH_SHAPES``).
+``B1_TOL`` of its plain version, bit-equal per trial to single-bank
+launches and its one-launch form to its two-pass form
+(``B1_BATCH_SHAPES``, three tiles), batched B2 bit-equal to its plain
+version and to single-bank launches (``B2_BATCH_SHAPES``).
 
 The last two lines are the kernel table (each kernel with its launches on
 its path, its worst error, its time, its plain version's, the bound from
@@ -472,9 +480,16 @@ def phase_build():
             if "fused_update_span" in line:
                 form = (" [row span, float4]" if "Lb1E" in line
                         else " [row span]")
+            elif "fused_update_one" in line:
+                form = (" [one launch, trial grid]" if "Lb1E" in line
+                        else " [one launch]")
             else:
                 form = " [trial grid]" if "Lb1E" in line else ""
+            merge = re.search(r"expand_mergeILi(\d+)E", line)
             b2_form = ("expand_rows" if "expand_rows" in line
+                       else "expand_merge<{}{}>".format(
+                           merge.group(1), ", vector" if "Lb1E" in line
+                           else "") if merge
                        else "expand_span<float4>" if "Lb1E" in line
                        else "expand_span")
             kernel = (f"{m.group(1)}<{m.group(2)}{bound}>{form}" if m
@@ -491,9 +506,38 @@ def _b1_inputs(n, seed, device):
     return omega, lw - torch.logsumexp(lw, 0)
 
 
+def both_forms(tile, scal, lw, cols):
+    """B1 on T banks through the per-column path's one-launch and two-pass
+    forms, forced, on the same inputs: per form (lw − lse, lse, lse2, ess,
+    raw lw as ``return_stats`` gives it)."""
+    out = []
+    for form in (b1.ONE_LAUNCH, b1.TWO_PASS):
+        norm = b1._fused_update_cuda(tile, scal, lw, cols, row_span=False,
+                                     form=form, normalize=True)
+        raw = b1._fused_update_cuda(tile, scal, lw, cols, row_span=False,
+                                    form=form)[0]
+        out.append((*norm, raw))
+    return out
+
+
+def _forms_check(label, tile, scal, lw, cols):
+    """The one-launch form bit-equal to the two-pass form on T banks; raises
+    otherwise."""
+    one, two = both_forms(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(one, two))
+    print(f"B1 {label}: one launch and two passes "
+          f"{'bit-equal (lw − lse, lse, lse2, ess, raw lw)' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"B1's one-launch form differs from its "
+                             f"two-pass form: {label}")
+
+
 def _b1_check(label, tile, scal, lw, cols):
-    """Kernel against plain on one input; raises on disagreement and
-    returns the larger of max |Δ lw| and |Δ log_norm|."""
+    """Kernel against plain on one input, and its two per-column forms
+    against each other; raises on disagreement and returns the larger of
+    max |Δ lw| and |Δ log_norm| against plain."""
+    _forms_check(label, tile, scal[None], lw[None], tuple(c[None] for c in cols))
     lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
     lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
     lw_p = lw_p - lse_p
@@ -628,7 +672,13 @@ def _weights(kind, n, rng):
         return np.log(w / w.sum()).astype(np.float32)
 
 
+# B2's forms forced beside the wrapper's, above D = 8 and up to it.
+B2_FORCED = {False: (), True: (b2.MERGE, b2.ROWS)}
+
+
 def phase_compare_b2(device):
+    """B2 bit-equal to its plain version: the wrapper's form and, up to
+    D = 8, the merge path and the rows form forced."""
     worst = 0.0
     rng = np.random.default_rng(0)
     for n in (257, 16385, N_FLAGSHIP):
@@ -644,11 +694,17 @@ def phase_compare_b2(device):
                     scale, shift = (0.98, 0.02 * mu) if affine else (None, None)
                     out_k = b2.expand_sorted_segments(starts, vals,
                                                       scale=scale, shift=shift)
-                    out_p = b2.expand_plain(starts, vals, n,
-                                            b2._affine(scale, shift, d, device))
+                    aff = b2._affine(scale, shift, d, device)
+                    out_p = b2.expand_plain(starts, vals, n, aff)
+                    forced = [b2._expand_cuda_batched(
+                        starts[None], vals[None], n,
+                        None if aff is None else aff[None], form=form)[0]
+                        for form in B2_FORCED[d <= 8]]
                     torch.cuda.synchronize()
-                    same = torch.equal(out_k, out_p)
-                    print(f"B2 n={n} D={d} {kind} affine={affine}: "
+                    same = all(torch.equal(o, out_p) for o in [out_k] + forced)
+                    print(f"B2 n={n} D={d} {kind} affine={affine}: wrapper's "
+                          f"form {b2.kernel_form(d, 2 * n)} and forms "
+                          f"{B2_FORCED[d <= 8]} forced "
                           f"{'bit-equal' if same else 'FAIL'}")
                     if not same:
                         raise AssertionError(
@@ -703,6 +759,8 @@ def phase_compare_b1_batched(device):
         for n_trials, n in B1_BATCH_SHAPES:
             tile, scal, lw, cols = batched_b1_inputs(name, n_trials, n,
                                                      n_trials + n, device)
+            _forms_check(f"batched {name} T={n_trials} N={n}", tile, scal, lw,
+                         cols)
             lw_k, ln_k, ess_k = b1.fused_bayes_update_batched(tile, scal, lw,
                                                               cols)
             lw_p, lse_p, _, ess_p = b1.fused_update_plain_batched(
@@ -767,10 +825,15 @@ def phase_compare_b2_batched(device):
                 starts[i], vals[i], scale=scale,
                 shift=None if shift is None else shift[i])
                 for i in range(n_trials)])
+            aff = b2._affine_batched(scale, shift, n_trials, d, device)
+            forced = [b2._expand_cuda_batched(starts, vals, n, aff, form=form)
+                      for form in B2_FORCED[d <= 8]]
             torch.cuda.synchronize()
-            same = torch.equal(out_k, out_p) and torch.equal(out_k, singles)
+            same = (torch.equal(out_k, out_p) and torch.equal(out_k, singles)
+                    and all(torch.equal(o, out_p) for o in forced))
             print(f"B2 batched T={n_trials} N={n} D={d} affine={affine}: "
-                  f"{'bit-equal to plain and single launches' if same else 'FAIL'}")
+                  f"{'bit-equal to plain, single launches and forms ' if same else 'FAIL '}"
+                  f"{B2_FORCED[d <= 8]} forced")
             if not same:
                 raise AssertionError(f"batched B2 differs at T={n_trials} "
                                      f"N={n} D={d} affine={affine}")
@@ -1177,18 +1240,44 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _alternate(plain, kernel, library=None, iters=20):
-    """plain, kernel, [library, library,] kernel, plain; the mean of each
-    pair, in ms: {"ms", "plain_ms", "library_ms"} (None without a library
-    call)."""
+def _alternate(plain, kernel, library=None, old=None, iters=20):
+    """plain, kernel, [old,] [library, library,] [old,] kernel, plain; the
+    mean of each pair, in ms: {"ms", "plain_ms", "library_ms", "old_ms"}
+    (None without a library call or an old form)."""
     p1 = _time_ms(plain, iters)
     k1 = _time_ms(kernel, iters)
-    lib = None
+    old_ms = lib = None
+    if old is not None:
+        old_ms = _time_ms(old, iters)
     if library is not None:
         lib = (_time_ms(library, iters) + _time_ms(library, iters)) / 2
+    if old is not None:
+        old_ms = (old_ms + _time_ms(old, iters)) / 2
     k2 = _time_ms(kernel, iters)
     p2 = _time_ms(plain, iters)
-    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib}
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+            "old_ms": old_ms}
+
+
+def b1_two_pass(tile, scal, lw, cols):
+    """The call that B1's wrapper made before the one-launch form (two
+    passes and the wrapper's lw − lse) on T banks, or None where the
+    wrapper's path has only that form (the row span)."""
+    if b1._row_span(cols) is not None:
+        return None
+    return lambda: b1._fused_update_cuda(tile, scal, lw, cols,
+                                         form=b1.TWO_PASS, normalize=True)
+
+
+def b1_plan(tile, lw, cols):
+    """The form and grid the wrapper takes for these (T, N) inputs."""
+    if b1._row_span(cols) is not None:
+        return "row span, two passes"
+    outcome, functor, _ = tile.kernel_tile
+    cap = b1._capacity(outcome, functor, len(cols), lw.shape[0] > 1,
+                       lw.device.index)
+    return "{} (n_blocks {}, blocks {}, per block {}, capacity {})".format(
+        *b1.grid_plan(lw.shape[0], lw.shape[1], cap)[:4], cap)
 
 
 # The card's peaks (H100 SXM data sheet, at 700 W): HBM bytes/s and f32
@@ -1256,8 +1345,10 @@ def phase_timing(device):
         return lw_u - lse, lse, ess
 
     times = {"B1": _alternate(
-        b1_plain, lambda: b1.fused_bayes_update(tile, scal, lw, (omega,)))}
+        b1_plain, lambda: b1.fused_bayes_update(tile, scal, lw, (omega,)),
+        old=b1_two_pass(tile, scal[None], lw[None], (omega[None],)))}
     times["B1"]["work"] = b1_work(1, N_FLAGSHIP)
+    times["B1"]["form"] = b1_plan(tile, lw[None], (omega[None],))
 
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(_weights("random", N_FLAGSHIP, rng), device=device)
@@ -1269,12 +1360,19 @@ def phase_timing(device):
         times[name] = _alternate(
             lambda: b2.expand_plain(starts, vals, N_FLAGSHIP, affine),
             lambda: b2._expand_cuda(starts, vals, N_FLAGSHIP, affine),
-            _repeat_interleave(starts, vals, N_FLAGSHIP))
+            _repeat_interleave(starts, vals, N_FLAGSHIP),
+            old=None if d > 8 else lambda: b2._expand_cuda_batched(
+                starts[None], vals[None], N_FLAGSHIP, affine[None],
+                form=b2.ROWS))
         times[name]["work"] = b2_work(starts, d, N_FLAGSHIP)
+        times[name]["form"] = b2.kernel_form(d, 2 * N_FLAGSHIP)
     for name, t in times.items():
         print(f"{name} at 2^20: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, "
               f"bound {bound(t['work'])[0]:.4f} ms")
+    print(json.dumps({"old_form_ms_at_2^20": {
+        name: {"ms": t["ms"], "old_ms": t["old_ms"], "form": t["form"]}
+        for name, t in times.items()}}))
     return times
 
 
@@ -1292,9 +1390,15 @@ def phase_timing_zoo(device):
             lw_u, lse, _, ess = b1.fused_update_plain(tile, scal, lw, cols)
             return lw_u - lse, lse, ess
 
+        batch = (scal[None], lw[None], tuple(c[None] for c in cols))
         times[name] = _alternate(
-            plain, lambda: b1.fused_bayes_update(tile, scal, lw, cols))
+            plain, lambda: b1.fused_bayes_update(tile, scal, lw, cols),
+            old=b1_two_pass(tile, *batch))
         times[name]["work"] = b1_work(len(cols), N_FLAGSHIP)
+        times[name]["form"] = b1_plan(tile, *batch[1:])
+    print(json.dumps({"b1_tile_old_form_ms_at_2^20": {
+        name: {"ms": t["ms"], "old_ms": t["old_ms"], "form": t["form"]}
+        for name, t in times.items()}}))
     print(json.dumps({"b1_tile_ms_at_2^20": {
         name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound(t["work"])[0]}
@@ -1319,26 +1423,34 @@ def phase_timing_batched(device, b2_inputs):
             return lw_u - lse[:, None], lse, ess
 
         t = _alternate(plain, lambda: b1.fused_bayes_update_batched(
-            tile, scal, lw, cols))
+            tile, scal, lw, cols), old=b1_two_pass(tile, scal, lw, cols))
         t["work"] = b1_work(1, n_trials * n)
         t["shape"] = [n_trials, n, 1]
+        t["form"] = b1_plan(tile, lw, cols)
         times[f"B1_batched[{n_trials}x{n}]"] = t
     for name, (starts, vals, scale, shift) in b2_inputs.items():
         n_trials, n, d = vals.shape
         affine = b2._affine_batched(scale, shift, n_trials, d, device)
         out_k = b2._expand_cuda_batched(starts, vals, n, affine)
+        out_m = b2._expand_cuda_batched(starts, vals, n, affine, form=b2.MERGE)
         out_p = b2.expand_plain_batched(starts, vals, n, affine)
         torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p):
+        if not (torch.equal(out_k, out_p) and torch.equal(out_m, out_p)):
             raise AssertionError(f"batched B2 differs from its plain version "
                                  f"on {name}'s resample")
         t = _alternate(
             lambda: b2.expand_plain_batched(starts, vals, n, affine),
             lambda: b2._expand_cuda_batched(starts, vals, n, affine),
-            _repeat_interleave(starts, vals, n))
+            _repeat_interleave(starts, vals, n),
+            old=lambda: b2._expand_cuda_batched(starts, vals, n, affine,
+                                                form=b2.ROWS))
         t["work"] = b2_work(starts, d, n)
         t["shape"] = [n_trials, n, d]
+        t["form"] = b2.kernel_form(d, n_trials * 2 * n)
         times[f"B2_batched[{name}]"] = t
+    print(json.dumps({"batched_old_form_ms": {
+        name: {"ms": t["ms"], "old_ms": t["old_ms"], "form": t["form"]}
+        for name, t in times.items()}}))
     print(json.dumps({"batched_ms": {
         name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                "library_ms": t["library_ms"], "bound_ms": bound(t["work"])[0],

@@ -39,9 +39,12 @@ _SIGNATURES = {
     #  log_w, cols (host array of device pointers), col_strides (host
     #  int64s), n_cols, span_base, span_offsets (host int32s), span_stride
     #  (0: per-column path), trial_stride, out_lw, partials, n_blocks,
-    #  stats, n, n_trials, stream)
+    #  stats, n, n_trials, grid_blocks (0: two-pass form), normalize, stream)
     "qt_fused_update": (_I32, _I32, _P, _I32, _P, _I32, _P, _P, _P, _I32,
-                        _P, _P, _I32, _I64, _P, _P, _I32, _P, _I64, _I32, _P),
+                        _P, _P, _I32, _I64, _P, _P, _I32, _P, _I64, _I32,
+                        _I32, _I32, _P),
+    # (outcome, pr1, n_cols, n_trials, capacity (host int, written))
+    "qt_fused_update_capacity": (_I32, _I32, _I32, _I32, _P),
     # (starts, n_in, values, n_cols, affine or NULL, out, n_out, n_trials,
     #  form, stream)
     "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _I32, _P),

@@ -6,18 +6,49 @@
 //     lw_i = log_w_i + max(log L_i, -87)            (written out unnormalized)
 //     lse  = log Σ exp(lw),   lse2 = log Σ exp(2·lw),   ess = exp(2·lse − lse2)
 //
-// What bounds it on this card: memory. Per particle it reads log_w and one
-// to sixteen parameter columns and writes lw: 12 to 72 bytes, 4 to 23 µs
-// for 2^20 particles at 3.35 TB/s; the cos/log/exp per element are far below
-// the SMs' rate. At that size the two launches cost as much as the traffic.
+// What bounds it on this card. Per particle it reads log_w and one to
+// sixteen parameter columns and writes lw: 12 to 72 bytes, 3.8 to 22.5 µs
+// for 2^20 particles at 3.35 TB/s. At one to four columns the math costs
+// as much: the accurate cos, log and exp that keep the plain version's
+// bits take about a hundred instructions a particle (cuobjdump of the
+// precession tile), so a pass over the bank runs well below the memory's
+// rate, and every launch, merge and extra round trip of the bank adds to
+// it.
 //
 // Design. The TPU kernel walks a sequential grid and carries (m, s, m2, s2)
-// across steps in SMEM; Hopper blocks run in parallel and in no order, so:
-//   pass 1: each block grid-strides over the bank with an online
-//           log-sum-exp per thread, reduces it over the block (warp
-//           shuffles, then one warp), and writes one partial (m, s, s2);
-//   pass 2: one block merges the partials in a fixed order (strided per
-//           thread, then the same fixed tree) and writes the statistics.
+// across steps in SMEM; Hopper blocks run in parallel and in no order. The
+// schedule is therefore one of n_blocks (virtual) blocks:
+//   partials: virtual block b, thread t takes rows b·256 + t + k·n_blocks·256
+//             with an online log-sum-exp per thread, reduces it over the
+//             block (warp shuffles, then one warp), and writes one partial
+//             (m, s, s2);
+//   merge:    the partials are merged in a fixed order (strided per thread,
+//             then the same fixed tree) into the statistics.
+// It runs in one of two forms, chosen by the wrapper (ops/fused_update.py:
+// grid_plan) and giving the same bits:
+//   two-pass (fused_update_pass1, then fused_update_pass2): one physical
+//           block per virtual block writes its raw lw and its partial; a
+//           second launch merges; the wrapper subtracts lse. The bank's
+//           log-weights cross device memory three times (written raw, read
+//           back, written normalised) in three launches;
+//   one launch (fused_update_one): G physical blocks a trial each walk the
+//           virtual blocks b = g, g + G, … and keep their log-weights in
+//           shared memory (at most kHeld a thread, so N ≤ 2^22); after a
+//           grid-wide barrier every block merges its trial's partials in
+//           pass 2's order and writes lw − lse (or raw lw) from shared
+//           memory. The log-weights are written once, in one launch. The
+//           launch is cooperative when G > 1, so that every block is
+//           resident at the barrier. The barrier waits for the trial's
+//           slowest block, and the barrier and the merge, which every block
+//           runs, grow with the blocks: G·T is held to half the resident
+//           capacity (qt_fused_update_capacity; at 2^20, 512 blocks of two
+//           virtual blocks each; every resident block measured slower,
+//           chip_profile.py --b1-forms). Tried on an H100 and not kept, as
+//           no faster: the merge's loads through L2 only, prefetches of the
+//           bank, loads ahead in registers, and the trial's last block
+//           merging alone and publishing lse in place of the barrier. With
+//           G = 1 a block holds its whole trial and needs no barrier (the
+//           256 × 2048 ensemble: one launch, T blocks).
 // No atomics: the result is the same from run to run. The second sum reuses
 // the first's exponential (Σ e², with the max of 2·lw equal to 2·max lw), as
 // the TPU kernel does. The ragged tail is masked by the loop bound instead of
@@ -26,12 +57,12 @@
 //
 // Trials. An ensemble of T independent banks (the JAX package's custom_vmap
 // rule, fused_update.py:197-209, which lax.maps the kernel over the trials
-// or falls back to XLA below 2^17 particles) is one launch on a (block,
-// trial) grid: blockIdx.y picks the trial's scalars row, log-weights and
-// columns, pass 1 writes a partials row per trial, and pass 2 runs one
-// block per trial over its row in the same fixed order. Each trial's result
-// is therefore bit-equal to a single-bank launch on it, and every bank size
-// runs the kernel. A single bank (T = 1) keeps its own instantiation, in
+// or falls back to XLA below 2^17 particles) runs on a (block, trial) grid:
+// blockIdx.y picks the trial's scalars row, log-weights and columns, each
+// trial writes its own partials row, and its merge (pass 2's block, or each
+// of its one-launch blocks) reads that row in the same fixed order. Each
+// trial's result is therefore bit-equal to a single-bank launch on it, and
+// every bank size runs the kernel. A single bank (T = 1) keeps its own instantiation, in
 // which nothing is shifted: with the trial offsets, the one-column tiles
 // took 0.5–1.1 µs more at 2^20 on an H100 (chip_profile.py --parent).
 //
@@ -73,12 +104,14 @@
 // the others: MultiCos keeps 8, and the Born rule is instantiated at 4
 // columns (a qubit) and at 16 (two qubits).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kHeld = 16;  // log-weights a thread of the one-launch form keeps (16 KB a block)
 constexpr int kMaxCols = 16;      // the widest functor (Born, two qubits)
 constexpr int kMultiCosMaxCols = 8;
 constexpr int kMaxConsts = 4;
@@ -539,31 +572,122 @@ fused_update_span(const float* __restrict__ scalars, int scalar_stride, Consts c
   }
 }
 
-// One block per trial (blockIdx.x): stats row = [lse, lse2, log_norm (= lse), ess].
-__global__ void __launch_bounds__(kThreads)
-fused_update_pass2(const float* __restrict__ partials, int n_blocks,
-                   float* __restrict__ stats) {
-  partials += static_cast<int64_t>(blockIdx.x) * 3 * n_blocks;
-  stats += 4 * static_cast<int64_t>(blockIdx.x);
+// The merge of a trial's n_blocks partials in the fixed order (strided per
+// thread, then block_reduce's tree); thread 0 gets it. Plain loads, cached
+// in L1: a thread's (m, s, s2) share lines, which every one-launch block
+// would otherwise fetch from L2 three times (__ldcg). In the one-launch
+// form other blocks wrote the partials in this launch: the grid barrier's
+// acquire orders those writes before these loads, and no block read the
+// partials before it.
+__device__ Lse merge_partials(const float* partials, int n_blocks) {
   Lse st{kNegBig, 0.0f, 0.0f};
   for (int b = threadIdx.x; b < n_blocks; b += kThreads) {
     st = lse_merge(st, Lse{partials[3 * b], partials[3 * b + 1], partials[3 * b + 2]});
   }
-  st = block_reduce(st);
-  if (threadIdx.x == 0) {
-    const float lse = st.m + logf(st.s);
+  return block_reduce(st);
+}
+
+// lse of a merged state; also writes its stats row [lse, lse2, log_norm (=
+// lse), ess] unless `stats` is null.
+__device__ __forceinline__ float write_stats(Lse st, float* stats) {
+  const float lse = st.m + logf(st.s);
+  if (stats != nullptr) {
     const float lse2 = 2.0f * st.m + logf(st.s2);
     stats[0] = lse;
     stats[1] = lse2;
     stats[2] = lse;
     stats[3] = expf(-(lse2 - 2.0f * lse));
   }
+  return lse;
+}
+
+// One block per trial (blockIdx.x).
+__global__ void __launch_bounds__(kThreads)
+fused_update_pass2(const float* __restrict__ partials, int n_blocks,
+                   float* __restrict__ stats) {
+  partials += static_cast<int64_t>(blockIdx.x) * 3 * n_blocks;
+  stats += 4 * static_cast<int64_t>(blockIdx.x);
+  const Lse st = merge_partials(partials, n_blocks);
+  if (threadIdx.x == 0) write_stats(st, stats);
+}
+
+// The one-launch form (see the header): physical block blockIdx.x of G =
+// gridDim.x walks the virtual blocks b = blockIdx.x + v·G < n_blocks of
+// trial blockIdx.y (shifted as in pass 1 when kBatched), each thread
+// holding its per_thread rows of each in shared memory. `grid_sync`: the
+// launch is cooperative and G > 1, so the partials of the other blocks are
+// awaited at a grid-wide barrier; else this block holds its whole trial.
+// Writes lw − lse (__fsub_rn, as the wrapper's f32 subtraction rounds it)
+// when `normalize`, else raw lw, and block 0 of each trial its stats row.
+template <class Tile, bool kBatched>
+__global__ void __launch_bounds__(kThreads)
+fused_update_one(const float* __restrict__ scalars, int scalar_stride, Consts consts,
+                 int n_cols, const float* __restrict__ log_w, Cols cols,
+                 int64_t trial_stride, float* __restrict__ out_lw, float* partials,
+                 float* __restrict__ stats, int n_blocks, int per_thread, int64_t n,
+                 int normalize, int grid_sync) {
+  __shared__ float held[kHeld * kThreads];
+  __shared__ float lse_shared;
+  if constexpr (kBatched) {
+    const int64_t y = blockIdx.y;
+    scalars += y * scalar_stride;
+    log_w += y * n;
+    out_lw += y * n;
+    partials += y * 3 * static_cast<int64_t>(n_blocks);
+    stats += 4 * y;
+#pragma unroll
+    for (int j = 0; j < Tile::P::kMaxColsUsed; ++j) cols.p[j] += y * trial_stride;
+  }
+  const Tile tile(scalars, consts, n_cols);
+  // Rows in 32 bits (this form holds N ≤ 2^22): fewer instructions a
+  // particle than pass 1's 64-bit rows, the same rows in the same order.
+  const int rows = static_cast<int>(n);
+  const int stride = n_blocks * kThreads;
+  float* mine = held + threadIdx.x;
+  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    Lse st{kNegBig, 0.0f, 0.0f};
+    int i = b * kThreads + static_cast<int>(threadIdx.x);
+    for (int k = 0; k < per_thread && i < rows; ++k, i += stride) {
+      const float log_l = tile(cols, i);
+      const float lw = __fadd_rn(log_w[i], log_l < kLogTiny ? kLogTiny : log_l);
+      mine[k * kThreads] = lw;
+      lse_push(st, lw);
+    }
+    mine += per_thread * kThreads;
+    st = block_reduce(st);
+    if (threadIdx.x == 0) {
+      partials[3 * b + 0] = st.m;
+      partials[3 * b + 1] = st.s;
+      partials[3 * b + 2] = st.s2;
+    }
+    __syncthreads();  // block_reduce's shared totals are rewritten next
+  }
+  if (grid_sync) {
+    cooperative_groups::this_grid().sync();  // also orders the partials' writes
+  } else {
+    __syncthreads();
+  }
+  const Lse st = merge_partials(partials, n_blocks);
+  if (threadIdx.x == 0) lse_shared = write_stats(st, blockIdx.x == 0 ? stats : nullptr);
+  __syncthreads();
+  const float lse = lse_shared;
+  mine = held + threadIdx.x;
+  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    int i = b * kThreads + static_cast<int>(threadIdx.x);
+    for (int k = 0; k < per_thread && i < rows; ++k, i += stride) {
+      out_lw[i] = normalize ? __fsub_rn(mine[k * kThreads], lse) : mine[k * kThreads];
+    }
+    mine += per_thread * kThreads;
+  }
 }
 
 }  // namespace
 
 // What one launch needs besides the functor: the device pointers and the
-// (n_blocks, n_trials) grid. span.stride > 0 takes the row-span path.
+// (n_blocks, n_trials) grid. span.stride > 0 takes the row-span path;
+// grid_blocks > 0 the one-launch form with that many blocks a trial (else
+// the two-pass form). capacity != nullptr asks for the one-launch form's
+// resident capacity instead of launching.
 struct Launch {
   const float* scalars;
   int scalar_stride;
@@ -575,9 +699,13 @@ struct Launch {
   int64_t trial_stride;
   float* out;
   float* partials;
+  float* stats;
   int n_blocks;
   int n_trials;
   int64_t n;
+  int grid_blocks;
+  int normalize;
+  int* capacity;
   cudaStream_t stream;
 };
 
@@ -603,14 +731,65 @@ static void launch_span(const Launch& a) {
       a.out, a.partials, a.n);
 }
 
+// Blocks of fused_update_one<Tile, kBatched> resident on the current device
+// at once: the most a cooperative launch of it may hold.
+template <class Tile, bool kBatched>
+static int one_capacity(int* capacity) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_update_one<Tile, kBatched>,
+                                                      kThreads, 0);
+  }
+  if (e == cudaSuccess) *capacity = per_sm * sms;
+  return static_cast<int>(e);
+}
+
+// The one-launch form on a (grid_blocks, n_trials) grid, cooperative when
+// grid_blocks > 1 (the launch fails, cudaErrorCooperativeLaunchTooLarge,
+// when the grid exceeds the resident capacity).
+template <class Tile, bool kBatched>
+static int launch_one(const Launch& a) {
+  const int64_t span = static_cast<int64_t>(a.n_blocks) * kThreads;
+  const int64_t per_thread = (a.n + span - 1) / span;
+  const int64_t per_block = (a.n_blocks + a.grid_blocks - 1) / a.grid_blocks;
+  // The kernel's rows are 32-bit: n ≤ n_blocks·256·kHeld < 2^31.
+  if (a.grid_blocks > a.n_blocks || per_thread * per_block > kHeld ||
+      a.n_blocks > INT32_MAX / (kThreads * kHeld)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute coop{};
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(a.grid_blocks, a.n_trials);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = a.stream;
+  cfg.attrs = &coop;
+  cfg.numAttrs = a.grid_blocks > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, fused_update_one<Tile, kBatched>, a.scalars, a.scalar_stride, a.consts, a.n_cols,
+      a.log_w, a.cols, a.trial_stride, a.out, a.partials, a.stats, a.n_blocks,
+      static_cast<int>(per_thread), a.n, a.normalize, a.grid_blocks > 1 ? 1 : 0);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
 template <class Tile>
 static int launch(const Launch& a) {
   if (a.n_cols < Tile::P::kMinCols || a.n_cols > Tile::P::kMaxColsUsed) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (a.capacity != nullptr) {
+    return a.n_trials == 1 ? one_capacity<Tile, false>(a.capacity)
+                           : one_capacity<Tile, true>(a.capacity);
+  }
   if (a.span.stride > 0) {
-    // Only multi-column functors read a bank by rows.
+    // Only multi-column functors read a bank by rows; the row span has the
+    // two-pass form only.
     if constexpr (Tile::P::kMaxColsUsed >= 2) {
+      if (a.grid_blocks > 0) return static_cast<int>(cudaErrorInvalidValue);
       if (span_vec(a)) {
         launch_span<Tile, true>(a);
       } else {
@@ -619,6 +798,8 @@ static int launch(const Launch& a) {
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+  } else if (a.grid_blocks > 0) {
+    return a.n_trials == 1 ? launch_one<Tile, false>(a) : launch_one<Tile, true>(a);
   } else if (a.n_trials == 1) {
     fused_update_pass1<Tile, false><<<a.n_blocks, kThreads, 0, a.stream>>>(
         a.scalars, a.scalar_stride, a.consts, a.n_cols, a.log_w, a.cols,
@@ -650,6 +831,14 @@ static int launch_pr1(int pr1, const Launch& a) {
   }
 }
 
+static int launch_tile(int outcome, int pr1, const Launch& a) {
+  switch (outcome) {
+    case 0: return launch_pr1<TwoOutcome>(pr1, a);
+    case 1: return launch_pr1<Binomial>(pr1, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // outcome: 0 = TwoOutcome, 1 = Binomial. pr1: the functor ids of
 // ops/fused_update.py (0 precession … 7 noisy coin, 8 Born). consts: host
 // array of n_consts floats. cols, col_strides: host arrays of n_cols device
@@ -661,8 +850,10 @@ static int launch_pr1(int pr1, const Launch& a) {
 // scalar_stride), log_w and out_lw (n_trials, n), column j of trial y
 // starts trial_stride elements after trial y − 1's; partials:
 // 3·n_blocks·n_trials floats; stats: 4·n_trials floats. One bank is
-// n_trials = 1 (the strides are then not read). Returns the cudaError_t of
-// the launches (0 on success).
+// n_trials = 1 (the strides are then not read). grid_blocks: 0 takes the
+// two-pass form (out_lw raw), G > 0 the one-launch form with G blocks a
+// trial (per-column path only; out_lw is lw − lse when normalize, else
+// raw). Returns the cudaError_t of the launches (0 on success).
 extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
                                int scalar_stride, const void* consts, int n_consts,
                                const void* log_w, const void* const* cols,
@@ -670,11 +861,11 @@ extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
                                const void* span_base, const int32_t* span_offsets,
                                int span_stride, int64_t trial_stride, void* out_lw,
                                void* partials, int n_blocks, void* stats, int64_t n,
-                               int n_trials, void* stream) {
+                               int n_trials, int grid_blocks, int normalize, void* stream) {
   if (n_cols < 0 || n_cols > kMaxCols || n_consts < 0 || n_consts > kMaxConsts ||
       n_blocks <= 0 || n <= 0 || n_trials <= 0 || n_trials > 65535 ||
       scalar_stride < 0 || trial_stride < 0 || span_stride < 0 ||
-      span_stride > kMaxSpanStride) {
+      span_stride > kMaxSpanStride || grid_blocks < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Launch a{};
@@ -702,18 +893,32 @@ extern "C" int qt_fused_update(int outcome, int pr1, const void* scalars,
   a.trial_stride = trial_stride;
   a.out = static_cast<float*>(out_lw);
   a.partials = static_cast<float*>(partials);
+  a.stats = static_cast<float*>(stats);
   a.n_blocks = n_blocks;
   a.n_trials = n_trials;
   a.n = n;
+  a.grid_blocks = grid_blocks;
+  a.normalize = normalize != 0;
   a.stream = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (outcome) {
-    case 0: err = launch_pr1<TwoOutcome>(pr1, a); break;
-    case 1: err = launch_pr1<Binomial>(pr1, a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != 0) return err;
+  const int err = launch_tile(outcome, pr1, a);
+  if (err != 0 || grid_blocks > 0) return err;
   fused_update_pass2<<<n_trials, kThreads, 0, a.stream>>>(
-      a.partials, n_blocks, static_cast<float*>(stats));
+      a.partials, n_blocks, a.stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The one-launch form's resident capacity on the current device, in
+// blocks, for the instantiation that qt_fused_update takes with these
+// (outcome, pr1, n_cols) and this many trials (1: the single-bank one),
+// written to *capacity. Returns the cudaError_t (0 on success).
+extern "C" int qt_fused_update_capacity(int outcome, int pr1, int n_cols, int n_trials,
+                                        int* capacity) {
+  if (n_cols < 0 || n_cols > kMaxCols || n_trials <= 0 || capacity == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Launch a{};
+  a.n_cols = n_cols;
+  a.n_trials = n_trials;
+  a.capacity = capacity;
+  return launch_tile(outcome, pr1, a);
 }

@@ -7,17 +7,37 @@
 // Liu–West shrinkage a·x + (1 − a)·μ, and is skipped when `affine` is NULL.
 // n_out may be less than n_in (the caller shifts the starts to its window).
 //
-// What bounds it on this card: memory. Per output row it reads one start
-// and D values and writes D values, 4·(D+1) + 4·D bytes, about 12 MB for
-// 2^20 rows at D = 1 (about 4 µs at 3.35 TB/s). The binary search reads
-// ~20 starts per row, but the 4 MB of starts sits in the 50 MB L2 cache.
+// What bounds it on this card: memory, where the search does not. Per
+// output row it reads one start and D values and writes D values, 4·(D+1)
+// + 4·D bytes, about 12 MB for 2^20 rows at D = 1 (about 4 µs at 3.35
+// TB/s). A binary search for each row reads ~20 starts, dependent loads
+// from the 50 MB L2 cache whose latency and not their bytes set the time.
 //
-// Design: two forms (`form`, chosen by the caller from D, ops/
-// resample_expand.py:kernel_form):
-//  - rows (form 0, D ≤ 8): one thread per output row binary-searches
+// Design: three forms (`form`, chosen by the caller from D and the
+// launch's size, ops/resample_expand.py:kernel_form):
+//  - rows (form 0): one thread per output row binary-searches
 //    upper_bound(starts, i) − 1 and reads and writes its D values. At
 //    D = 1 neighbouring lanes write neighbouring floats; the time is the
-//    search's ~20 dependent probes, mostly cache hits;
+//    search's ~20 dependent probes, mostly cache hits, so latency and not
+//    bytes bounded it up to D = 8 (≈ 25 µs at 2^20 on an H100);
+//  - merge path (form 2, D ≤ 8): the starts and the row indices 0…n_out−1
+//    are merged (a start equal to i before row i), and block x takes the
+//    merged items [x·2048, (x + 1)·2048): its starts [a0, a1) and rows
+//    [b0, b1). Start k sits at min(starts[k], n_out) + k in the merge,
+//    strictly increasing, so each end is one search (a warp's 32-ary
+//    rounds, two warps for the two ends): one search a block instead of
+//    one a row. The block's window of at most 2048 starts is then in
+//    shared memory, whatever the weights (thousands of equal starts
+//    included), loaded coalesced. Row i of the block has j(i) = a0 − 1 +
+//    #{k ∈ [a0, a1) : starts[k] ≤ i}: each start that ends a run of equal
+//    starts marks its row in shared memory, and a block-wide max-scan
+//    fills the rows between, a fixed cost a row for any weights (halving
+//    the window for each row cost a dozen instructions a probe, and most
+//    of a block's time). The block then writes its rows, (b1 − b0)·D
+//    contiguous floats, in element order, as float4s or float2s where D
+//    and the alignment allow: coalesced at every D. On launches of few
+//    items its per-block search and barriers are not amortised, and one
+//    thread a row stays faster there;
 //  - span (form 1, D > 8): a warp writes its 32 consecutive rows, one
 //    contiguous span of 32·D floats. The warp finds the bounds of its rows'
 //    sources together (32 probes a round, four rounds for 2^20 starts) and
@@ -27,10 +47,11 @@
 //    floats, each taking its row's source by shuffle. At D = 16 the rows
 //    form's lanes were 64 bytes apart, so every store instruction wrote 32
 //    partial sectors (171 µs at 2^20 on an H100, against 64 µs).
-// Measured on an H100 (chip_profile.py --b2-forms): the rows form is
-// faster up to D = 8, the span form from D = 12; a block-wide search (256
-// probes a round, the starts window in shared memory) and the per-lane
-// search in the span form were both slower at D = 16.
+// Measured on an H100 (chip_profile.py --b2-forms): the rows form was
+// faster than the span form up to D = 8, the span form from D = 12; a
+// block-wide search (256 probes a round, a window keyed to the block's
+// rows, unbounded under degenerate weights) and the per-lane search in the
+// span form were both slower at D = 16.
 // None of the TPU kernel's machinery carries over: the DMA ring, the bf16
 // plane splits, the MXU one-hot selects and the shifted value streams all
 // work around Mosaic (see that module's docstring). The affine is rounded
@@ -39,9 +60,9 @@
 //
 // Trials. T independent banks (the JAX package's sequential_vmap,
 // resample_expand.py:359, which runs the kernel once per trial) are one
-// launch on a (row block, trial) grid: blockIdx.y picks the trial's starts,
-// values, affine (μ differs per trial) and output rows. A single bank is
-// T = 1, where blockIdx.y is 0 and nothing moves. gridDim.y bounds T at
+// launch on a (row block or merge tile, trial) grid: blockIdx.y picks the
+// trial's starts, values, affine (μ differs per trial) and output rows. A
+// single bank is T = 1, where blockIdx.y is 0 and nothing moves. gridDim.y bounds T at
 // 65535.
 
 #include <cuda_runtime.h>
@@ -207,19 +228,182 @@ expand_span(const int32_t* __restrict__ starts, int64_t n_in,
   }
 }
 
+constexpr int kMergeTile = 2048;  // merged items (starts and rows) a block
+
+// The number of starts among the first d items of the merge: the first k
+// with min(starts[k], n_out) + k ≥ d, found by the 32 lanes of a warp in
+// 32-ary rounds (as warp_upper_bounds); it lies in [max(0, d − n_out),
+// min(d, n_in)].
+__device__ __forceinline__ int64_t merge_split(const int32_t* starts, int64_t n_in,
+                                               int64_t n_out, int64_t d, int lane) {
+  int64_t a = d > n_out ? d - n_out : 0;
+  int64_t b = d < n_in ? d : n_in;
+  while (a < b) {  // warp-uniform
+    const int64_t s = (b - a + 31) >> 5;
+    const int64_t p = a + lane * s;
+    bool below = false;
+    if (p < b) {
+      const int64_t v = __ldg(starts + p);
+      below = (v < n_out ? v : n_out) + p < d;
+    }
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    if (c > 0) {
+      b = a + c * s < b ? a + c * s : b;
+      a += (c - 1) * s + 1;
+    } else {
+      b = a;
+    }
+  }
+  return a;
+}
+
+// Width of the merge path's copies: a row's kD floats as float4s or
+// float2s where kD allows and the arrays are aligned (kVec), else floats.
+template <int kD, bool kVec>
+__host__ __device__ constexpr int merge_width() {
+  return !kVec ? 1 : kD % 4 == 0 ? 4 : kD % 2 == 0 ? 2 : 1;
+}
+
+template <int kW> struct Vec;
+template <> struct Vec<1> { using T = float; };
+template <> struct Vec<2> { using T = float2; };
+template <> struct Vec<4> { using T = float4; };
+
+// v·scale + shift for columns c…c + kW − 1 of a row, each rounded as
+// affine_at rounds it.
+__device__ __forceinline__ float affine_lanes(float v, const float* a, int n, int c) {
+  return affine_at(v, a, n, c);
+}
+__device__ __forceinline__ float2 affine_lanes(float2 v, const float* a, int n, int c) {
+  return make_float2(affine_at(v.x, a, n, c), affine_at(v.y, a, n, c + 1));
+}
+__device__ __forceinline__ float4 affine_lanes(float4 v, const float* a, int n, int c) {
+  return make_float4(affine_at(v.x, a, n, c), affine_at(v.y, a, n, c + 1),
+                     affine_at(v.z, a, n, c + 2), affine_at(v.w, a, n, c + 3));
+}
+
+// Form 2: block x merges the items [x·kMergeTile, (x + 1)·kMergeTile)
+// (see the header) at kD columns, copied kW = merge_width<kD, kVec>() at a
+// time.
+template <int kD, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+expand_merge(const int32_t* __restrict__ starts, int64_t n_in,
+             const float* __restrict__ values, const float* __restrict__ affine,
+             float* __restrict__ out, int64_t n_out) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int32_t window[kMergeTile];
+  __shared__ int32_t source[kMergeTile];
+  __shared__ int64_t split[2];
+  __shared__ int32_t warp_max[kWarps];
+  const int64_t y = blockIdx.y;
+  starts += y * n_in;
+  values += y * n_in * kD;
+  out += y * n_out * kD;
+  if (affine != nullptr) affine += y * 2 * kD;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kMergeTile;
+  const int64_t d1 = d0 + kMergeTile < n_in + n_out ? d0 + kMergeTile : n_in + n_out;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 2) {
+    const int64_t a = merge_split(starts, n_in, n_out, warp ? d1 : d0, lane);
+    if (lane == 0) split[warp] = a;
+  }
+  __syncthreads();
+  const int64_t a0 = split[0];
+  const int64_t b0 = d0 - a0;
+  const int w = static_cast<int>(split[1] - a0);
+  const int rows = static_cast<int>(d1 - split[1] - b0);
+  // j(b0 + r) = a0 − 1 + #{window starts ≤ b0 + r}, clamped at 0: the last
+  // window start at or below row b0 + r, else a0 − 1.
+  const int32_t before = a0 > 0 ? static_cast<int32_t>(a0 - 1) : 0;
+  if (w == 0) {  // rows only (the rows between heavy particles' starts)
+    for (int r = threadIdx.x; r < rows; r += kThreads) source[r] = before;
+  } else {
+    for (int x = threadIdx.x; x < w; x += kThreads) window[x] = __ldg(starts + a0 + x);
+    for (int r = threadIdx.x; r < rows; r += kThreads) source[r] = -1;
+    __syncthreads();
+    // Each window start that ends its run of equal starts marks its row (a
+    // run that the tile's end cuts lies at or beyond row b1: no mark).
+    for (int x = threadIdx.x; x < w; x += kThreads) {
+      const int64_t r = window[x] - b0;
+      if (r < rows && (x + 1 == w || window[x + 1] != window[x])) {
+        source[r] = static_cast<int32_t>(a0 + x);
+      }
+    }
+    __syncthreads();
+    // Fill each row with the last mark at or before it: a max-scan (marks
+    // grow with the row), warp k over rows [k·chunk, (k + 1)·chunk), 32 at
+    // a time, then each row against the maxima of the warps before.
+    const int chunk = (rows + kWarps - 1) / kWarps;
+    const int r0 = warp * chunk;
+    const int r1 = r0 + chunk < rows ? r0 + chunk : rows;
+    int32_t carry = -1;
+    for (int base = r0; base < r1; base += 32) {  // warp-uniform
+      const int r = base + lane;
+      int32_t v = r < r1 ? source[r] : -1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int32_t o = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off && o > v) v = o;
+      }
+      if (carry > v) v = carry;
+      if (r < r1) source[r] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) warp_max[warp] = carry;
+    __syncthreads();
+    int32_t least = before;
+    for (int k = 0; k < warp; ++k) least = warp_max[k] > least ? warp_max[k] : least;
+    for (int r = r0 + lane; r < r1; r += 32) {
+      if (source[r] < least) source[r] = least;
+    }
+  }
+  __syncthreads();
+  constexpr int kW = merge_width<kD, kVec>();
+  constexpr int kPerRow = kD / kW;
+  using T = typename Vec<kW>::T;
+  const T* src = reinterpret_cast<const T*>(values);
+  T* dst = reinterpret_cast<T*>(out + b0 * kD);
+  for (int e = threadIdx.x; e < rows * kPerRow; e += kThreads) {
+    const int r = e / kPerRow;
+    const int c = e - r * kPerRow;
+    const T v = __ldg(src + static_cast<int64_t>(source[r]) * kPerRow + c);
+    dst[e] = affine != nullptr ? affine_lanes(v, affine, kD, c * kW) : v;
+  }
+}
+
+template <int kD, bool kVec>
+static void launch_merge(const int32_t* s, int64_t n_in, const float* v, const float* a,
+                         float* o, int64_t n_out, int n_trials, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((n_in + n_out + kMergeTile - 1) / kMergeTile),
+                  static_cast<unsigned>(n_trials));
+  expand_merge<kD, kVec><<<grid, kThreads, 0, st>>>(s, n_in, v, a, o, n_out);
+}
+
+template <int kD>
+static void launch_merge(const int32_t* s, int64_t n_in, const float* v, const float* a,
+                         float* o, int64_t n_out, int n_trials, cudaStream_t st) {
+  constexpr int kW = merge_width<kD, true>();
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (kW > 1 && bits % (4 * kW) == 0) {
+    launch_merge<kD, true>(s, n_in, v, a, o, n_out, n_trials, st);
+  } else {
+    launch_merge<kD, false>(s, n_in, v, a, o, n_out, n_trials, st);
+  }
+}
+
 }  // namespace
 
 // n_trials banks, each: starts int32 (n_in,); values f32 (n_in, n_cols)
 // row-major; affine f32 (2, n_cols) [scale; shift] or NULL; out f32 (n_out,
 // n_cols). The banks lie back to back (trial y's arrays start y times their
-// size after trial 0's). form: 0 one thread per row, 1 a block per span of
-// 256 rows. n_in < 2^31. Returns the cudaError_t of the launch (0 on
-// success).
+// size after trial 0's). form: 0 one thread per row, 1 a warp per span of
+// 32 rows, 2 the merge path (n_cols ≤ 8). n_in < 2^31. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
                          int n_cols, const void* affine, void* out, int64_t n_out,
                          int n_trials, int form, void* stream) {
   if (n_in <= 0 || n_in > INT32_MAX || n_cols <= 0 || n_out <= 0 || n_trials <= 0 ||
-      n_trials > 65535 || (form != 0 && form != 1)) {
+      n_trials > 65535 || form < 0 || form > 2 || (form == 2 && n_cols > 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
@@ -229,7 +413,18 @@ extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
   const auto* v = static_cast<const float*>(values);
   const auto* a = static_cast<const float*>(affine);
   auto* o = static_cast<float*>(out);
-  if (form == 0) {
+  if (form == 2) {
+    switch (n_cols) {
+      case 1: launch_merge<1>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      case 2: launch_merge<2>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      case 3: launch_merge<3>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      case 4: launch_merge<4>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      case 5: launch_merge<5>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      case 6: launch_merge<6>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      case 7: launch_merge<7>(s, n_in, v, a, o, n_out, n_trials, st); break;
+      default: launch_merge<8>(s, n_in, v, a, o, n_out, n_trials, st); break;
+    }
+  } else if (form == 0) {
     expand_rows<<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
   } else if (n_cols % 4 == 0 &&
              ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(a) |

@@ -28,13 +28,20 @@ pointer and element stride (the per-column path). Both give the same bits.
 ``fused_bayes_update_batched`` updates T independent banks (an ensemble of
 trials) in one launch on a (block, trial) grid, on every bank size; its
 plain version is ``fused_update_plain_batched``.
+
+The per-column path runs in one of two forms (``grid_plan``): one launch
+that keeps each block's log-weights on chip and writes them normalised
+once, where a trial's log-weights fit on chip and its blocks fit the
+card at once; else two passes and the wrapper's ``lw − lse``. The row span
+keeps the two-pass form. Both forms give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Any, ClassVar
+from typing import Any, ClassVar, NamedTuple
 
 import torch
 
@@ -46,7 +53,7 @@ __all__ = [
     "TwoOutcomeTile", "BinomialTile", "two_outcome_tile", "binomial_tile",
     "precession_pr1", "make_multicos_pr1", "make_known_t2_pr1", "rb_pr1",
     "rb_interleaved_pr1", "inversion_pr1", "coin_pr1", "noisy_coin_pr1",
-    "make_born_pr1", "MAX_COLS",
+    "make_born_pr1", "MAX_COLS", "grid_plan", "ONE_LAUNCH", "TWO_PASS",
 ]
 
 _LOG_TINY = -87.0
@@ -57,6 +64,7 @@ MAX_COLS = 16  # kMaxCols in csrc/fused_update.cu
 MAX_TRIALS = 65535  # gridDim.y
 _MAX_CONSTS = 4  # kMaxConsts
 _MAX_SPAN_STRIDE = 20  # kMaxSpanStride
+_HELD = 16  # kHeld: log-weights a thread of the one-launch form keeps
 # Row strides below this keep the per-column path. On an H100 at 2^20 the
 # tiles with s = 2…5 ran 3.5–5.6 µs slower on the row span, and from s = 8
 # to 17 the row span was 10–16 µs faster (chip_profile.py, PERF.md).
@@ -318,14 +326,89 @@ def _row_span(cols, min_stride=_MIN_SPAN_STRIDE):
     return s, [g // 4 for g in gaps]
 
 
-def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None):
+ONE_LAUNCH, TWO_PASS = "one_launch", "two_pass"  # the per-column path's forms
+
+
+class GridPlan(NamedTuple):
+    """How B1's per-column path runs a (T, N) update. ``n_blocks``: the
+    virtual blocks a trial (the two-pass grid's blocks); ``blocks``: the
+    physical blocks a trial; ``per_block``: the virtual blocks each walks;
+    ``per_thread``: the rows a thread takes in each virtual block."""
+
+    form: str
+    n_blocks: int
+    blocks: int
+    per_block: int
+    per_thread: int
+
+
+def grid_plan(n_trials, n, capacity, form=None):
+    """The form and grid of B1's per-column path for T = ``n_trials`` banks
+    of ``n`` particles, on a card that holds ``capacity`` blocks of the
+    one-launch kernel at once.
+
+    The one-launch form takes one block a trial where a thread then holds
+    at most 16 log-weights (N ≤ 4096: no barrier); else the fewest virtual
+    blocks a physical block (and so the most blocks) such that a thread
+    holds at most 16 log-weights and the T·blocks of the cooperative grid
+    fill at most half the resident capacity: the grid barrier and the
+    merge, which every block runs over all of its trial's partials, grow
+    with the blocks, and on an H100 every resident block measured slower
+    (``chip_profile.py --b1-forms``, PERF.md §6). Otherwise the two-pass
+    form: N > 2^22, or too many trials for the card. ``form``
+    forces ``ONE_LAUNCH`` (the grid of most virtual blocks a physical
+    block when none fits, whose launch the card then refuses; N > 2^22
+    raises ValueError) or ``TWO_PASS``."""
+    n_blocks = max(1, min(_MAX_BLOCKS, -(-n // (_THREADS * _ITEMS_PER_THREAD))))
+    per_thread = -(-n // (n_blocks * _THREADS))
+    most = _HELD // per_thread
+    if form not in (None, ONE_LAUNCH, TWO_PASS):
+        raise ValueError(f"unknown B1 form {form!r}")
+    if form != TWO_PASS:
+        if n_blocks <= most:
+            return GridPlan(ONE_LAUNCH, n_blocks, 1, n_blocks, per_thread)
+        for per_block in range(1, most + 1):
+            blocks = -(-n_blocks // per_block)
+            if n_trials * blocks <= capacity // 2:
+                return GridPlan(ONE_LAUNCH, n_blocks, blocks,
+                                -(-n_blocks // blocks), per_thread)
+        if form == ONE_LAUNCH:
+            if most == 0:
+                raise ValueError(
+                    f"the one-launch form holds at most {_HELD} log-weights "
+                    f"a thread; N = {n} needs {per_thread}")
+            blocks = -(-n_blocks // most)
+            return GridPlan(ONE_LAUNCH, n_blocks, blocks,
+                            -(-n_blocks // blocks), per_thread)
+    return GridPlan(TWO_PASS, n_blocks, n_blocks, 1, per_thread)
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(outcome_id, functor_id, n_cols, batched, device_index):
+    """Blocks of the one-launch instantiation for this tile resident at
+    once on the device (occupancy × SMs), asked once per instantiation."""
+    lib, _ = _build.library()
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.qt_fused_update_capacity(outcome_id, functor_id, n_cols,
+                                           2 if batched else 1,
+                                           ctypes.byref(cap))
+    _build.check(err, "qt_fused_update_capacity")
+    return cap.value
+
+
+def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
+                       form=None, normalize=False):
     """Kernel B1 on T banks: ``scalars`` (T, k), ``log_w`` (T, N), each
     column (T, N) with one trial stride shared by all columns (views of
-    one (T, N, D) bank). Returns (lw, lse, lse2, ess) as the plain version.
-    T = 1 launches the single-bank instantiation. ``row_span``: None takes
-    the path ``_row_span`` picks; True the row-span path at any stride ≥ 2
-    (raises when the layout has none), False the per-column path, both for
-    comparing the two."""
+    one (T, N, D) bank). Returns (lw, lse, lse2, ess) as the plain version,
+    lw normalised (lw − lse) when ``normalize``. T = 1 launches the
+    single-bank instantiation. ``row_span``: None takes the path
+    ``_row_span`` picks; True the row-span path at any stride ≥ 2 (raises
+    when the layout has none), False the per-column path. ``form``: None
+    takes the per-column path's form from ``grid_plan``; ``ONE_LAUNCH`` or
+    ``TWO_PASS`` forces one (the row span has only the two-pass form).
+    Both options are for comparing paths and forms."""
     spec = getattr(tile_fn, "kernel_tile", None)
     if spec is None:
         raise NotImplementedError(
@@ -355,18 +438,22 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None):
     if any(c.stride(0) != trial_stride for c in cols[1:]) and n_trials > 1:
         raise ValueError("param_cols must share one trial stride (views of "
                          "one (T, N, D) bank)")
-    n_blocks = max(1, min(_MAX_BLOCKS,
-                          -(-n // (_THREADS * _ITEMS_PER_THREAD))))
-    out = torch.empty_like(log_w)
-    partials = torch.empty((n_trials, 3 * n_blocks), dtype=torch.float32,
-                           device=device)
-    stats = torch.empty((n_trials, 4), dtype=torch.float32, device=device)
-    col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
-    col_strides = (ctypes.c_int64 * len(cols))(*[c.stride(1) for c in cols])
     span = None if row_span is False else _row_span(
         cols, 2 if row_span else _MIN_SPAN_STRIDE)
     if row_span and span is None:
         raise ValueError("the columns are not views of one row-major bank")
+    if span and form == ONE_LAUNCH:
+        raise ValueError("the row-span path has the two-pass form only")
+    capacity = 0 if span or form == TWO_PASS else _capacity(
+        outcome_id, functor_id, len(cols), n_trials > 1, device.index)
+    plan = grid_plan(n_trials, n, capacity, TWO_PASS if span else form)
+    one = plan.form == ONE_LAUNCH
+    out = torch.empty_like(log_w)
+    partials = torch.empty((n_trials, 3 * plan.n_blocks), dtype=torch.float32,
+                           device=device)
+    stats = torch.empty((n_trials, 4), dtype=torch.float32, device=device)
+    col_ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
+    col_strides = (ctypes.c_int64 * len(cols))(*[c.stride(1) for c in cols])
     span_stride, offsets = span if span else (0, [])
     span_offsets = (ctypes.c_int32 * len(cols))(*offsets)
     span_base = min(c.data_ptr() for c in cols) if span else None
@@ -380,10 +467,13 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None):
             ctypes.cast(col_strides, ctypes.c_void_p), len(cols),
             span_base, ctypes.cast(span_offsets, ctypes.c_void_p), span_stride,
             trial_stride, out.data_ptr(), partials.data_ptr(),
-            n_blocks, stats.data_ptr(), n, n_trials,
+            plan.n_blocks, stats.data_ptr(), n, n_trials,
+            plan.blocks if one else 0, int(normalize),
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_fused_update")
+    if normalize and not one:
+        out = out - stats[:, 0:1]
     return out, stats[:, 0], stats[:, 1], stats[:, 3]
 
 
@@ -402,15 +492,17 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
     if log_w.is_cuda:
         lw, lse, lse2, ess = _fused_update_cuda(
             tile_fn, scalars.reshape(1, -1), log_w[None],
-            tuple(c[None] for c in param_cols))
+            tuple(c[None] for c in param_cols), normalize=not return_stats)
         lw, lse, lse2, ess = lw[0], lse[0], lse2[0], ess[0]
         fused_bayes_update.launches += 1
     else:
         lw, lse, lse2, ess = fused_update_plain(tile_fn, scalars, log_w,
                                                 param_cols)
+        if not return_stats:
+            lw = lw - lse
     if return_stats:
         return lw, lse, lse2
-    return lw - lse, lse, ess
+    return lw, lse, ess
 
 
 fused_bayes_update.launches = 0
@@ -433,14 +525,17 @@ def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
                          f"trials; got {log_w.shape[0]}")
     if log_w.is_cuda:
         lw, lse, lse2, ess = _fused_update_cuda(tile_fn, scalars, log_w,
-                                                param_cols)
+                                                param_cols,
+                                                normalize=not return_stats)
         fused_bayes_update_batched.launches += 1
     else:
         lw, lse, lse2, ess = fused_update_plain_batched(tile_fn, scalars,
                                                         log_w, param_cols)
+        if not return_stats:
+            lw = lw - lse[:, None]
     if return_stats:
         return lw, lse, lse2
-    return lw - lse[:, None], lse, ess
+    return lw, lse, ess
 
 
 fused_bayes_update_batched.launches = 0

@@ -6,8 +6,8 @@ Counterpart of ``qinfer_tpu/ops/resample_expand.py``:
 tensor ``expand_sorted_segments`` launches the hand-written kernel in
 ``csrc/resample_expand.cu`` (its header says what bounds it and how it is
 laid out); on a CPU tensor it runs ``expand_plain``, the same function in
-plain PyTorch. The two agree bit for bit. The kernel has two forms,
-chosen from D by ``kernel_form``. A failed build or launch raises:
+plain PyTorch. The two agree bit for bit. The kernel has three forms,
+chosen from D and the launch's size by ``kernel_form``. A failed build or launch raises:
 nothing falls back. ``expand_sorted_segments_batched`` does the same for T
 independent banks in one launch (its plain version is
 ``expand_plain_batched``).
@@ -23,15 +23,21 @@ __all__ = ["expand_sorted_segments", "expand_plain", "systematic_expand",
            "expand_sorted_segments_batched", "expand_plain_batched"]
 
 MAX_TRIALS = 65535  # gridDim.y of the kernel
-ROWS, SPAN = 0, 1  # the kernel's forms (csrc/resample_expand.cu)
+ROWS, SPAN, MERGE = 0, 1, 2  # the kernel's forms (csrc/resample_expand.cu)
 
 
-def kernel_form(n_cols):
-    """The kernel's form for D = ``n_cols``: one thread per row up to D = 8,
-    a warp per span of 32 rows above. On an H100 at 2^20 rows the rows form
-    was faster at D ≤ 8 (by 0.4 µs at D = 8) and the span form at D ≥ 12
-    (D = 16: 63.6 against 171.5 µs; ``chip_profile.py --b2-forms``)."""
-    return ROWS if n_cols <= 8 else SPAN
+def kernel_form(n_cols, n_items):
+    """The kernel's form for D = ``n_cols`` on a launch that merges
+    ``n_items`` = T·(n_in + n_out) starts and rows: a warp per span of 32
+    rows above D = 8; below, the merge path from 2^19 items, one thread per
+    row on fewer, where the merge path's per-block search is not amortised.
+    Each choice is the faster form on an H100 at the paths' shapes
+    (``chip_profile.py --b2-forms``, PERF.md §6): 2^20 rows at every D,
+    256 trials of 2048, one trial of 2^18 (ensemble_big's resample) and 74
+    trials of 2048 (ensemble_small's, where one thread a row wins)."""
+    if n_cols > 8:
+        return SPAN
+    return MERGE if n_items >= 1 << 19 else ROWS
 
 
 def _affine(scale, shift, n_cols, device):
@@ -64,7 +70,8 @@ def expand_plain_batched(starts, values, n_out, affine=None):
 def _expand_cuda_batched(starts, values, n_out, affine, form=None):
     """Kernel B2 on T banks laid out back to back: ``starts`` int32 (T,
     n_in), ``values`` f32 (T, n_in, D), ``affine`` (T, 2, D) or None, all
-    contiguous. ``form``: ROWS or SPAN, ``kernel_form(D)`` by default.
+    contiguous. ``form``: ROWS, SPAN or MERGE (D ≤ 8), ``kernel_form``'s
+    by default.
     Returns (T, n_out, D)."""
     device = values.device
     if starts.device != device:
@@ -90,7 +97,8 @@ def _expand_cuda_batched(starts, values, n_out, affine, form=None):
             starts.data_ptr(), n_in, values.data_ptr(), n_cols,
             None if affine is None else affine.data_ptr(),
             out.data_ptr(), n_out, n_trials,
-            kernel_form(n_cols) if form is None else form,
+            kernel_form(n_cols, n_trials * (n_in + n_out)) if form is None
+            else form,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_expand")

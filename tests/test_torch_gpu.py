@@ -177,8 +177,9 @@ def test_row_span_path_bit_equal_to_per_column(cuda, case, n):
 @pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_expand_forms_bit_equal(cuda, d, kind, affine):
-    """B2 with n_out < n_in: the wrapper's form (the span form at D ≥ 9)
-    and both forms forced are bit-equal to the plain version."""
+    """B2 with n_out < n_in: the wrapper's form (the merge path up to D = 8,
+    the span form at D ≥ 9) and every form forced (the merge path up to
+    D = 8) are bit-equal to the plain version."""
     n_in, n_out = 16385, 10007
     rng = np.random.default_rng(d)
     vals = torch.as_tensor(rng.standard_normal((n_in, d)),
@@ -192,10 +193,58 @@ def test_expand_forms_bit_equal(cuda, d, kind, affine):
     forms = [b2._expand_cuda_batched(starts[None], vals[None], n_out,
                                      None if aff is None else aff[None],
                                      form=form)[0]
-             for form in (b2.ROWS, b2.SPAN)]
+             for form in (b2.ROWS, b2.SPAN) + ((b2.MERGE,) if d <= 8 else ())]
     ref = b2.expand_plain(starts, vals, n_out, aff)
     torch.cuda.synchronize()
     assert all(torch.equal(o, ref) for o in [out] + forms)
+
+
+def _one_and_two_passes_equal(tile, scal, lw, cols):
+    one, two = chip_smoke.both_forms(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1000, N + 3, N])
+@pytest.mark.parametrize("case", ("precession",) + chip_smoke.ZOO
+                         + chip_smoke.TOMO,
+                         ids=lambda c: c if isinstance(c, str) else c[0])
+def test_one_launch_bit_equal_to_two_passes(cuda, case, n):
+    """B1's per-column path: the one-launch form's lw − lse, lse, lse2, ESS
+    and raw lw equal the two-pass form's bit for bit."""
+    if case == "precession":
+        omega, lw = chip_smoke._b1_inputs(n, n, cuda)
+        tile = b1.two_outcome_tile(b1.precession_pr1)
+        scal, cols = torch.tensor([1.0, 17.3], device=cuda), (omega,)
+    elif case in chip_smoke.ZOO:
+        tile, scal, lw, cols = chip_smoke.zoo_inputs(case, n, n, cuda)
+    else:
+        tile, scal, lw, cols = chip_smoke.tomo_inputs(case, n, n, cuda)
+    _one_and_two_passes_equal(tile, scal[None], lw[None],
+                              tuple(c[None] for c in cols))
+
+
+@pytest.mark.parametrize("shape", chip_smoke.B1_BATCH_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", ["precession", "multicos", "born4"])
+def test_batched_one_launch_bit_equal_to_two_passes(cuda, name, shape):
+    _one_and_two_passes_equal(*chip_smoke.batched_b1_inputs(name, *shape, 5,
+                                                            cuda))
+
+
+def test_too_large_cooperative_grid_raises(cuda):
+    """512 trials of 2^14 particles need 4 blocks a trial at the least in
+    one launch: more than the card holds at once, so the plan takes two
+    passes and a forced one-launch form is refused."""
+    tile, scal, lw, cols = chip_smoke.batched_b1_inputs("precession", 512,
+                                                        1 << 14, 1, cuda)
+    cap = b1._capacity(0, 0, 1, True, cuda.index)
+    assert b1.grid_plan(512, 1 << 14, cap).form == b1.TWO_PASS
+    with pytest.raises(RuntimeError, match="cudaError"):
+        b1._fused_update_cuda(tile, scal, lw, cols, form=b1.ONE_LAUNCH)
+    b1.fused_bayes_update_batched(tile, scal, lw, cols)  # the card recovers
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("model_case", [0, 2], ids=["qubit", "binomial_2q"])

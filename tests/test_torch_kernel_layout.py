@@ -1,16 +1,23 @@
-"""Which layout path each kernel launch takes, decided on the host.
+"""Which layout path and form each kernel launch takes, decided on the host.
 
 B1 (``ops.fused_update``) reads its parameter columns by row spans when
 they are views of one row-major (…, N, s) bank with s ≥ 8 (``_row_span``
 returns the row stride and each column's offset in the row), and column
-by column otherwise. B2 (``ops.resample_expand``) picks its form from D.
-Both choices are made from shapes, strides and pointers alone, so they
-are tested here on CPU tensors; the kernels themselves run in
-``test_torch_gpu.py``.
+by column otherwise; the per-column path runs in one launch or in two
+passes (``grid_plan``, from T, N and the card's resident capacity). B2
+(``ops.resample_expand``) picks its form from D. These choices are made
+from shapes, strides, pointers and one queried number alone, so they are
+tested here on CPU tensors (the wrapper's arguments to the kernel through
+a stand-in library); the kernels themselves run in ``test_torch_gpu.py``.
 """
+
+import contextlib
+import ctypes
 
 import pytest
 import torch
+
+from qinfer_tpu_torch import _build
 
 from qinfer_tpu_torch.ops import fused_update as b1
 from qinfer_tpu_torch.ops import resample_expand as b2
@@ -105,9 +112,170 @@ def test_more_columns_than_the_row_stride():
     assert b1._row_span((bank[:, 0], bank[:, 1], bank[:, 0]), 2) is None
 
 
-@pytest.mark.parametrize("d,form", [(1, b2.ROWS), (2, b2.ROWS),
-                                    (4, b2.ROWS), (5, b2.ROWS),
-                                    (8, b2.ROWS), (9, b2.SPAN),
+@pytest.mark.parametrize("d,form", [(1, b2.MERGE), (2, b2.MERGE),
+                                    (4, b2.MERGE), (5, b2.MERGE),
+                                    (8, b2.MERGE), (9, b2.SPAN),
                                     (16, b2.SPAN), (17, b2.SPAN)])
 def test_expand_form_by_width(d, form):
-    assert b2.kernel_form(d) == form
+    assert b2.kernel_form(d, 2 << 20) == form
+
+
+@pytest.mark.parametrize("n_trials,n,d,form", [
+    (1, 1 << 20, 1, b2.MERGE),    # the flagship's resample
+    (1, 1 << 20, 4, b2.MERGE),    # config 5's
+    (4, 1 << 18, 1, b2.MERGE),    # ensemble_big's, every trial
+    (1, 1 << 18, 1, b2.MERGE),    # ensemble_big's median resample
+    (256, 2048, 1, b2.MERGE),
+    (74, 2048, 1, b2.ROWS),       # ensemble_small's median resample
+    (1, 16385, 1, b2.ROWS),
+    (74, 2048, 16, b2.SPAN),
+])
+def test_expand_form_by_launch_size(n_trials, n, d, form):
+    """The merge path from 2^19 merged items (T·(n_in + n_out)), one thread
+    a row on fewer, the span form above D = 8 at any size."""
+    assert b2.kernel_form(d, n_trials * 2 * n) == form
+
+
+# -- B1's forms: one launch or two passes ----------------------------------------
+
+SHAPES = [(1, 1000), (1, (1 << 20) + 3), (1, 1 << 20), (256, 2048),
+          (4, 1 << 18), (3, 1003), (1, 1 << 22), (1, (1 << 22) + 1)]
+# Resident capacities of an H100's 132 SMs at 8, 6, 4 and 3 blocks an SM,
+# and one too small for the one-launch form at 2^20.
+CAPACITIES = [1056, 792, 528, 396, 64]
+
+
+def _two_pass_blocks(n):
+    """The two-pass grid's blocks a trial, as before the one-launch form."""
+    return max(1, min(1024, -(-n // 1024)))
+
+
+@pytest.mark.parametrize("capacity", CAPACITIES)
+@pytest.mark.parametrize("n_trials,n", SHAPES)
+def test_grid_plan(n_trials, n, capacity):
+    plan = b1.grid_plan(n_trials, n, capacity)
+    assert plan.n_blocks == _two_pass_blocks(n)
+    assert plan.per_thread == -(-n // (plan.n_blocks * 256))
+    if plan.form == b1.TWO_PASS:
+        assert (plan.blocks, plan.per_block) == (plan.n_blocks, 1)
+        return
+    assert plan.form == b1.ONE_LAUNCH
+    assert plan.blocks * plan.per_block >= plan.n_blocks
+    assert (plan.blocks - 1) * plan.per_block < plan.n_blocks  # no idle block
+    assert plan.per_block * plan.per_thread <= 16
+    assert plan.blocks == 1 or n_trials * plan.blocks <= capacity // 2
+
+
+@pytest.mark.parametrize("n_trials,n,capacity,form,blocks", [
+    (1, 1000, 1, b1.ONE_LAUNCH, 1),          # one block: no barrier
+    (3, 1003, 1, b1.ONE_LAUNCH, 1),
+    (256, 2048, 1056, b1.ONE_LAUNCH, 1),     # ensemble_small: a block a trial
+    (256, 2048, 64, b1.ONE_LAUNCH, 1),
+    (1, 1 << 20, 1056, b1.ONE_LAUNCH, 512),  # half the capacity at most
+    (1, 1 << 20, 528, b1.ONE_LAUNCH, 256),
+    (1, (1 << 20) + 3, 1056, b1.ONE_LAUNCH, 512),
+    (1, (1 << 20) + 3, 792, b1.ONE_LAUNCH, 342),
+    (4, 1 << 18, 1056, b1.ONE_LAUNCH, 128),  # ensemble_big
+    (1, 1 << 20, 396, b1.TWO_PASS, 1024),    # the card holds too few blocks
+    (4, 1 << 18, 64, b1.TWO_PASS, 256),
+    (1, (1 << 22) + 1, 1056, b1.TWO_PASS, 1024),  # 17 log-weights a thread
+])
+def test_grid_plan_picks(n_trials, n, capacity, form, blocks):
+    plan = b1.grid_plan(n_trials, n, capacity)
+    assert (plan.form, plan.blocks) == (form, blocks)
+
+
+def test_forced_forms():
+    """TWO_PASS is always taken; ONE_LAUNCH where the capacity is too small
+    keeps the grid of most virtual blocks a block (the card refuses its
+    cooperative launch), and raises where a thread would hold more than 16
+    log-weights."""
+    plan = b1.grid_plan(1, 2048, 1056, form=b1.TWO_PASS)
+    assert (plan.form, plan.blocks) == (b1.TWO_PASS, 2)
+    plan = b1.grid_plan(1, 1 << 20, 64, form=b1.ONE_LAUNCH)
+    assert (plan.form, plan.blocks, plan.per_block) == (b1.ONE_LAUNCH, 256, 4)
+    assert plan.blocks > 64
+    with pytest.raises(ValueError, match="at most 16"):
+        b1.grid_plan(1, (1 << 22) + 1, 1056, form=b1.ONE_LAUNCH)
+    with pytest.raises(ValueError, match="unknown B1 form"):
+        b1.grid_plan(1, 1000, 1056, form="three_pass")
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records qt_fused_update's
+    arguments, writes 1.0 to every log-weight and lse = 0.25 to the
+    stats, and reports ``capacity`` blocks."""
+
+    def __init__(self, capacity):
+        self.capacity = capacity
+        self.calls = []
+
+    def qt_fused_update_capacity(self, outcome, pr1, n_cols, n_trials, cap):
+        cap._obj.value = self.capacity
+        return 0
+
+    def qt_fused_update(self, *args):
+        names = ("out", "n_blocks", "stats", "n", "n_trials", "grid_blocks",
+                 "normalize")
+        call = dict(zip(names, args[14:15] + args[16:22]))
+        n_trials, n = call["n_trials"], call["n"]
+        ones = torch.ones(n_trials * n)
+        ctypes.memmove(call["out"], ones.data_ptr(), 4 * ones.numel())
+        stats = torch.full((n_trials * 4,), 0.25)
+        ctypes.memmove(call["stats"], stats.data_ptr(), 4 * stats.numel())
+        self.calls.append(call)
+        return 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib(528)
+    monkeypatch.setattr(_build, "library", lambda: (lib, {}))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda _: contextlib.nullcontext())
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda _: _Stream())
+    b1._capacity.cache_clear()
+    yield lib
+    b1._capacity.cache_clear()
+
+
+@pytest.mark.parametrize("n_trials,n", [(1, 1000), (1, 1 << 20), (4, 1 << 18),
+                                        (256, 2048)])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("form", [None, b1.ONE_LAUNCH, b1.TWO_PASS])
+def test_wrapper_passes_its_plan(fake_lib, n_trials, n, normalize, form):
+    """The wrapper launches the plan's form and grid; the one-launch form
+    returns the kernel's output as it is (normalised there, or raw for
+    ``return_stats``), the two-pass form subtracts lse itself when asked."""
+    tile = b1.two_outcome_tile(b1.precession_pr1)
+    lw = torch.zeros((n_trials, n))
+    cols = (torch.zeros((n_trials, n)),)
+    out, lse, _, _ = b1._fused_update_cuda(
+        tile, torch.zeros((n_trials, 2)), lw, cols, form=form,
+        normalize=normalize)
+    call, = fake_lib.calls
+    plan = b1.grid_plan(n_trials, n, 528, form)
+    assert call["n_blocks"] == plan.n_blocks == _two_pass_blocks(n)
+    one = plan.form == b1.ONE_LAUNCH
+    assert call["grid_blocks"] == (plan.blocks if one else 0)
+    assert call["normalize"] == int(normalize)
+    assert torch.equal(lse, torch.full((n_trials,), 0.25))
+    expect = 0.75 if normalize and not one else 1.0
+    assert torch.equal(out, torch.full((n_trials, n), expect))
+
+
+def test_row_span_keeps_two_passes(fake_lib):
+    tile = b1.binomial_tile(b1.make_born_pr1(16))
+    bank = torch.zeros((1, 4096, 16))
+    cols = tuple(bank[..., j] for j in range(16))
+    b1._fused_update_cuda(tile, torch.zeros((1, 19)), torch.zeros((1, 4096)),
+                          cols, normalize=True)
+    assert fake_lib.calls[0]["grid_blocks"] == 0
+    with pytest.raises(ValueError, match="two-pass form only"):
+        b1._fused_update_cuda(tile, torch.zeros((1, 19)),
+                              torch.zeros((1, 4096)), cols,
+                              form=b1.ONE_LAUNCH)

@@ -173,6 +173,107 @@ def test_float_starts_are_taken_as_int32():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+# -- the merge-path form's partition, modelled in numpy -------------------------
+
+MERGE_TILE = 2048  # kMergeTile in csrc/resample_expand.cu
+
+
+def _merge_split(starts, n_out, d):
+    """The starts among the first d items of the merge of the starts with
+    the rows 0…n_out−1 (a start equal to i before row i): the first k with
+    min(starts[k], n_out) + k ≥ d, by the kernel's 32-ary rounds."""
+    n_in = starts.shape[0]
+    key = np.minimum(starts.astype(np.int64), n_out) + np.arange(n_in)
+    a, b = max(0, d - n_out), min(d, n_in)
+    while a < b:
+        step = (b - a + 31) // 32
+        probes = a + step * np.arange(32)
+        c = int(np.sum((probes < b) & (key[np.minimum(probes, n_in - 1)] < d)))
+        if c > 0:
+            a, b = a + (c - 1) * step + 1, min(a + c * step, b)
+        else:
+            b = a
+    return a
+
+
+def _merge_path_expand(starts, vals, n_out, tile):
+    """The merge-path form: tile x merges items [x·tile, (x + 1)·tile),
+    its starts [a0, a1) and rows [b0, b1); each window start that ends its
+    run of equal starts marks its row, and each row takes the last mark at
+    or before it (a0 − 1 if none, clamped at 0). Returns the output and the
+    tiles' (a0, a1, b0, b1)."""
+    n_in = starts.shape[0]
+    out = np.full((n_out,) + vals.shape[1:], np.nan, vals.dtype)
+    tiles = []
+    for d0 in range(0, n_in + n_out, tile):
+        d1 = min(d0 + tile, n_in + n_out)
+        a0, a1 = _merge_split(starts, n_out, d0), _merge_split(starts, n_out, d1)
+        b0, b1 = d0 - a0, d1 - a1
+        window = starts[a0:a1].astype(np.int64)
+        source = np.full(b1 - b0, -1, np.int64)
+        ends = np.append(window[1:] != window[:-1], True)
+        rows = window - b0
+        mark = ends & (rows < b1 - b0)
+        source[rows[mark]] = a0 + np.flatnonzero(mark)
+        source = np.maximum.accumulate(np.maximum(source, max(a0 - 1, 0)))
+        out[b0:b1] = vals[source]
+        tiles.append((a0, a1, b0, b1))
+    return out, tiles
+
+
+def _kind_starts(kind, n, rng):
+    if kind == "random":
+        w = rng.random(n) ** 3
+    elif kind == "degenerate":  # all mass on particle 17
+        w = np.zeros(n)
+        w[17] = 1.0
+    else:  # single heavy particle over a 1e-9 floor
+        w = np.full(n, 1e-9)
+        w[n // 2 + 1] = 1.0
+    return _starts_from_weights(w, 0.37)
+
+
+@pytest.mark.parametrize("tile", [7, 64, MERGE_TILE])
+@pytest.mark.parametrize("window", ["full", "shifted"])
+@pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
+@pytest.mark.parametrize("n", [257, 16385])
+def test_merge_path_model_matches_plain(n, kind, window, tile):
+    """The merge-path partition picks what expand_plain picks, with n_out =
+    n_in and with a shifted window n_out < n_in (starts beyond n_out); each
+    tile holds at most ``tile`` starts and rows, whatever the weights, and
+    the tiles' rows cover [0, n_out) once, in order."""
+    rng = np.random.default_rng(n)
+    starts = _kind_starts(kind, n, rng)
+    n_out = n
+    if window == "shifted":
+        n_out = n // 2 + 3
+        starts = np.maximum(starts - n // 5, 0).astype(np.int32)
+    vals = rng.standard_normal((n, 2)).astype(np.float32)
+    out, tiles = _merge_path_expand(starts, vals, n_out, tile)
+    plain = tre.expand_plain(torch.from_numpy(starts), torch.from_numpy(vals),
+                             n_out).numpy()
+    np.testing.assert_array_equal(out, plain)
+    assert all(a1 - a0 <= tile and b1 - b0 <= tile
+               for a0, a1, b0, b1 in tiles)
+    assert [t[2] for t in tiles[1:]] == [t[3] for t in tiles[:-1]]
+    assert (tiles[0][2], tiles[-1][3]) == (0, n_out)
+    assert (tiles[0][0], tiles[-1][1]) == (0, n)
+
+
+@pytest.mark.parametrize("kind", ["degenerate", "single_heavy"])
+def test_merge_path_tiles_cut_runs_of_equal_starts(kind):
+    """Tiles whose edge falls inside a run of equal starts (thousands of
+    particles with no offspring) still pick exactly."""
+    n = 16385
+    starts = _kind_starts(kind, n, np.random.default_rng(0))
+    vals = np.arange(n, dtype=np.float32)
+    out, tiles = _merge_path_expand(starts, vals, n, 64)
+    cuts = [a0 for a0, _, _, _ in tiles if 0 < a0 < n
+            and starts[a0 - 1] == starts[a0]]
+    assert len(cuts) > 10
+    np.testing.assert_array_equal(out, _oracle(starts, vals, n))
+
+
 def test_n_out_bound_raises():
     starts = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="2\\^24"):
