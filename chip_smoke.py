@@ -57,9 +57,26 @@ Phases, in order; any failure exits non-zero before the result line:
    launches exactly once per step for all trials, the batched B2 at least
    once per step that resampled. One JSON line each, with the ensemble
    particle-updates/s T·N·n_exp / wall.
-10. timing: each kernel against its plain version at 2^20, with CUDA
+10. engine API (``phase_engine_api``), four paths at 2^20 with
+   ``LiuWestResampler(a=0.98)`` and ``zero_weight_policy="reset"``, one
+   JSON line each with its seconds, gate values and launches:
+   ``flagship_bcrb`` (``SMCUpdaterBCRB`` over the flagship record, one
+   ``update`` per experiment; gate BIM = Σ t² within 1e-3, the accuracy
+   gate, posterior variance > 0.1 · BCRB), ``flagship_track_rsd``
+   (``batch_update`` with ``track_resampling_divergence``; one finite
+   divergence ≥ −1e-9 per resample), ``mixed_ale``
+   (``MixedApproximateSMCUpdater`` with ``ALEApproximateModel`` over the
+   precession model until ESS < 0.9·N; switched, accurate; B1 on the
+   updates after the switch only, and ALE's batches and seconds per call
+   on their own line) and ``posterior_summaries`` (one config4_multicos2
+   window, then each summary timed: the credible set within ±1 of an f64
+   NumPy recomputation, the truth in the 0.99 hpd-hull region, the
+   marginal integrating to 1 within 1e-5, the mesh finite, the mean of
+   2^16 samples within 5 standard errors). B1 once per update on the
+   exact model, B2 at least once per resample.
+11. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
-   Born tiles of the paths; B2 at D = 1, 4 and 16, and beside it
+   Born tiles of the paths; B2 at D = 1, 2, 4 and 16, and beside it
    ``torch.repeat_interleave`` (the pick without the affine); the batched
    B1 in both ensemble regimes; the batched B2 on the inputs of each
    regime's median resample (``B2Capture``), checked bit-equal to its plain
@@ -884,12 +901,12 @@ def phase_main_path(device):
     return launches
 
 
-def _config_window(cfg, seed, device):
-    updater = qt.SMCUpdater(cfg.model, N_FLAGSHIP,
+def _config_window(cfg, seed, device, n=N_FLAGSHIP):
+    updater = qt.SMCUpdater(cfg.model, n,
                             qt.UniformDistribution(cfg.prior),
                             zero_weight_policy="reset", seed=seed,
                             device=device)
-    torch.cuda.synchronize()
+    _sync(device)
     t0 = time.perf_counter()
     updater.batch_update(cfg.outcomes, cfg.expparams)
     mean = updater.est_mean().cpu().numpy()  # forces the window to finish
@@ -897,14 +914,14 @@ def _config_window(cfg, seed, device):
     cov = updater.est_covariance_mtx().cpu().numpy()
     locs = updater.particle_locations
     d = cfg.model.n_modelparams
-    if locs.shape != (N_FLAGSHIP, d) or not bool(torch.isfinite(locs).all()):
+    if locs.shape != (n, d) or not bool(torch.isfinite(locs).all()):
         raise AssertionError(f"{cfg.name}: posterior cloud is not finite of "
-                             f"shape (2^20, {d})")
+                             f"shape ({n}, {d})")
     ok, est, sd = cfg.gate(mean, cov)
     if not ok:
         raise AssertionError(f"{cfg.name}: accuracy gate failed: est={est} "
                              f"sd={sd} truth={cfg.truth}")
-    return seconds, est.tolist(), sd.tolist(), updater.resample_count
+    return seconds, est.tolist(), sd.tolist(), updater.resample_count, updater
 
 
 def phase_configs(device):
@@ -1220,6 +1237,230 @@ def phase_ensembles(device):
     return out, b2_inputs
 
 
+# -- the rest of the engine API (BCRB, divergence, mixed ALE, summaries) --------
+
+ALE_THRESH = 0.9  # MixedApproximateSMCUpdater's mixture_thresh on mixed_ale
+SAMPLE_N = 1 << 16
+BCRB_RTOL = 1e-3
+
+
+def bcrb_window(n, seed, device):
+    """flagship_bcrb: ``SMCUpdaterBCRB`` (adaptive) on the flagship record,
+    ``update`` per experiment. For the cos² likelihood every particle's
+    Fisher information is t², so the BIM must be Σ t² but for the weight of
+    particles whose score is zeroed at L ≤ 1e-10."""
+    ts, outcomes = experiment_record(N_EXP, 0)
+    u = qt.SMCUpdaterBCRB(qt.SimplePrecessionModel(), n,
+                          qt.UniformDistribution([0, 1]),
+                          zero_weight_policy="reset", seed=seed, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for t, outcome in zip(ts, outcomes):
+        u.update(int(outcome), {"t": np.array([t], np.float32)})
+    est = float(u.est_mean()[0])  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    sum_t2 = float(np.sum(ts.astype(np.float64) ** 2))
+    bim = float(u.current_bim[0, 0])
+    return {"updater": u, "seconds": seconds, "est": est, "bim": bim,
+            "sum_t2": sum_t2, "bim_ratio": bim / sum_t2,
+            "var": float(u.est_covariance_mtx()[0, 0]),
+            "bcrb": float(u.current_bcrb[0, 0]),
+            "resamples": u.resample_count}
+
+
+def bcrb_gate(w):
+    """BIM = Σ t² within BCRB_RTOL, the accuracy gate, and the posterior
+    variance above 0.1 · BCRB (tests/test_expdesign.py:62-63)."""
+    return (abs(w["bim_ratio"] - 1.0) < BCRB_RTOL
+            and abs(w["est"] - TRUE_OMEGA) < GATE
+            and w["var"] > 0.1 * w["bcrb"])
+
+
+def track_rsd_window(n, seed, device):
+    """flagship_track_rsd: ``batch_update`` of the flagship record with
+    ``track_resampling_divergence=True`` (the eager route, update by
+    update, each resample's divergence computed on the host)."""
+    ts, outcomes = experiment_record(N_EXP, 0)
+    u = qt.SMCUpdater(qt.SimplePrecessionModel(), n,
+                      qt.UniformDistribution([0, 1]),
+                      zero_weight_policy="reset",
+                      track_resampling_divergence=True, seed=seed,
+                      device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    u.batch_update(outcomes, {"t": ts})
+    est = float(u.est_mean()[0])
+    return {"updater": u, "seconds": time.perf_counter() - t0, "est": est,
+            "divergences": list(u.resampling_divergences),
+            "resamples": u.resample_count}
+
+
+def track_rsd_gate(w):
+    """The accuracy gate; one divergence per resample, at least one; every
+    divergence finite and ≥ −1e-9."""
+    divs = np.asarray(w["divergences"])
+    return (abs(w["est"] - TRUE_OMEGA) < GATE
+            and len(divs) == w["resamples"] > 0
+            and bool(np.all(np.isfinite(divs)) and np.all(divs >= -1e-9)))
+
+
+def mixed_ale_window(n, seed, device):
+    """mixed_ale: ``MixedApproximateSMCUpdater`` with the exact precession
+    model and, while the posterior is broad, ``ALEApproximateModel`` over
+    it, on the flagship record. Records, per update on the approximate
+    model, its seconds and its draws per cell."""
+    ts, outcomes = experiment_record(N_EXP, 0)
+    good = qt.SimplePrecessionModel()
+    approximate = qt.ALEApproximateModel(simulator=qt.SimplePrecessionModel())
+    u = qt.MixedApproximateSMCUpdater(
+        good, approximate, n, qt.UniformDistribution([0, 1]),
+        mixture_thresh=ALE_THRESH, zero_weight_policy="reset", seed=seed,
+        device=device)
+    approx_s, approx_samples = [], []
+    _sync(device)
+    t0 = time.perf_counter()
+    for t, outcome in zip(ts, outcomes):
+        ta = time.perf_counter()
+        u.update(int(outcome), {"t": np.array([t], np.float32)})
+        if u.model is approximate:
+            _sync(device)
+            approx_s.append(time.perf_counter() - ta)
+            approx_samples.append(approximate.last_n_samples)
+    est = float(u.est_mean()[0])
+    return {"updater": u, "seconds": time.perf_counter() - t0, "est": est,
+            "sharpened": u._sharpened, "approx_updates": len(approx_s),
+            "approx_s": approx_s, "approx_samples": approx_samples,
+            "resamples": u.resample_count}
+
+
+def mixed_ale_gate(w):
+    """Switched to the exact model, and the accuracy gate at the end."""
+    return w["sharpened"] and abs(w["est"] - TRUE_OMEGA) < GATE
+
+
+def host_credible_size(weights, level=0.95, dtype=np.float64):
+    """The credible set's size recomputed on the host: a stable descending
+    sort of the f32 weights and NumPy's cumulative sum in ``dtype``."""
+    w = np.asarray(weights, np.float32)
+    order = np.argsort(-w, kind="stable")
+    return int(np.searchsorted(np.cumsum(w[order], dtype=dtype), level) + 1)
+
+
+def posterior_summaries(u, truth, device):
+    """Each posterior summary on updater ``u``'s bank, timed (host clock
+    around a sync), with its gate values: the credible set's size and its
+    host recomputation, the truth in the 0.99 hpd-hull region, the
+    marginal's integral, the mesh finite, and the sample mean's distance
+    from ``est_mean`` in standard errors."""
+    truth = np.asarray([truth], np.float64)
+    out, seconds = {}, {}
+
+    def timed(name, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(device)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    region = timed("est_credible_region",
+                   lambda: u.est_credible_region(0.95))
+    out["credible_size"] = int(region.shape[0])
+    weights = u.particle_weights.cpu().numpy()
+    out["host_credible_size"] = host_credible_size(weights)
+    out["host_credible_size_f32"] = host_credible_size(weights,
+                                                       dtype=np.float32)
+    vertices, _ = timed("region_est_hull", lambda: u.region_est_hull(0.95))
+    out["hull_vertices"] = int(vertices.shape[0])
+    A, c = timed("region_est_ellipsoid",
+                 lambda: u.region_est_ellipsoid(0.95))
+    out["ellipsoid_center"] = np.asarray(c).tolist()
+    out["truth_in_hull"] = bool(timed("in_credible_region_hull",
+                                      lambda: u.in_credible_region(
+                                          truth, level=0.99))[0])
+    out["truth_in_mvee"] = bool(np.all(timed(
+        "in_credible_region_mvee", lambda: u.in_credible_region(
+            truth, level=0.99, method="hpd-mvee"))))
+    xs, hist = timed("posterior_marginal", lambda: u.posterior_marginal())
+    x0 = u.particle_locations[:, 0]
+    edges = np.histogram_bin_edges(np.zeros(0, np.float32), bins=len(xs),
+                                   range=(float(x0.min()), float(x0.max())))
+    out["marginal_integral"] = float(hist.cpu().numpy() @ np.diff(edges))
+    _, _, z = timed("posterior_mesh",
+                    lambda: u.posterior_mesh(res1=100, res2=100))
+    out["mesh_finite"] = bool(torch.isfinite(z).all())
+    out["mesh_shape"] = list(z.shape)
+    draws = timed("sample", lambda: u.sample(n=SAMPLE_N))
+    mean = u.est_mean().cpu().numpy().astype(np.float64)
+    se = np.sqrt(np.diag(u.est_covariance_mtx().cpu().numpy()) / SAMPLE_N)
+    draw_mean = draws.to(torch.float64).mean(0).cpu().numpy()
+    out["sample_z"] = (np.abs(draw_mean - mean) / se).tolist()
+    out["seconds"] = seconds
+    return out
+
+
+def summaries_gate(s):
+    """Credible size within ±1 of the host f64 recomputation, the truth inside
+    the 0.99 hpd-hull region, the marginal integrating to 1 within 1e-5,
+    the mesh finite, the sample mean within 5 standard errors."""
+    return (abs(s["credible_size"] - s["host_credible_size"]) <= 1
+            and s["truth_in_hull"]
+            and abs(s["marginal_integral"] - 1.0) < 1e-5
+            and s["mesh_finite"] and max(s["sample_z"]) < 5.0)
+
+
+def phase_engine_api(device):
+    """The four engine-API paths at 2^20, each with every counter set to 0
+    just before it and read just after, gated, one JSON line each: B1 once
+    per update on the exact model, B2 at least once per resample. A small
+    warm-up first takes the one-time costs out of the timed paths (forward
+    AD's first use, about 2.5 s; scipy's first hull)."""
+    launches = {}
+    cfg = config4_multicos2()
+    bcrb_window(1 << 12, 0, device)
+    posterior_summaries(_config_window(cfg, 0, device, n=1 << 12)[4],
+                        cfg.truth, device)
+
+    def run(name, fn, gate, n_b1):
+        _reset_counters()
+        w = fn()
+        counts, rounds = _read_counters()
+        summary = {k: v for k, v in w.items() if k != "updater"}
+        ok = gate(w)
+        print(json.dumps({"path": name, "n_particles": N_FLAGSHIP,
+                          "ok": ok, **summary, "redraw_rounds": rounds,
+                          "launches": counts}))
+        if not ok:
+            raise AssertionError(f"{name}: gate failed")
+        _check_launches(name, counts, n_b1(w), w["resamples"])
+        launches[name] = counts
+        return w
+
+    run("flagship_bcrb", lambda: bcrb_window(N_FLAGSHIP, 1, device),
+        bcrb_gate, lambda w: N_EXP)
+    run("flagship_track_rsd", lambda: track_rsd_window(N_FLAGSHIP, 2, device),
+        track_rsd_gate, lambda w: N_EXP)
+    mixed = run("mixed_ale", lambda: mixed_ale_window(N_FLAGSHIP, 3, device),
+                mixed_ale_gate, lambda w: N_EXP - w["approx_updates"])
+    samples = mixed["approx_samples"]
+    ale = qt.ALEApproximateModel()
+    print(json.dumps({"mixed_ale_ale_calls": {
+        "updates_on_ale": mixed["approx_updates"],
+        "batches_per_call": [1 + (s - ale.min_samp) // ale.samp_step
+                             for s in samples],
+        "seconds_per_call": mixed["approx_s"]}}))
+
+    def summaries():
+        seconds, est, sd, resamples, u = _config_window(cfg, 4, device)
+        s = posterior_summaries(u, cfg.truth, device)
+        return {"updater": u, "window_s": seconds, "est": est, "sd": sd,
+                "resamples": resamples, **s}
+
+    run("posterior_summaries", summaries, summaries_gate,
+        lambda w: len(cfg.outcomes))
+    return launches
+
+
 def _time_ms(fn, iters):
     """Device time per call. A device-side sleep queued first lets the host
     enqueue every call before the device starts them, so the events time
@@ -1334,8 +1575,8 @@ def _repeat_interleave(starts, vals, n_out):
 
 
 def phase_timing(device):
-    """B1 (flagship tile) and B2 at D = 1, 4, 16 at 2^20: kernel, plain,
-    and for B2 the library call."""
+    """B1 (flagship tile) and B2 at D = 1, 2, 4, 16 at 2^20: kernel,
+    plain, and for B2 the library call."""
     tile = b1.two_outcome_tile(b1.precession_pr1)
     omega, lw = _b1_inputs(N_FLAGSHIP, 7, device)
     scal = torch.tensor([1.0, 17.3], device=device)
@@ -1353,7 +1594,7 @@ def phase_timing(device):
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(_weights("random", N_FLAGSHIP, rng), device=device)
     starts = systematic_segment_starts(log_w, N_FLAGSHIP, u0=0.37)
-    for d in (1, 4, 16):
+    for d in (1, 2, 4, 16):
         vals = torch.rand((N_FLAGSHIP, d), device=device)
         affine = b2._affine(0.98, 0.02 * vals.mean(0), d, device)
         name = "B2" if d == 1 else f"B2[D={d}]"
@@ -1491,6 +1732,7 @@ def main():
     config_launches["tomography_2q_binomial"] = phase_tomography_2q(device)
     pgh_launches = phase_pgh_paths(device)
     ens_launches, b2_inputs = phase_ensembles(device)
+    api_launches = phase_engine_api(device)
     times = phase_timing(device)
     zoo_times = phase_timing_zoo(device)
     batched_times = phase_timing_batched(device, b2_inputs)
@@ -1534,6 +1776,21 @@ def main():
                 *t["shape"][:2], name), src2,
             "qinfer_tpu/ops/resample_expand.py:359",
             ens_launches[name]["B2_batched"], batched_err["B2"], t))
+    flagship_api = ("flagship_bcrb", "flagship_track_rsd", "mixed_ale")
+    kernels += [
+        kernel_row("fused_bayes_update[precession, engine API paths]", src1,
+                   b1_line(36), sum(api_launches[p]["B1"] for p in flagship_api),
+                   err["B1"], times["B1"]),
+        kernel_row("expand_sorted_segments[engine API paths]", src2,
+                   b2_kernel, sum(api_launches[p]["B2"] for p in flagship_api),
+                   err["B2"], times["B2"]),
+        kernel_row("fused_bayes_update[multicos, posterior_summaries]", src1,
+                   b1_line(286), api_launches["posterior_summaries"]["B1"],
+                   zoo_err["multicos"], zoo_times["multicos"]),
+        kernel_row("expand_sorted_segments[D=2, posterior_summaries]", src2,
+                   b2_kernel, api_launches["posterior_summaries"]["B2"],
+                   err["B2"], times["B2[D=2]"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

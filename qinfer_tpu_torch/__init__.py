@@ -17,9 +17,16 @@ adaptive loop; and the adaptive and ensemble layer: the heuristics (``PGH``,
 ``ExpSparseHeuristic``, the EIG and risk greedy cores), the simulator
 (``simulate_experiment``), ``ExperimentDesigner``, ``simple_est_prec`` and
 ``simple_est_rb``, and ``perf_test`` / ``perf_test_multiple``, which run
-trial ensembles in lockstep through the batched forms of B1 and B2. Entry
-points run on the card unless the caller passes ``device="cpu"``. It
-imports ``torch`` and never ``jax``.
+trial ensembles in lockstep through the batched forms of B1 and B2; and
+the rest of the engine API: the resampling-divergence record, credible
+regions, posterior marginals and meshes, the plots and ``sample`` of
+``SMCUpdater``, ``SMCUpdaterBCRB`` over ``DifferentiableModel``'s
+autograd score (with ``ScoreMixin`` and ``FiniteDifference``), and
+``MixedApproximateSMCUpdater`` with the approximate models
+``ALEApproximateModel`` and ``PoisonedModel``
+(``AcceleratedPrecessionModel`` is the reference-named precession model).
+Entry points run on the card unless the caller passes ``device="cpu"``.
+It imports ``torch`` and never ``jax``.
 """
 
 from ._exceptions import ApproximationWarning
@@ -38,29 +45,39 @@ from .heuristics import (
     PGH,
     RiskHeuristic,
 )
+from .finite_difference import FiniteDifference
 from .models import (
+    ALEApproximateModel,
+    AcceleratedPrecessionModel,
     BinomialModel,
     CoinModel,
     DerivedModel,
     DifferentiableBinomialModel,
+    DifferentiableModel,
     FiniteOutcomeModel,
     KnownT2PrecessionModel,
     Model,
     MultiCosModel,
     NoisyCoinModel,
+    PoisonedModel,
     RandomizedBenchmarkingModel,
     SimpleInversionModel,
     SimplePrecessionModel,
     Simulatable,
+    binom_est_error,
+    binom_est_p,
     rb,
 )
 from .perf_testing import perf_test, perf_test_multiple, run_episodes, timing
 from .resamplers import LiuWestResampler, Resampler
+from .score import ScoreMixin
 from .simple_est import load_data_or_txt, simple_est_prec, simple_est_rb
 from .smc import (
+    MixedApproximateSMCUpdater,
     SMCConfig,
     SMCState,
     SMCUpdater,
+    SMCUpdaterBCRB,
     init_batched_smc_state,
     init_smc_state,
     bayes_risk_fn,
@@ -80,12 +97,17 @@ __all__ = [
     "RiskHeuristic", "ExperimentDesigner", "OptimizationAlgorithms",
     "perf_test", "perf_test_multiple", "run_episodes", "timing",
     "simple_est_prec", "simple_est_rb", "load_data_or_txt",
-    "Simulatable", "Model", "FiniteOutcomeModel", "SimplePrecessionModel",
+    "Simulatable", "Model", "FiniteOutcomeModel", "DifferentiableModel",
+    "SimplePrecessionModel", "AcceleratedPrecessionModel",
     "SimpleInversionModel", "CoinModel", "NoisyCoinModel", "MultiCosModel",
     "KnownT2PrecessionModel", "DerivedModel", "BinomialModel",
-    "DifferentiableBinomialModel", "RandomizedBenchmarkingModel", "rb",
+    "DifferentiableBinomialModel", "PoisonedModel",
+    "RandomizedBenchmarkingModel", "rb",
+    "ALEApproximateModel", "binom_est_p", "binom_est_error",
+    "FiniteDifference", "ScoreMixin",
     "Resampler", "LiuWestResampler",
-    "SMCConfig", "SMCState", "SMCUpdater", "init_smc_state",
+    "SMCConfig", "SMCState", "SMCUpdater", "SMCUpdaterBCRB",
+    "MixedApproximateSMCUpdater", "init_smc_state",
     "smc_update_step", "smc_batch_update", "hypothetical_log_update",
     "init_batched_smc_state", "smc_update_step_batched",
     "bayes_risk_fn", "expected_information_gain_fn",

@@ -6,17 +6,26 @@ same field names) and returns this package's ``SMCState``;
 ``state_to_numpy`` goes back to a dict of numpy arrays. The JAX key is not
 carried: the port seeds its own ``torch.Generator``.
 
-``from_reference`` converts the ported static objects (the models of
-``models/``, ``BinomialModel`` with its underlying model converted in
-turn, ``UniformDistribution``, ``LiuWestResampler``, ``SMCConfig``, and
-from ``tomography/`` the bases (by ``data``, ``dims``, ``labels``), both
-models (by basis, ``allow_subnormalized``, ``psd_tol``) and every prior (by
-basis, ``rank``, the fiducial state and ``max_alpha``)), and the
-heuristics ``ExpSparseHeuristic`` and ``PGH`` (by their cores' fields,
-without an updater; ``inv_func`` and ``t_func`` only when they are the
-JAX package's identity, else the converter raises) by their fields;
-``SMCConfig.canonicalize``, which the JAX engine never reads, is not
-carried. Nothing here imports ``jax``.
+``from_reference`` converts the ported static objects by their fields:
+- the models of ``models/`` (``AcceleratedPrecessionModel`` included),
+  and the combinators with their inner models converted in turn:
+  ``BinomialModel`` and ``PoisonedModel`` (``tol``, ``n_samples``,
+  ``hedge``, ``seed``) over their underlying model,
+  ``ALEApproximateModel`` over its simulator (with ``error_tol``,
+  ``min_samp``, ``samp_step``, ``est_hedge``, ``max_samp``, ``seed``);
+- ``UniformDistribution``, ``LiuWestResampler`` and ``SMCConfig``
+  (``SMCConfig.canonicalize``, which the JAX engine never reads, is not
+  carried);
+- from ``tomography/`` the bases (by ``data``, ``dims``, ``labels``),
+  both models (by basis, ``allow_subnormalized``, ``psd_tol``) and every
+  prior (by basis, ``rank``, the fiducial state and ``max_alpha``);
+- the heuristics ``ExpSparseHeuristic`` and ``PGH`` (by their cores'
+  fields, without an updater; ``inv_func`` and ``t_func`` only when they
+  are the JAX package's identity, else the converter raises).
+
+A whole ``SMCUpdaterBCRB`` is carried by ``state_from_numpy`` for its bank
+and ``SMCUpdaterBCRB(…, initial_bim=np.asarray(jax_updater.current_bim))``
+for its information matrix. Nothing here imports ``jax``.
 """
 
 from __future__ import annotations
@@ -130,6 +139,8 @@ def _pgh(obj):
 _CONVERTERS = {
     "SimplePrecessionModel":
         lambda obj: models.SimplePrecessionModel(min_freq=obj.min_freq),
+    "AcceleratedPrecessionModel":
+        lambda obj: models.AcceleratedPrecessionModel(min_freq=obj.min_freq),
     "SimpleInversionModel":
         lambda obj: models.SimpleInversionModel(min_freq=obj.min_freq),
     "CoinModel": lambda obj: models.CoinModel(),
@@ -144,6 +155,13 @@ _CONVERTERS = {
     "DifferentiableBinomialModel": lambda obj:
         models.DifferentiableBinomialModel(
             from_reference(obj.underlying_model)),
+    "PoisonedModel": lambda obj: models.PoisonedModel(
+        from_reference(obj.underlying_model), tol=obj.tol,
+        n_samples=obj.n_samples, hedge=obj.hedge, seed=obj.seed),
+    "ALEApproximateModel": lambda obj: models.ALEApproximateModel(
+        from_reference(obj.simulator), error_tol=obj.error_tol,
+        min_samp=obj.min_samp, samp_step=obj.samp_step,
+        est_hedge=obj.est_hedge, max_samp=obj.max_samp, seed=obj.seed),
     "UniformDistribution": lambda obj: UniformDistribution(obj.ranges),
     "TomographyBasis": _basis,
     "TomographyModel": _tomography_model(tomography.TomographyModel),

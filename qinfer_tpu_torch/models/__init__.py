@@ -1,8 +1,21 @@
 """Models. Counterpart of ``qinfer_tpu/models`` (the ported part)."""
 
 from . import rb
-from .base import FiniteOutcomeModel, Model, Simulatable, expparams_field
-from .derived import BinomialModel, DerivedModel, DifferentiableBinomialModel
+from .accelerated import AcceleratedPrecessionModel
+from .ale import ALEApproximateModel, binom_est_error, binom_est_p
+from .base import (
+    DifferentiableModel,
+    FiniteOutcomeModel,
+    Model,
+    Simulatable,
+    expparams_field,
+)
+from .derived import (
+    BinomialModel,
+    DerivedModel,
+    DifferentiableBinomialModel,
+    PoisonedModel,
+)
 from .rb import RandomizedBenchmarkingModel
 from .test_models import (
     CoinModel,
@@ -14,9 +27,12 @@ from .test_models import (
 )
 
 __all__ = [
-    "Simulatable", "Model", "FiniteOutcomeModel", "expparams_field",
+    "Simulatable", "Model", "FiniteOutcomeModel", "DifferentiableModel",
+    "expparams_field",
     "SimplePrecessionModel", "SimpleInversionModel", "CoinModel",
     "NoisyCoinModel", "MultiCosModel", "KnownT2PrecessionModel",
     "DerivedModel", "BinomialModel", "DifferentiableBinomialModel",
-    "RandomizedBenchmarkingModel", "rb",
+    "PoisonedModel", "RandomizedBenchmarkingModel", "rb",
+    "ALEApproximateModel", "binom_est_p", "binom_est_error",
+    "AcceleratedPrecessionModel",
 ]

@@ -3,9 +3,10 @@
 Counterpart of ``qinfer_tpu/models/base.py``: ``expparams_field``,
 ``_n_exps``, ``Simulatable`` (with the combinator surface ``base_model``,
 ``model_chain``, ``underlying_model``, ``all_outcomes`` and ``Q``),
-``Model`` and ``FiniteOutcomeModel`` with the fused single-pass update and
+``Model``, ``FiniteOutcomeModel`` with the fused single-pass update and
 the simulator (``simulate_experiment``, and ``simulate_trials`` for an
-ensemble of trials, each at its own parameters and experiment). A
+ensemble of trials, each at its own parameters and experiment), and
+``DifferentiableModel`` (score and Fisher information by autograd). A
 model is a frozen dataclass of static metadata with pure methods;
 ``log_likelihood`` is the primitive, of shape (O, N, E). expparams are a
 tensor (single-field models) or a dict of named tensors with leading axis
@@ -21,8 +22,8 @@ from typing import Dict, Sequence, Union
 import torch
 
 __all__ = [
-    "Simulatable", "Model", "FiniteOutcomeModel", "expparams_field",
-    "ExpParams",
+    "Simulatable", "Model", "FiniteOutcomeModel", "DifferentiableModel",
+    "expparams_field", "ExpParams",
 ]
 
 ExpParams = Union[torch.Tensor, Dict[str, torch.Tensor]]
@@ -338,3 +339,42 @@ class FiniteOutcomeModel(Model):
         pr1 = self._trial_pr1(modelparams, expparams)
         u = torch.rand(pr1.shape, generator=generator, device=pr1.device)
         return (u < pr1).to(torch.int32)
+
+
+@dataclass(frozen=True, eq=False)
+class DifferentiableModel(Model):
+    """Adds the score and the Fisher information, by autograd of
+    ``log_likelihood``. Both work as unbound calls on any model
+    (``DifferentiableModel.score(model, …)``), which is how
+    ``SMCUpdaterBCRB`` uses them."""
+
+    def score(self, outcomes, modelparams, expparams):
+        """∂ log L / ∂θ, (D, O, N, E), in forward mode as the JAX package's
+        ``jax.jacfwd`` takes it: one pass of dual tensors per parameter d,
+        every particle's row carrying the tangent e_d (its log-likelihood
+        depends on its own row only). Forward mode matters: the
+        two-outcome likelihood selects log(pr0) or log1p(−pr0) with
+        ``where``, and reverse mode would carry 0·∞ = NaN from the branch
+        not taken where pr0 rounds to 0 or 1. (``torch.func``'s ``vmap``
+        over ``jacfwd`` computes the same, at ~40 ms of host a call.)"""
+        import torch.autograd.forward_ad as fwAD
+
+        mp = modelparams.detach()
+        grads = []
+        with fwAD.dual_level():
+            for d in range(mp.shape[1]):
+                tangent = torch.zeros_like(mp)
+                tangent[:, d] = 1.0
+                out = self.log_likelihood(outcomes, fwAD.make_dual(mp, tangent),
+                                          expparams)
+                primal, grad = fwAD.unpack_dual(out)
+                grads.append(torch.zeros_like(primal) if grad is None
+                             else grad)
+        return torch.stack(grads)
+
+    def fisher_information(self, modelparams, expparams):
+        """F[i, j, n, e] = Σ_o L · score_i · score_j."""
+        outcomes = self.all_outcomes(expparams)
+        L = self.likelihood(outcomes, modelparams, expparams)  # (O, N, E)
+        sc = DifferentiableModel.score(self, outcomes, modelparams, expparams)
+        return torch.einsum("one,ione,jone->ijne", L, sc, sc)

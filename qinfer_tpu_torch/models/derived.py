@@ -1,17 +1,20 @@
 """Model combinators. Counterpart of ``qinfer_tpu/models/derived.py``:
-``DerivedModel``, ``BinomialModel`` and the ``DifferentiableBinomialModel``
-alias."""
+``DerivedModel``, ``BinomialModel``, the ``DifferentiableBinomialModel``
+alias and ``PoisonedModel``."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils import log_binomial_coefficient, log_binomial_pdf
 from .base import Model, _column, _expparams_row, expparams_field
 
-__all__ = ["DerivedModel", "BinomialModel", "DifferentiableBinomialModel"]
+__all__ = ["DerivedModel", "BinomialModel", "DifferentiableBinomialModel",
+           "PoisonedModel"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -162,3 +165,71 @@ class BinomialModel(DerivedModel):
 
 class DifferentiableBinomialModel(BinomialModel):
     """Alias kept for API parity with the JAX package."""
+
+
+def _int32(x):
+    """x as a signed 32-bit integer (two's complement wrap-around)."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+@dataclass(frozen=True, eq=False)
+class PoisonedModel(DerivedModel):
+    """Fault injection: the underlying likelihood perturbed by noise.
+
+    - ALE mode (``tol`` set): additive N(0, tol²) noise on each likelihood.
+    - MLE mode (``n_samples`` set): L replaced by the hedged binomial
+      estimate (k + hedge)/(n_samples + 2·hedge) of n_samples draws.
+
+    The result is clipped to [0, 1]. The noise comes from a
+    ``torch.Generator`` seeded from ``seed`` and the experiment (the JAX
+    package's XOR of the sums of the f32 bit patterns of the expparams
+    leaves, ``noise_mix``), so repeated identical calls see identical
+    noise; reading the expparams for it is one host read a call.
+    ``simulate_experiment`` is not poisoned.
+    """
+
+    tol: Optional[float] = None
+    n_samples: Optional[int] = None
+    hedge: float = 0.0
+    seed: int = 0
+
+    @staticmethod
+    def noise_mix(expparams):
+        """XOR over the expparams leaves of the int32 sum of each leaf's f32
+        bit patterns (the value the JAX package folds into its key)."""
+        leaves = expparams.values() if isinstance(expparams, dict) else (
+            expparams,)
+        mix = 0
+        for leaf in leaves:
+            f32 = np.asarray(torch.as_tensor(leaf).to(torch.float32).cpu(),
+                             dtype=np.float32)
+            mix ^= _int32(int(f32.view(np.int32).astype(np.int64).sum()))
+        return mix
+
+    def _noise_generator(self, expparams, device):
+        seed = ((self.seed & 0xFFFFFFFF) << 32) | (
+            self.noise_mix(expparams) & 0xFFFFFFFF)
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def likelihood(self, outcomes, modelparams, expparams):
+        L = self.underlying_model.likelihood(outcomes, modelparams, expparams)
+        g = self._noise_generator(expparams, L.device)
+        if self.tol is not None:
+            eps = self.tol * torch.randn(L.shape, generator=g, device=L.device)
+        else:
+            n = self.n_samples if self.n_samples else 1
+            draws = torch.binomial(torch.full_like(L, float(n)),
+                                   torch.clamp(L, 0.0, 1.0), generator=g)
+            eps = (draws + self.hedge) / (n + 2 * self.hedge) - L
+        return torch.clamp(L + eps, 0.0, 1.0)
+
+    def log_likelihood(self, outcomes, modelparams, expparams):
+        return torch.log(torch.clamp(
+            self.likelihood(outcomes, modelparams, expparams), min=1e-38))
+
+    def simulate_experiment(self, generator, modelparams, expparams,
+                            repeat=1):
+        self._bump_sim_count(modelparams, expparams, repeat)
+        return self.underlying_model.simulate_experiment(
+            generator, modelparams, expparams, repeat)

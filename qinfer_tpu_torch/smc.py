@@ -3,9 +3,12 @@
 Counterpart of ``qinfer_tpu/smc.py``: ``SMCState``, ``SMCConfig``,
 ``init_smc_state``, ``smc_update_step``, ``smc_batch_update``, the design
 functions ``hypothetical_log_update``, ``bayes_risk_fn`` and
-``expected_information_gain_fn``, and the stateful ``SMCUpdater``. The bank
-keeps log-space f32 weights on one device; randomness comes from the
-``torch.Generator`` carried in the state.
+``expected_information_gain_fn``, the stateful ``SMCUpdater`` (with the
+resampling-divergence record, credible regions, marginals, the KDE mesh,
+the plots and ``sample``), ``SMCUpdaterBCRB`` and
+``MixedApproximateSMCUpdater``. The bank keeps log-space f32 weights on
+one device; randomness comes from the ``torch.Generator`` carried in the
+state.
 
 Control flow runs on the host. The JAX package's ``lax.cond`` on
 ESS < threshold·N becomes an ``if`` on the ESS, which costs one device→host
@@ -21,8 +24,12 @@ one launch of B1 for all trials, one host read of the resample mask, and a
 resample (one launch of B2) of only the trials that need it.
 
 Entry points run on the card unless the caller asks for the CPU:
-``SMCUpdater`` defaults to ``device="cuda"`` and raises when torch sees no
-CUDA device.
+``SMCUpdater`` and its subclasses default to ``device="cuda"`` and raise
+when torch sees no CUDA device.
+
+The posterior summaries sort, cut, bin and sum on the bank's device; the
+convex hull, ``Delaunay``, ``mvee`` and ``_gaussian_kl`` run on the host in
+f64, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from ._exceptions import ApproximationWarning
 from .distributions import Distribution, ParticleDistribution
 from .models.base import (
+    DifferentiableModel,
     FiniteOutcomeModel,
     Simulatable,
     _expparams_row,
@@ -48,17 +56,24 @@ from .models.derived import DerivedModel
 from .resamplers import LiuWestResampler
 from .utils import (
     effective_sample_size,
+    in_ellipsoid,
+    mvee,
     particle_covariance_mtx,
     particle_mean,
     pytree_to_expparams,
 )
 
 __all__ = [
-    "SMCState", "SMCConfig", "SMCUpdater", "init_smc_state",
+    "SMCState", "SMCConfig", "SMCUpdater", "SMCUpdaterBCRB",
+    "MixedApproximateSMCUpdater", "init_smc_state",
     "smc_update_step", "smc_batch_update", "hypothetical_log_update",
     "bayes_risk_fn", "expected_information_gain_fn",
     "init_batched_smc_state", "smc_update_step_batched", "resolve_device",
 ]
+
+# Particles a chunk of ``posterior_mesh``'s sum: two (chunk, res) f32
+# factors, 26 MB each at res = 100.
+_MESH_CHUNK = 1 << 16
 
 _LOG_TINY = -87.0  # exp(-87) ~ 1.6e-38, smallest safe f32 log-likelihood
 
@@ -519,14 +534,25 @@ def expected_information_gain_fn(model, state: SMCState, expparams,
 class SMCUpdater(ParticleDistribution):
     """Sequential-Monte-Carlo Bayesian updater.
 
-    Same constructor as the JAX package's ``SMCUpdater`` (less
-    ``track_resampling_divergence``), plus ``device`` (``"cuda"`` unless
-    the caller asks for the CPU; raises when torch sees no CUDA device)
-    and an optional ``generator`` (which then fixes the device) in place
-    of ``key``.
+    Same constructor as the JAX package's ``SMCUpdater``, plus ``device``
+    (``"cuda"`` unless the caller asks for the CPU; raises when torch sees
+    no CUDA device) and an optional ``generator`` (which then fixes the
+    device) in place of ``key``.
+
     ``bayes_risk`` and ``expected_information_gain`` take candidate
     expparams (E,) and return (E,) tensors on the bank's device, or a 0-d
-    tensor when E == 1.
+    tensor when E == 1. The estimators, ``est_credible_region``,
+    ``posterior_marginal``, ``posterior_mesh`` and ``sample`` return
+    tensors on the bank's device; ``region_est_hull``,
+    ``region_est_ellipsoid`` and ``in_credible_region`` return NumPy, as
+    the JAX package does.
+
+    With ``track_resampling_divergence`` (or a resampler with
+    ``host_side`` set), ``update`` runs the step without its resample and
+    resamples after it when ``n_ess`` < threshold·N, recording the
+    moment-matched Gaussian KL of each resample in
+    ``resampling_divergences``; ``batch_update`` then replays the record
+    update by update.
     """
 
     def __init__(
@@ -539,6 +565,7 @@ class SMCUpdater(ParticleDistribution):
         resample_thresh: float = 0.5,
         zero_weight_policy: str = "error",
         zero_weight_thresh: float = 1e-10,
+        track_resampling_divergence: bool = False,
         seed: int = 0,
         generator: Optional[torch.Generator] = None,
         device="cuda",
@@ -563,9 +590,11 @@ class SMCUpdater(ParticleDistribution):
         )
         self._no_resample_config = dataclasses.replace(
             self.config, resample_thresh=-1.0)
+        self._track_rsd = bool(track_resampling_divergence)
 
         self.data_record = []
         self.normalization_record = []
+        self.resampling_divergences = [] if self._track_rsd else None
         self._call_count = 0
 
         if generator is None:
@@ -643,8 +672,16 @@ class SMCUpdater(ParticleDistribution):
                                     self.prior)
         self.data_record = []
         self.normalization_record = []
+        if self._track_rsd:
+            self.resampling_divergences = []
 
     # -- updates -----------------------------------------------------------
+
+    @property
+    def _eager_resample(self):
+        """Whether resampling runs on the host after the step: for
+        divergence tracking and for host-side resamplers."""
+        return getattr(self.resampler, "host_side", False) or self._track_rsd
 
     def hypothetical_update(self, outcomes, expparams,
                             return_likelihood=False,
@@ -668,12 +705,19 @@ class SMCUpdater(ParticleDistribution):
     def update(self, outcome, expparams, check_for_resample=True):
         """One Bayes update (+ conditional resample).
         ``check_for_resample=False`` skips the resample for this call."""
-        config = self.config if check_for_resample else self._no_resample_config
+        eager = self._eager_resample
+        config = (self._no_resample_config
+                  if eager or not check_for_resample else self.config)
         expparams = _as_single_expparams(expparams, self.device)
         prev_zero = int(self.state.n_zero_weight_events)
         self.state, log_norm = smc_update_step(
             self.model, self.resampler, config, self.state, outcome, expparams
         )
+        # The eager test reads n_ess from the new log-weights, as the JAX
+        # package does (not the step's own ESS).
+        if (eager and check_for_resample and float(self.n_ess)
+                < self.config.resample_thresh * self._n_particles):
+            self.resample()
         self._call_count += self._n_particles
         self.data_record.append(
             (np.asarray(torch.as_tensor(outcome).cpu()),
@@ -684,8 +728,14 @@ class SMCUpdater(ParticleDistribution):
         return self
 
     def batch_update(self, outcomes, expparams):
-        """Replay a record of T experiments."""
+        """Replay a record of T experiments (update by update through
+        ``update`` when resampling is eager)."""
         expparams = _expparams_to(expparams, self.device)
+        if self._eager_resample:
+            outcomes = torch.as_tensor(outcomes).cpu()
+            for i in range(int(outcomes.shape[0])):
+                self.update(outcomes[i], _expparams_row(expparams, i))
+            return self
         outcomes = torch.as_tensor(outcomes, device=self.device)
         prev_zero = int(self.state.n_zero_weight_events)
         self.state, log_norms = smc_batch_update(
@@ -705,8 +755,16 @@ class SMCUpdater(ParticleDistribution):
         return self
 
     def resample(self):
-        """Force a resample now."""
+        """Force a resample now (recording its divergence when tracked)."""
+        if self._track_rsd:
+            pre_w = np.exp(_host_f64(self.state.particle_log_weights))
+            pre_locs = _host_f64(self.state.particle_locations)
         self.state = resample_state(self.model, self.resampler, self.state)
+        if self._track_rsd:
+            post_locs = _host_f64(self.state.particle_locations)
+            post_w = np.full(post_locs.shape[0], 1.0 / post_locs.shape[0])
+            self.resampling_divergences.append(
+                _gaussian_kl(pre_w, pre_locs, post_w, post_locs))
         return self
 
     def _check_zero_weight(self, prev_count):
@@ -747,6 +805,211 @@ class SMCUpdater(ParticleDistribution):
             cov = cov / torch.outer(std, std)
         return cov
 
+    # -- credible regions --------------------------------------------------
+
+    def est_credible_region(self, level=0.95, return_outside=False,
+                            modelparam_slice=None):
+        """The particles of the highest-posterior-density set of mass
+        ``level``: weights sorted descending (stable, so tied weights keep
+        their order), their cumulative sum cut at ``level``, on the bank's
+        device with one host read. With ``return_outside`` also the rest.
+
+        The cumulative sum of the f32 weights runs in f64. The JAX package
+        sums in f32 with NumPy, sequentially, which drifts with N: at 2^20
+        flat weights its cut lands ~10² particles from the f64 one."""
+        w = self.particle_weights
+        locs = self.particle_locations
+        if modelparam_slice is not None:
+            locs = locs[:, modelparam_slice]
+        order = torch.sort(w, descending=True, stable=True).indices
+        cum = torch.cumsum(w[order].to(torch.float64), dim=0)
+        level_t = torch.full((1,), float(level), dtype=torch.float64,
+                             device=cum.device)
+        n_keep = int(torch.searchsorted(cum, level_t)[0]) + 1
+        if return_outside:
+            return locs[order[:n_keep]], locs[order[n_keep:]]
+        return locs[order[:n_keep]]
+
+    def region_est_hull(self, level=0.95, modelparam_slice=None):
+        """(vertices, simplices) of the convex hull of the credible set, on
+        the host (scipy); for one parameter ([[lo], [hi]], None)."""
+        from scipy.spatial import ConvexHull
+
+        points = self.est_credible_region(
+            level, modelparam_slice=modelparam_slice).cpu().numpy()
+        if points.shape[1] == 1:
+            return np.array([[points.min()], [points.max()]]), None
+        hull = ConvexHull(points)
+        return points[hull.vertices], hull.simplices
+
+    def region_est_ellipsoid(self, level=0.95, tol=1e-4,
+                             modelparam_slice=None):
+        """(A, c) of the minimum-volume ellipsoid around the credible
+        hull."""
+        vertices, _ = self.region_est_hull(level, modelparam_slice)
+        return mvee(vertices, tol=tol)
+
+    def in_credible_region(self, points, level=0.95, modelparam_slice=None,
+                           method="hpd-hull", tol=1e-4):
+        """Whether each point lies in the credible region: "hpd-hull" (the
+        hull's Delaunay triangulation) or "hpd-mvee" (its ellipsoid)."""
+        points = np.atleast_2d(_host(points))
+        if method == "hpd-mvee":
+            A, c = self.region_est_ellipsoid(level, tol, modelparam_slice)
+            return in_ellipsoid(points, A, c)
+        vertices, _ = self.region_est_hull(level, modelparam_slice)
+        if vertices.shape[1] == 1:
+            lo, hi = vertices.min(), vertices.max()
+            return (points[:, 0] >= lo) & (points[:, 0] <= hi)
+        from scipy.spatial import Delaunay
+
+        return Delaunay(vertices).find_simplex(points) >= 0
+
+    # -- marginals and plots -----------------------------------------------
+
+    def posterior_marginal(self, idx_param=0, res=100, smoothing=0.0,
+                           range_min=None, range_max=None):
+        """(bin centres (res,) f32, density (res,) f64) of the weighted
+        histogram of one parameter, on the bank's device.
+
+        The edges are NumPy's (``np.histogram_bin_edges`` on the same
+        range, in the particles' dtype) and each particle is binned as
+        ``np.histogram`` bins it, the right edge closing the last bin; the
+        weights are summed in f64 and rounded to f32, as NumPy's
+        ``bincount`` does. ``smoothing`` > 0 filters the density on the
+        host (``scipy.ndimage.gaussian_filter1d``, σ in parameter units).
+        """
+        x = self.particle_locations[:, idx_param]
+        w = self.particle_weights
+        lo = float(x.min()) if range_min is None else range_min
+        hi = float(x.max()) if range_max is None else range_max
+        if hi <= lo:
+            hi = lo + 1e-6
+        edges_np = np.histogram_bin_edges(
+            np.zeros(0, np.float32), bins=res, range=(lo, hi))
+        edges = torch.from_numpy(edges_np).to(x.device)
+        lo32 = torch.tensor(lo, dtype=torch.float32, device=x.device)
+        hi32 = torch.tensor(hi, dtype=torch.float32, device=x.device)
+        keep = (x >= lo32) & (x <= hi32)
+        x, w = x[keep], w[keep]
+        idx = ((x - lo32).to(torch.float64) / (hi - lo) * res).to(torch.int64)
+        idx = torch.where(idx == res, res - 1, idx)
+        idx = torch.where(x < edges[idx], idx - 1, idx)
+        idx = torch.where((x >= edges[idx + 1]) & (idx != res - 1), idx + 1,
+                          idx)
+        counts = torch.zeros(res, dtype=torch.float64, device=x.device)
+        counts = counts.index_add_(0, idx, w.to(torch.float64)).to(
+            torch.float32)
+        db = torch.from_numpy(np.diff(edges_np).astype(np.float64)).to(
+            x.device)
+        hist = counts.to(torch.float64) / db / counts.sum().to(torch.float64)
+        xs = 0.5 * (edges[1:] + edges[:-1])
+        if smoothing > 0:
+            from scipy.ndimage import gaussian_filter1d
+
+            hist = torch.from_numpy(gaussian_filter1d(
+                hist.cpu().numpy(), smoothing / (edges_np[1] - edges_np[0])
+            )).to(x.device)
+        return xs, hist
+
+    def plot_posterior_marginal(self, idx_param=0, res=100, smoothing=0.0,
+                                range_min=None, range_max=None,
+                                label_xaxis=True, other_plot_args=None,
+                                true_model=None):
+        """Plot ``posterior_marginal`` with matplotlib."""
+        import matplotlib.pyplot as plt
+
+        xs, ys = self.posterior_marginal(idx_param, res, smoothing,
+                                         range_min, range_max)
+        line = plt.plot(xs.cpu().numpy(), ys.cpu().numpy(),
+                        **(other_plot_args or {}))
+        if label_xaxis:
+            plt.xlabel(str(self.model.modelparam_names[idx_param]))
+        if true_model is not None:
+            plt.axvline(_host(true_model).flatten()[idx_param], ls="--")
+        return line
+
+    def posterior_mesh(self, idx_param1=0, idx_param2=1, res1=100, res2=100,
+                       smoothing=0.01):
+        """(mesh1, mesh2, density), each (res2, res1) f32 on the bank's
+        device: a weighted Gaussian KDE of two parameters on a grid
+        spanning the particles, kernel widths ``smoothing`` × each range.
+
+        The grid and widths are computed on the host from the particles'
+        f32 extremes exactly as the JAX package computes them. The sum over
+        the particles runs on the device in f32, chunk by chunk: the kernel
+        factorises, exp(−(dx² + dy²)/2) = exp(−dx²/2)·exp(−dy²/2), so each
+        chunk is one (res2 × chunk) @ (chunk × res1) product and no
+        (res2, res1, chunk) block is formed.
+        """
+        locs = self.particle_locations
+        w = self.particle_weights
+        x, y = locs[:, idx_param1], locs[:, idx_param2]
+        x_min, x_max, y_min, y_max = torch.stack(
+            [x.min(), x.max(), y.min(), y.max()]).cpu().numpy()
+        xs = np.linspace(x_min, x_max + 1e-9, res1)
+        ys = np.linspace(y_min, y_max + 1e-9, res2)
+        sx = smoothing * (x_max - x_min + 1e-9)
+        sy = smoothing * (y_max - y_min + 1e-9)
+        norm = 2 * np.pi * sx * sy
+        mx, my = (torch.from_numpy(m).to(locs.device)
+                  for m in np.meshgrid(xs, ys))
+        xs_t, ys_t = mx[0], my[:, 0]
+        sx_t, sy_t = (torch.tensor(s, device=locs.device) for s in (sx, sy))
+        z = torch.zeros((res2, res1), dtype=xs_t.dtype, device=locs.device)
+        for i in range(0, x.shape[0], _MESH_CHUNK):
+            sl = slice(i, i + _MESH_CHUNK)
+            dx = (xs_t[None, :] - x[sl, None]) / sx_t  # (chunk, res1)
+            dy = (ys_t[None, :] - y[sl, None]) / sy_t  # (chunk, res2)
+            gx = torch.exp(-0.5 * dx * dx)
+            gy = torch.exp(-0.5 * dy * dy) * w[sl, None]
+            z += gy.T @ gx
+        return mx, my, z / torch.tensor(norm, device=locs.device)
+
+    def plot_posterior_contour(self, idx_param1=0, idx_param2=1, res1=100,
+                               res2=100, smoothing=0.01):
+        """Contour plot of ``posterior_mesh`` with matplotlib."""
+        import matplotlib.pyplot as plt
+
+        mx, my, z = self.posterior_mesh(idx_param1, idx_param2, res1, res2,
+                                        smoothing)
+        cs = plt.contour(mx.cpu().numpy(), my.cpu().numpy(), z.cpu().numpy())
+        plt.xlabel(str(self.model.modelparam_names[idx_param1]))
+        plt.ylabel(str(self.model.modelparam_names[idx_param2]))
+        return cs
+
+    def plot_covariance(self, corr=False, param_slice=None, tick_labels=None,
+                        tick_params=None):
+        """The covariance (or correlation) matrix as an image."""
+        import matplotlib.pyplot as plt
+
+        cov = self.est_covariance_mtx(corr=corr).cpu().numpy()
+        if param_slice is not None:
+            cov = cov[param_slice, param_slice]
+        im = plt.imshow(cov, cmap="RdBu", vmin=-np.abs(cov).max(),
+                        vmax=np.abs(cov).max())
+        plt.colorbar(im)
+        return im
+
+    # -- sampling ----------------------------------------------------------
+
+    def sample(self, generator=None, n=1):
+        """n draws (n, D) from the posterior cloud, with replacement by
+        weight, by the 2⁻³⁰-quantized inverse CDF that PGH draws with.
+        ``generator`` defaults to the state's, which the draw advances."""
+        from .heuristics import _categorical_draws
+
+        if generator is None:
+            generator = self.state.generator
+        idx = _categorical_draws(generator,
+                                 self.state.particle_log_weights[None], n)[0]
+        return self.state.particle_locations[idx]
+
+    def __repr__(self):
+        return (f"SMCUpdater(model={type(self.model).__name__}, "
+                f"n_particles={self._n_particles}, "
+                f"resample_count={self.resample_count})")
+
     # -- experiment design -------------------------------------------------
 
     def _design_inputs(self, expparams):
@@ -774,6 +1037,121 @@ class SMCUpdater(ParticleDistribution):
         ig = expected_information_gain_fn(self.model, self.state, expparams,
                                           outcomes)
         return ig[0] if ig.shape[0] == 1 else ig
+
+
+def _bim_increment(model, locs, log_w, expparams, outcomes):
+    """Σ_n w_n Σ_e F(θ_n; e): the bank-averaged Fisher information (D, D),
+    with the score zeroed where L ≤ 1e-10 (a particle on a likelihood zero
+    has a 0/0 score and a Fisher term whose L → 0 limit is finite)."""
+    L = model.likelihood(outcomes, locs, expparams)  # (O, N, E)
+    sc = DifferentiableModel.score(model, outcomes, locs, expparams)
+    sc = torch.where(L[None] > 1e-10, sc, 0.0)  # (D, O, N, E)
+    fi = torch.einsum("one,ione,jone->ijne", L, sc, sc)
+    return torch.einsum("n,ijne->ij", torch.exp(log_w), fi)
+
+
+class SMCUpdaterBCRB(SMCUpdater):
+    """An ``SMCUpdater`` that also tracks the Bayesian Cramér–Rao bound.
+
+    Each ``update`` first adds the bank-averaged Fisher information of the
+    experiment to the Bayesian information matrix ``current_bim``: over the
+    current posterior when ``adaptive`` (the default), over the initial
+    prior otherwise. ``current_bcrb`` is its inverse. ``initial_bim`` (a
+    (D, D) array, e.g. the JAX updater's ``current_bim`` as NumPy) starts
+    the matrix. ``batch_update`` accumulates nothing, as in the JAX
+    package, unless resampling is eager (then it replays through
+    ``update``).
+    """
+
+    def __init__(self, *args, initial_bim=None, adaptive=True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.adaptive = bool(adaptive)
+        d = self.model.n_modelparams
+        self._current_bim = (
+            torch.zeros((d, d), dtype=torch.float32, device=self.device)
+            if initial_bim is None
+            else torch.as_tensor(np.asarray(initial_bim), dtype=torch.float32,
+                                 device=self.device))
+        self._initial_prior_locs = self.state.particle_locations
+        self._initial_prior_log_w = self.state.particle_log_weights
+
+    @property
+    def current_bim(self):
+        return self._current_bim
+
+    @property
+    def current_bcrb(self):
+        return torch.linalg.inv(self._current_bim)
+
+    def update(self, outcome, expparams, check_for_resample=True):
+        expparams_1 = _as_single_expparams(expparams, self.device)
+        if self.adaptive:
+            locs = self.state.particle_locations
+            log_w = self.state.particle_log_weights
+        else:
+            locs, log_w = self._initial_prior_locs, self._initial_prior_log_w
+        outcomes = self.model.all_outcomes(expparams_1)
+        self._current_bim = self._current_bim + _bim_increment(
+            self.model, locs, log_w, expparams_1, outcomes)
+        return super().update(outcome, expparams, check_for_resample)
+
+
+class MixedApproximateSMCUpdater(SMCUpdater):
+    """Updates with ``approximate_model`` while the posterior is broad and
+    with ``good_model`` from the first update whose pre-update ESS is below
+    ``mixture_thresh``·N (the JAX package's criterion, [unverified] against
+    upstream qinfer). ``self.model`` is swapped at the switch; nothing in
+    the step keeps a model-specific object across updates."""
+
+    def __init__(self, good_model, approximate_model, n_particles, prior,
+                 mixture_thresh=0.5, **kwargs):
+        self.good_model = good_model
+        self.approximate_model = approximate_model
+        self.mixture_thresh = float(mixture_thresh)
+        self._sharpened = False
+        super().__init__(approximate_model, n_particles, prior, **kwargs)
+
+    def update(self, outcome, expparams, check_for_resample=True):
+        if not self._sharpened and (
+                float(self.n_ess) < self.mixture_thresh * self.n_particles):
+            self._sharpened = True
+        self.model = (self.good_model if self._sharpened
+                      else self.approximate_model)
+        return super().update(outcome, expparams, check_for_resample)
+
+
+def _gaussian_kl(w0, locs0, w1, locs1):
+    """KL(N(μ0, Σ0) ‖ N(μ1, Σ1)) between the moment-matched Gaussians of
+    two weighted clouds, on the host in f64: the resampling-divergence
+    estimator of the JAX package ([unverified] against upstream qinfer)."""
+    d = locs0.shape[1]
+
+    def moments(w, locs):
+        mu = w @ locs
+        centered = locs - mu
+        cov = (w[:, None] * centered).T @ centered
+        return mu, cov + 1e-12 * np.eye(d)
+
+    mu0, cov0 = moments(w0, locs0)
+    mu1, cov1 = moments(w1, locs1)
+    cov1_inv = np.linalg.inv(cov1)
+    dmu = mu1 - mu0
+    _, logdet0 = np.linalg.slogdet(cov0)
+    _, logdet1 = np.linalg.slogdet(cov1)
+    return float(0.5 * (np.trace(cov1_inv @ cov0) + dmu @ cov1_inv @ dmu
+                        - d + logdet1 - logdet0))
+
+
+def _host(x):
+    """x (a tensor on any device, or array-like) as a NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _host_f64(t):
+    """A tensor as a host f64 array (f32 values widened exactly)."""
+    return t.detach().cpu().numpy().astype(np.float64)
 
 
 def _as_single_expparams(expparams, device):

@@ -1,9 +1,11 @@
-"""Weighted-particle numerics on torch tensors.
+"""Weighted-particle numerics on torch tensors, and host-side helpers.
 
-Counterpart of ``qinfer_tpu/utils.py`` (the part the ported paths use:
-the binomial pmfs, ``normalize_log_weights`` … ``sqrtm_psd`` and
-``pytree_to_expparams``) and ``eigh_batched``. Every function works on the
-device of its inputs.
+Counterpart of ``qinfer_tpu/utils.py`` less the multinomial pmfs and
+``sample_multinomial``, plus ``eigh_batched`` and ``cumsum_rows``. The
+tensor functions work on the device of their inputs. The credible-region
+geometry (``mvee``, ``in_ellipsoid``, ``ellipsoid_volume``) and the
+formatting and record-array helpers run on the host in NumPy f64, as in the
+JAX package: they run once per query, not per update.
 """
 
 from __future__ import annotations
@@ -26,6 +28,18 @@ __all__ = [
     "eigh_batched",
     "cumsum_rows",
     "pytree_to_expparams",
+    "outer_product",
+    "particle_meanfn",
+    "mvee",
+    "in_ellipsoid",
+    "ellipsoid_volume",
+    "format_uncertainty",
+    "assert_sigfigs_equal",
+    "compactspace",
+    "uniquify",
+    "join_struct_arrays",
+    "split_struct_array",
+    "to_shaped_outcomes",
 ]
 
 # cuSOLVER's batched syev (torch 2.11, CUDA 12.8, on an H100) refuses a
@@ -156,3 +170,144 @@ def pytree_to_expparams(record_array):
     """NumPy record array → expparams (dict of named tensors)."""
     return {name: torch.from_numpy(np.ascontiguousarray(record_array[name]))
             for name in record_array.dtype.names}
+
+
+def to_shaped_outcomes(outcomes, dtype=torch.int32):
+    """Outcomes as a 1-D tensor; integer outcomes cast to ``dtype``."""
+    arr = torch.atleast_1d(torch.as_tensor(outcomes))
+    if not arr.is_floating_point() and not arr.is_complex():
+        arr = arr.to(dtype)
+    return arr
+
+
+def outer_product(vec):
+    """vec ⊗ vec."""
+    vec = torch.as_tensor(vec)
+    return torch.outer(vec, vec)
+
+
+def particle_meanfn(weights, locations, fn=None):
+    """Σᵢ wᵢ f(xᵢ) over the leading axis of f's output."""
+    fx = locations if fn is None else fn(locations)
+    return torch.tensordot(weights, fx, dims=([0], [0]))
+
+
+# -- credible-region geometry (host, f64) -------------------------------------
+
+def mvee(points, tol=1e-3, max_iter=1000):
+    """Minimum-volume enclosing ellipsoid by Khachiyan's algorithm: (A, c)
+    with the ellipsoid {x : (x−c)ᵀ A (x−c) ≤ 1}, every point inside."""
+    points = np.asarray(points, dtype=np.float64)
+    N, d = points.shape
+    Q = np.column_stack((points, np.ones(N))).T  # (d+1, N)
+    u = np.ones(N) / N
+    for _ in range(max_iter):
+        X = Q @ np.diag(u) @ Q.T
+        M = np.einsum("ji,jk,ki->i", Q, np.linalg.inv(X), Q)
+        j = int(np.argmax(M))
+        # Khachiyan's stopping rule: max_i M_i ≤ (1+tol)(d+1).
+        if M[j] <= (1.0 + tol) * (d + 1.0):
+            break
+        step = (M[j] - d - 1.0) / ((d + 1.0) * (M[j] - 1.0))
+        u = (1.0 - step) * u
+        u[j] += step
+    c = points.T @ u
+    A = np.linalg.inv(points.T @ np.diag(u) @ points - np.outer(c, c)) / d
+    # Khachiyan converges to first order: scale A so that every point is
+    # inside (enclosure is the contract; optimality is within tol).
+    diff = points - c
+    max_val = np.einsum("id,de,ie->i", diff, A, diff).max()
+    if max_val > 1.0:
+        A = A / max_val
+    return A, c
+
+
+def in_ellipsoid(x, A, c):
+    """Whether the points x lie in the ellipsoid (A, c); a bool for one
+    point."""
+    x = np.atleast_2d(np.asarray(x))
+    d = x - c[None, :]
+    res = np.einsum("id,de,ie->i", d, A, d) <= 1.0
+    return res if res.size > 1 else bool(res[0])
+
+
+def ellipsoid_volume(A=None, invA=None):
+    """Volume of the ellipsoid xᵀAx ≤ 1."""
+    from scipy.special import gamma
+
+    if invA is None:
+        if A is None:
+            raise ValueError("Must pass either A or invA.")
+        invA = np.linalg.inv(A)
+    d = invA.shape[0]
+    return (np.pi ** (d / 2.0) / gamma(d / 2.0 + 1)) * np.sqrt(
+        np.linalg.det(invA))
+
+
+# -- formatting and record arrays (host) -------------------------------------
+
+def format_uncertainty(value, uncertainty, scinotn_break=4):
+    """"value ± uncertainty" to the uncertainty's first significant figure,
+    in scientific notation from ``scinotn_break`` orders of magnitude."""
+    if uncertainty == 0:
+        return str(value)
+    mag_unc = int(np.floor(np.log10(abs(uncertainty))))
+    mag_val = int(np.floor(np.log10(abs(value)))) if value != 0 else 0
+    if abs(mag_val) < scinotn_break:
+        if mag_unc >= 0:
+            return "{0:.0f} ± {1:.0f}".format(value, uncertainty)
+        prec = -mag_unc
+        return "{0:.{2}f} ± {1:.{2}f}".format(value, uncertainty, prec)
+    scaled_val = value * 10.0 ** (-mag_val)
+    scaled_unc = uncertainty * 10.0 ** (-mag_val)
+    prec = max(mag_val - mag_unc, 0)
+    return "({0:.{3}f} ± {1:.{3}f}) × 10^{2}".format(
+        scaled_val, scaled_unc, mag_val, prec)
+
+
+def assert_sigfigs_equal(x, y, sigfigs=3):
+    """Assert that x and y agree to ``sigfigs`` significant figures."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    mag = np.floor(np.log10(np.maximum(np.abs(x), np.abs(y))))
+    scale = 10.0 ** (mag - sigfigs + 1)
+    np.testing.assert_array_equal(np.round(x / scale), np.round(y / scale))
+
+
+def compactspace(scale, n):
+    """n points spread over the reals by the arctanh compactification."""
+    interior = np.linspace(-1.0, 1.0, n + 2)[1:-1]
+    return scale * np.arctanh(interior)
+
+
+def uniquify(seq):
+    """Order-preserving deduplication."""
+    seen = set()
+    return [x for x in seq if not (x in seen or seen.add(x))]
+
+
+def join_struct_arrays(arrays):
+    """Structured arrays of one shape joined field-wise into one."""
+    dtype = []
+    for a in arrays:
+        dtype.extend(a.dtype.descr)
+    out = np.empty(arrays[0].shape, dtype=dtype)
+    for a in arrays:
+        for name in a.dtype.names:
+            out[name] = a[name]
+    return out
+
+
+def split_struct_array(array, fields):
+    """A structured array split into (the named fields, the rest)."""
+    fields = list(fields)
+    rest = [n for n in array.dtype.names if n not in fields]
+
+    def take(names):
+        dtype = [d for d in array.dtype.descr if d[0] in names]
+        out = np.empty(array.shape, dtype=dtype)
+        for n in names:
+            out[n] = array[n]
+        return out
+
+    return take(fields), take(rest)

@@ -423,3 +423,70 @@ def test_entry_points_default_to_the_card(cuda):
     perf = qt.perf_test_multiple(2, qt.SimplePrecessionModel(), 256,
                                  qt.UniformDistribution([0, 1]), 3, qt.PGH)
     assert perf.shape == (2, 3)
+
+
+def test_accelerated_precession_update_bit_equal_to_simple(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    locs = torch.rand((N, 1), generator=g, device=cuda)
+    lw = torch.log(torch.rand(N, generator=g, device=cuda))
+    lw = lw - torch.logsumexp(lw, 0)
+    ep = {"t": torch.tensor([17.3], device=cuda)}
+    launches = b1.fused_bayes_update.launches
+    out_a = qt.AcceleratedPrecessionModel().fused_update(1, lw, locs, ep)
+    out_s = qt.SimplePrecessionModel().fused_update(1, lw, locs, ep)
+    assert b1.fused_bayes_update.launches == launches + 2
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, s) for a, s in zip(out_a, out_s))
+
+
+def test_credible_set_and_histogram_against_the_host(cuda):
+    """The device's credible cut against an f64 NumPy recomputation (±1),
+    and the device histogram against np.histogram on the same weights."""
+    cfg = chip_smoke.config4_multicos2()
+    _, _, _, _, u = chip_smoke._config_window(cfg, 4, cuda, n=1 << 16)
+    region = u.est_credible_region(0.95)
+    w = u.particle_weights.cpu().numpy()
+    assert region.device.type == "cuda"
+    assert abs(region.shape[0] - chip_smoke.host_credible_size(w)) <= 1
+    xs, hist = u.posterior_marginal(1)
+    x = u.particle_locations[:, 1].cpu().numpy()
+    ref, edges = np.histogram(x, bins=100, range=(float(x.min()),
+                                                  float(x.max())),
+                              weights=w, density=True)
+    assert hist.device.type == "cuda"
+    np.testing.assert_allclose(hist.cpu().numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * ref.max())
+    np.testing.assert_array_equal(xs.cpu().numpy(),
+                                  0.5 * (edges[1:] + edges[:-1]))
+    s = chip_smoke.posterior_summaries(u, cfg.truth, cuda)
+    assert chip_smoke.summaries_gate(s), s
+
+
+def test_engine_api_paths_run_through_both_kernels(cuda):
+    for window, gate, n_b1 in (
+            (chip_smoke.bcrb_window, chip_smoke.bcrb_gate,
+             lambda w: chip_smoke.N_EXP),
+            (chip_smoke.track_rsd_window, chip_smoke.track_rsd_gate,
+             lambda w: chip_smoke.N_EXP),
+            (chip_smoke.mixed_ale_window, chip_smoke.mixed_ale_gate,
+             lambda w: chip_smoke.N_EXP - w["approx_updates"])):
+        l1 = b1.fused_bayes_update.launches
+        l2 = b2.expand_sorted_segments.launches
+        w = window(1 << 16, 1, cuda)
+        assert gate(w), {k: v for k, v in w.items() if k != "updater"}
+        assert b1.fused_bayes_update.launches - l1 == n_b1(w)
+        assert b2.expand_sorted_segments.launches - l2 >= w["resamples"] > 0
+
+
+def test_new_updaters_default_to_the_card(cuda):
+    prior = qt.UniformDistribution([0, 1])
+    u = qt.SMCUpdaterBCRB(qt.SimplePrecessionModel(), 1024, prior)
+    assert u.particle_locations.device.type == "cuda"
+    assert u.current_bim.device.type == "cuda"
+    m = qt.MixedApproximateSMCUpdater(
+        qt.SimplePrecessionModel(),
+        qt.ALEApproximateModel(simulator=qt.SimplePrecessionModel()), 1024,
+        prior)
+    assert m.particle_locations.device.type == "cuda"
+    m.update(1, {"t": np.array([1.0], np.float32)})
+    assert m.model is m.approximate_model
