@@ -5,8 +5,9 @@
         [--b1-forms] [--b1-paths] [--b2-forms] [--kernel-split]
 
 For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
-the PGH loops of config 1 and config 4's known-T2, all at 2^20 particles,
-and the two trial ensembles, as ``chip_smoke.py`` runs them; ``--paths``
+the PGH loops of config 1 and config 4's known-T2, the three model-zoo
+paths (``chip_smoke.ZOO_PATHS``), all at 2^20 particles, and the two
+trial ensembles, as ``chip_smoke.py`` runs them; ``--paths``
 picks some, and ``--paths`` with no name none) it prints one JSON line
 with:
 
@@ -115,13 +116,22 @@ def ensemble_runner(n_trials, n, n_exp):
     return run
 
 
+def zoo_runner(make, window):
+    def run(seed, device, **kw):
+        w = window(make(N, seed, device, **kw))
+        return w["seconds"], w["resamples"]
+    return run
+
+
 PATHS = {"flagship": flagship,
          **{make.__name__: config_runner(make) for make in cs.CONFIGS},
          "config5_adaptive_tomography": config5,
          "tomography_2q_binomial": tomography_2q,
          **{name: pgh_runner(model, truth)
             for name, model, truth, _ in cs.PGH_PATHS},
-         **{name: ensemble_runner(t, n, e) for name, t, n, e in cs.ENSEMBLES}}
+         **{name: ensemble_runner(t, n, e) for name, t, n, e in cs.ENSEMBLES},
+         **{name: zoo_runner(make, window)
+            for name, make, window, _ in cs.ZOO_PATHS}}
 
 
 def device_busy(prof):

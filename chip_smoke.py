@@ -74,9 +74,25 @@ Phases, in order; any failure exits non-zero before the result line:
    marginal integrating to 1 within 1e-5, the mesh finite, the mean of
    2^16 samples within 5 standard errors). B1 once per update on the
    exact model, B2 at least once per resample.
-11. timing: each kernel against its plain version at 2^20, with CUDA
+11. model zoo (``phase_model_zoo``, ``ZOO_PATHS``), three paths at 2^20
+   with ``LiuWestResampler(a=0.98)`` and ``zero_weight_policy="reset"``,
+   a warm-up window and three timed ones each, every window gated, one
+   JSON line each with window ms, resamples, redraw rounds and launches:
+   ``random_walk_tracking`` (``RandomWalkModel`` over the binomial
+   precession model, 1000 ``update`` steps tracking a walking ω; RMS error
+   over the second half < 0.06), ``gaussian_walk_drift``
+   (``GaussianRandomWalkModel`` learning its step scale, one
+   ``batch_update`` of 400 single shots) and ``multinomial_die``
+   (``MultinomialModel(NDieModel(3))``, one ``batch_update`` of 100 count
+   vectors: vector outcomes through the step). None of these models has a
+   B1 tile, so B1 must launch 0 times (the step updates them unfused, as
+   the JAX package's does); B2 at least once per resample (D = 1, 2, 3).
+   Then (``phase_samplers``) the samplers that loop per draw on the card
+   (the multinomial ladder, Beta, BetaBinomial, Poisson) against their
+   exact means at 2^20 draws, and two binomial calls in a row uncorrelated.
+12. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
-   Born tiles of the paths; B2 at D = 1, 2, 4 and 16, and beside it
+   Born tiles of the paths; B2 at D = 1, 2, 3, 4 and 16, and beside it
    ``torch.repeat_interleave`` (the pick without the affine); the batched
    B1 in both ensemble regimes; the batched B2 on the inputs of each
    regime's median resample (``B2Capture``), checked bit-equal to its plain
@@ -1461,6 +1477,277 @@ def phase_engine_api(device):
     return launches
 
 
+# -- the rest of the model zoo: random walks and vector outcomes ----------------
+
+N_WALK_STEPS = 1000
+WALK_T = np.pi / 2
+WALK_SHOTS = 40
+WALK_STD = 0.01  # the truth's step and the model's NormalDistribution(0, 1e-4)
+N_DRIFT_STEPS = 400
+DRIFT_STD = 0.005
+DIE_P = (0.6, 0.3, 0.1)
+DIE_SHOTS = 20
+N_DIE = 100
+
+
+def random_walk_record(seed=0, n_steps=N_WALK_STEPS):
+    """random_walk_tracking's record: ω_0 = 0.5; datum k is a
+    Binomial(40, sin²(ω_k·π/4)) count (the precession model's Pr(1) at
+    t = π/2), then ω_{k+1} = clip(ω_k + N(0, 0.01²), 0, 1). Returns
+    (ω_0 … ω_n, counts)."""
+    rng = np.random.default_rng(seed)
+    steps = rng.normal(0.0, WALK_STD, n_steps)
+    omega = np.empty(n_steps + 1)
+    omega[0] = 0.5
+    for k in range(n_steps):
+        omega[k + 1] = np.clip(omega[k] + steps[k], 0.0, 1.0)
+    counts = rng.binomial(WALK_SHOTS, np.sin(0.5 * WALK_T * omega[:-1]) ** 2)
+    return omega, counts.astype(np.int32)
+
+
+def random_walk_updater(n, seed, device, **kw):
+    """``RandomWalkModel(BinomialModel(SimplePrecessionModel()),
+    NormalDistribution(0, 1e-4))`` over a uniform prior on [0, 1]
+    (``kw``: more ``SMCUpdater`` arguments)."""
+    model = qt.RandomWalkModel(qt.BinomialModel(qt.SimplePrecessionModel()),
+                               qt.NormalDistribution(0.0, WALK_STD ** 2))
+    return qt.SMCUpdater(model, n, qt.UniformDistribution([0, 1]),
+                         zero_weight_policy="reset", seed=seed, device=device,
+                         **kw)
+
+
+def random_walk_window(u, n_steps=N_WALK_STEPS):
+    """n_steps of ``update`` on updater ``u`` (the walk's timestep after
+    each), each step's ``est_mean`` kept on the device and read once at
+    the end. The estimate after update k predicts ω_{k+1}, the truth of
+    the next datum."""
+    omega, counts = random_walk_record(n_steps=n_steps)
+    ep = {"t": np.array([WALK_T], np.float32),
+          "n_meas": np.array([WALK_SHOTS], np.int32)}
+    ests = []
+    _sync(u.device)
+    t0 = time.perf_counter()
+    for k in counts:
+        u.update(int(k), ep)
+        ests.append(u.est_mean()[0])
+    ests = torch.stack(ests).cpu().numpy()  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    return {"updater": u, "seconds": seconds, "est": ests, "truth": omega[1:],
+            "sd": float(torch.sqrt(u.est_covariance_mtx()[0, 0])),
+            "resamples": u.resample_count}
+
+
+def random_walk_gate(w):
+    """RMS(ω̂_k − ω_{k+1}) over the second half of the steps < 0.06 (a
+    Kalman filter on this record gives ≈ 0.03: Fisher information 40·π²/4
+    a datum, walk variance 1e-4 a step), and the final |ω̂ − ω| < 6σ̂ +
+    0.02. Returns (ok, values)."""
+    half = len(w["est"]) // 2
+    rms = float(np.sqrt(np.mean((w["est"][half:] - w["truth"][half:]) ** 2)))
+    err = float(abs(w["est"][-1] - w["truth"][-1]))
+    ok = rms < 0.06 and err < 6 * w["sd"] + 0.02
+    return ok, {"rms": rms, "final_err": err, "final_sd": w["sd"]}
+
+
+def gaussian_walk_record(seed=0, n_steps=N_DRIFT_STEPS):
+    """gaussian_walk_drift's record: ω_0 = 0.70710678 walking by
+    N(0, 0.005²) a step; single shots at t = (9/8)^(k mod 20), outcome 1
+    with probability sin²(ω_k t_k / 2). Returns (ω_0 … ω_n, ts,
+    outcomes)."""
+    rng = np.random.default_rng(seed)
+    ts = ((9 / 8) ** (np.arange(n_steps) % 20)).astype(np.float32)
+    omega = TRUE_OMEGA + np.concatenate(
+        [[0.0], np.cumsum(rng.normal(0.0, DRIFT_STD, n_steps))])
+    p0 = np.cos(0.5 * omega[:-1] * ts) ** 2
+    return omega, ts, (rng.random(n_steps) >= p0).astype(np.int32)
+
+
+def gaussian_walk_updater(n, seed, device, **kw):
+    """``GaussianRandomWalkModel(SimplePrecessionModel(), diagonal=True)``
+    over the prior of ``__graft_entry__.py:142-143``."""
+    model = qt.GaussianRandomWalkModel(qt.SimplePrecessionModel(),
+                                       diagonal=True)
+    return qt.SMCUpdater(model, n,
+                         qt.UniformDistribution([[0, 1], [0.001, 0.05]]),
+                         zero_weight_policy="reset", seed=seed, device=device,
+                         **kw)
+
+
+def gaussian_walk_window(u):
+    """One ``batch_update`` of the drift record on updater ``u``."""
+    omega, ts, outcomes = gaussian_walk_record()
+    _sync(u.device)
+    t0 = time.perf_counter()
+    u.batch_update(outcomes, {"t": ts})
+    est = u.est_mean().cpu().numpy()  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    return {"updater": u, "seconds": seconds, "est": est,
+            "sd": np.sqrt(np.diag(u.est_covariance_mtx().cpu().numpy())),
+            "truth": omega[-1],
+            "finite": bool(torch.isfinite(u.particle_locations).all()),
+            "resamples": u.resample_count}
+
+
+def gaussian_walk_gate(w):
+    """Final |ω̂ − ω| < 6σ̂ + 0.02, the posterior mean of sigma_omega
+    finite in [0, 0.05], no NaN in the bank. Returns (ok, values)."""
+    err = float(abs(w["est"][0] - w["truth"]))
+    sigma = float(w["est"][1])
+    ok = (w["finite"] and err < 6 * w["sd"][0] + 0.02
+          and 0.0 <= sigma <= 0.05)
+    return ok, {"final_err": err, "final_sd": float(w["sd"][0]),
+                "sigma_omega": sigma}
+
+
+def die_record(seed=0):
+    """multinomial_die's record: 100 count vectors of 20 throws of a die
+    with face probabilities (0.6, 0.3, 0.1)."""
+    rng = np.random.default_rng(seed)
+    return rng.multinomial(DIE_SHOTS, DIE_P, size=N_DIE).astype(np.int32)
+
+
+def die_updater(n, seed, device, **kw):
+    """``MultinomialModel(NDieModel(n=3))`` over a uniform prior rescaled
+    to the simplex (tests/test_round2_fixes.py:13-45)."""
+    prior = qt.ConstrainedSumDistribution(
+        qt.UniformDistribution([[0.0, 1.0]] * 3), desired_total=1.0)
+    return qt.SMCUpdater(qt.MultinomialModel(qt.NDieModel(n=3)), n, prior,
+                         zero_weight_policy="reset", seed=seed, device=device,
+                         **kw)
+
+
+def die_window(u):
+    """One ``batch_update`` of the (100, 3) count vectors on updater
+    ``u``."""
+    counts = die_record()
+    ep = {"exp_num": np.zeros(N_DIE, np.int32),
+          "n_meas": np.full(N_DIE, DIE_SHOTS, np.int32)}
+    _sync(u.device)
+    t0 = time.perf_counter()
+    u.batch_update(counts, ep)
+    est = u.est_mean().cpu().numpy()  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    return {"updater": u, "seconds": seconds, "est": est,
+            "sd": np.sqrt(np.diag(u.est_covariance_mtx().cpu().numpy())),
+            "n_records": len(u.normalization_record),
+            "resamples": u.resample_count}
+
+
+def die_gate(w):
+    """|p̂_i − p_i| < 6σ̂_i + 0.01 on each face, |Σ p̂ − 1| < 1e-3, one
+    normalization record per count vector. Returns (ok, values)."""
+    err = np.abs(w["est"] - np.asarray(DIE_P))
+    total = float(np.sum(w["est"]))
+    ok = (bool(np.all(err < 6 * w["sd"] + 0.01)) and abs(total - 1.0) < 1e-3
+          and w["n_records"] == N_DIE)
+    return ok, {"est": w["est"].tolist(), "sd": w["sd"].tolist(),
+                "sum": total, "n_records": w["n_records"]}
+
+
+ZOO_PATHS = (
+    ("random_walk_tracking", random_walk_updater, random_walk_window,
+     random_walk_gate),
+    ("gaussian_walk_drift", gaussian_walk_updater, gaussian_walk_window,
+     gaussian_walk_gate),
+    ("multinomial_die", die_updater, die_window, die_gate),
+)
+
+
+def phase_model_zoo(device):
+    """The three model-zoo paths at 2^20 (``ZOO_PATHS``): for each, a
+    warm-up window, then three timed windows with every counter set to 0
+    just before them and read just after. Every window is gated; B1 must
+    not launch (no model here has a tile: the step updates them unfused),
+    B2 at least once per resample. One JSON line each."""
+    launches = {}
+    for name, make, window, gate in ZOO_PATHS:
+        warm = gate(window(make(N_FLAGSHIP, 10_000, device)))
+        _reset_counters()
+        windows = [window(make(N_FLAGSHIP, 1000 * (i + 1), device))
+                   for i in range(3)]
+        counts, rounds = _read_counters()
+        gates = [warm] + [gate(w) for w in windows]
+        resamples = [w["resamples"] for w in windows]
+        ms = [1e3 * w["seconds"] for w in windows]
+        print(json.dumps({
+            "path": name, "n_particles": N_FLAGSHIP,
+            "ok": [g[0] for g in gates],
+            "window_ms_median": statistics.median(ms),
+            "window_ms_range": [min(ms), max(ms)], "window_ms": ms,
+            "resamples": resamples, "redraw_rounds": rounds,
+            "redraw_rounds_per_resample": rounds / max(1, sum(resamples)),
+            "gate_values": [g[1] for g in gates], "launches": counts}))
+        if not all(g[0] for g in gates):
+            raise AssertionError(f"{name}: gate failed")
+        if counts["B1"] != 0:
+            raise AssertionError(f"{name}: B1 launched {counts['B1']} times; "
+                                 "these models have no tile")
+        if sum(resamples) == 0 or counts["B2"] < sum(resamples):
+            raise AssertionError(f"{name}: B2 launched {counts['B2']} times "
+                                 f"for {sum(resamples)} resamples")
+        launches[name] = counts
+    return launches
+
+
+SAMPLER_N = 1 << 20
+SAMPLER_Z = 5.0
+
+
+def _z(x, mean, var):
+    """|mean(x) − mean| per column of x (n, k) in standard errors √(var/n),
+    in f64."""
+    x = x.double().reshape(x.shape[0], -1)
+    mean = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
+    var = torch.as_tensor(var, dtype=torch.float64, device=x.device)
+    return ((x.mean(0) - mean) / torch.sqrt(var / x.shape[0])).abs().tolist()
+
+
+def phase_samplers(device):
+    """The port's samplers whose CUDA draws loop per element (binomial,
+    Poisson, Gamma), on the card at 2^20 draws from one generator, each
+    mean within SAMPLER_Z standard errors of its exact value: the
+    multinomial ladder (two binomial calls), Beta (two Gamma calls),
+    BetaBinomial, two Poisson calls in a row, and the correlation of two
+    binomial calls in a row (|r| < SAMPLER_Z/√n). Printed beside them and
+    not gated: the same ladder and pair by raw ``torch.binomial`` calls,
+    without ``utils``' skip-ahead, and one raw call alone."""
+    g = torch.Generator(device=device).manual_seed(0)
+    n = SAMPLER_N
+    p = torch.tensor([0.6, 0.3, 0.1], dtype=torch.float64, device=device)
+    ladder_var = 20 * p * (1 - p)
+    twenty = torch.full((n,), 20.0, device=device)
+    z = {"multinomial": _z(qt.utils.sample_multinomial(
+             g, torch.tensor(20.0), p.float(), (n,)), 20 * p, ladder_var),
+         "beta": _z(qt.BetaDistribution(2.0, 5.0).sample(g, n), 2 / 7,
+                    10 / (49 * 8)),
+         "beta_binomial": _z(qt.BetaBinomialDistribution(12, 2.0, 3.0)
+                             .sample(g, n), 4.8, 12 * 6 * 17 / (25 * 6)),
+         "poisson": [_z(qt.utils.poisson(torch.full((n,), 7.5, device=device),
+                                         g), 7.5, 7.5)[0] for _ in range(2)]}
+    pair = [qt.utils.binomial(twenty, torch.full_like(twenty, 0.4), g)
+            for _ in range(2)]
+    corr = float(torch.corrcoef(torch.stack(pair))[0, 1])
+    d1 = torch.binomial(twenty, torch.full_like(twenty, 0.6), generator=g)
+    d2 = torch.binomial(twenty - d1, torch.full_like(twenty, 0.75),
+                        generator=g)
+    raw_pair = [torch.binomial(twenty, torch.full_like(twenty, 0.4),
+                               generator=g) for _ in range(2)]
+    eight = torch.full((n,), 8.0, device=device)
+    raw = {"ladder": _z(torch.stack([d1, d2, twenty - d1 - d2], 1), 20 * p,
+                        ladder_var),
+           "pair_corr": float(torch.corrcoef(torch.stack(raw_pair))[0, 1]),
+           "single_b8_025": _z(torch.binomial(
+               eight, torch.full_like(eight, 0.25), generator=g), 2.0,
+               1.5)[0]}
+    worst = max(max(v) if isinstance(v, list) else v for v in z.values())
+    ok = bool(worst < SAMPLER_Z and abs(corr) < SAMPLER_Z / np.sqrt(n))
+    print(json.dumps({"samplers": {"n": n, "ok": ok, "z": z,
+                                   "pair_corr": corr, "raw_torch": raw}}))
+    if not ok:
+        raise AssertionError("a sampler's draws on the card are off their "
+                             "moments or correlated across calls")
+
+
 def _time_ms(fn, iters):
     """Device time per call. A device-side sleep queued first lets the host
     enqueue every call before the device starts them, so the events time
@@ -1575,7 +1862,7 @@ def _repeat_interleave(starts, vals, n_out):
 
 
 def phase_timing(device):
-    """B1 (flagship tile) and B2 at D = 1, 2, 4, 16 at 2^20: kernel,
+    """B1 (flagship tile) and B2 at D = 1, 2, 3, 4, 16 at 2^20: kernel,
     plain, and for B2 the library call."""
     tile = b1.two_outcome_tile(b1.precession_pr1)
     omega, lw = _b1_inputs(N_FLAGSHIP, 7, device)
@@ -1594,7 +1881,7 @@ def phase_timing(device):
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(_weights("random", N_FLAGSHIP, rng), device=device)
     starts = systematic_segment_starts(log_w, N_FLAGSHIP, u0=0.37)
-    for d in (1, 2, 4, 16):
+    for d in (1, 2, 3, 4, 16):
         vals = torch.rand((N_FLAGSHIP, d), device=device)
         affine = b2._affine(0.98, 0.02 * vals.mean(0), d, device)
         name = "B2" if d == 1 else f"B2[D={d}]"
@@ -1733,6 +2020,8 @@ def main():
     pgh_launches = phase_pgh_paths(device)
     ens_launches, b2_inputs = phase_ensembles(device)
     api_launches = phase_engine_api(device)
+    zoo_launches = phase_model_zoo(device)
+    phase_samplers(device)
     times = phase_timing(device)
     zoo_times = phase_timing_zoo(device)
     batched_times = phase_timing_batched(device, b2_inputs)
@@ -1791,6 +2080,12 @@ def main():
                    b2_kernel, api_launches["posterior_summaries"]["B2"],
                    err["B2"], times["B2[D=2]"]),
     ]
+    kernels += [
+        kernel_row(f"expand_sorted_segments[D={d}, {name}]", src2, b2_kernel,
+                   zoo_launches[name]["B2"], err["B2"], times[timing])
+        for d, name, timing in ((1, "random_walk_tracking", "B2"),
+                                (2, "gaussian_walk_drift", "B2[D=2]"),
+                                (3, "multinomial_die", "B2[D=3]"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

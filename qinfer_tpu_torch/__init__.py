@@ -24,17 +24,37 @@ regions, posterior marginals and meshes, the plots and ``sample`` of
 autograd score (with ``ScoreMixin`` and ``FiniteDifference``), and
 ``MixedApproximateSMCUpdater`` with the approximate models
 ``ALEApproximateModel`` and ``PoisonedModel``
-(``AcceleratedPrecessionModel`` is the reference-named precession model).
+(``AcceleratedPrecessionModel`` is the reference-named precession model);
+and the rest of the model zoo: vector outcomes (``MultinomialModel`` over
+``NDieModel``, on ``MultinomialDomain``), the time-dependent
+``RandomWalkModel`` and ``GaussianRandomWalkModel``, ``MLEModel`` and
+``ReferencedPoissonModel``, which the SMC step updates unfused, with the
+domains and every distribution of the JAX package.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 It imports ``torch`` and never ``jax``.
 """
 
 from ._exceptions import ApproximationWarning
+from .domains import Domain, IntegerDomain, MultinomialDomain, RealDomain
 from .distributions import (
+    BetaBinomialDistribution,
+    BetaDistribution,
     ConstantDistribution,
+    ConstrainedSumDistribution,
+    DiscreteUniformDistribution,
     Distribution,
+    GammaDistribution,
+    InterpolatedUnivariateDistribution,
+    LogNormalDistribution,
+    MixtureDistribution,
+    MultivariateNormalDistribution,
+    MVUniformDistribution,
+    NormalDistribution,
     ParticleDistribution,
     PostselectedDistribution,
+    ProductDistribution,
+    SingleSampleMixin,
+    SlantedNormalDistribution,
     UniformDistribution,
 )
 from .expdesign import ExperimentDesigner, OptimizationAlgorithms
@@ -55,12 +75,18 @@ from .models import (
     DifferentiableBinomialModel,
     DifferentiableModel,
     FiniteOutcomeModel,
+    GaussianRandomWalkModel,
     KnownT2PrecessionModel,
+    MLEModel,
     Model,
     MultiCosModel,
+    MultinomialModel,
+    NDieModel,
     NoisyCoinModel,
     PoisonedModel,
     RandomizedBenchmarkingModel,
+    RandomWalkModel,
+    ReferencedPoissonModel,
     SimpleInversionModel,
     SimplePrecessionModel,
     Simulatable,
@@ -91,17 +117,26 @@ from . import tomography, utils
 
 __all__ = [
     "ApproximationWarning",
-    "Distribution", "ParticleDistribution", "UniformDistribution",
-    "ConstantDistribution", "PostselectedDistribution",
+    "Domain", "RealDomain", "IntegerDomain", "MultinomialDomain",
+    "Distribution", "SingleSampleMixin", "UniformDistribution",
+    "MVUniformDistribution", "DiscreteUniformDistribution",
+    "ConstantDistribution", "NormalDistribution",
+    "MultivariateNormalDistribution", "SlantedNormalDistribution",
+    "LogNormalDistribution", "BetaDistribution", "BetaBinomialDistribution",
+    "GammaDistribution", "ProductDistribution", "MixtureDistribution",
+    "PostselectedDistribution", "ConstrainedSumDistribution",
+    "InterpolatedUnivariateDistribution", "ParticleDistribution",
     "Heuristic", "ExpSparseHeuristic", "PGH", "EIGHeuristic",
     "RiskHeuristic", "ExperimentDesigner", "OptimizationAlgorithms",
     "perf_test", "perf_test_multiple", "run_episodes", "timing",
     "simple_est_prec", "simple_est_rb", "load_data_or_txt",
     "Simulatable", "Model", "FiniteOutcomeModel", "DifferentiableModel",
     "SimplePrecessionModel", "AcceleratedPrecessionModel",
-    "SimpleInversionModel", "CoinModel", "NoisyCoinModel", "MultiCosModel",
-    "KnownT2PrecessionModel", "DerivedModel", "BinomialModel",
-    "DifferentiableBinomialModel", "PoisonedModel",
+    "SimpleInversionModel", "CoinModel", "NoisyCoinModel", "NDieModel",
+    "MultiCosModel", "KnownT2PrecessionModel", "DerivedModel",
+    "BinomialModel", "DifferentiableBinomialModel", "MultinomialModel",
+    "PoisonedModel", "RandomWalkModel", "GaussianRandomWalkModel",
+    "MLEModel", "ReferencedPoissonModel",
     "RandomizedBenchmarkingModel", "rb",
     "ALEApproximateModel", "binom_est_p", "binom_est_error",
     "FiniteDifference", "ScoreMixin",

@@ -13,7 +13,17 @@ carried: the port seeds its own ``torch.Generator``.
   ``hedge``, ``seed``) over their underlying model,
   ``ALEApproximateModel`` over its simulator (with ``error_tol``,
   ``min_samp``, ``samp_step``, ``est_hedge``, ``max_samp``, ``seed``);
-- ``UniformDistribution``, ``LiuWestResampler`` and ``SMCConfig``
+- the rest of the model zoo: ``NDieModel``, and ``MultinomialModel``,
+  ``RandomWalkModel`` (with its step distribution), ``GaussianRandomWalkModel``
+  (``diagonal``), ``MLEModel`` (``likelihood_power``) and
+  ``ReferencedPoissonModel`` (``max_rate``) over their underlying models;
+- the domains (``RealDomain``, ``IntegerDomain``, ``MultinomialDomain``);
+- every distribution by its fields, the composite ones (product,
+  mixture, postselected, constrained sum) with their parts converted in
+  turn; ``InterpolatedUnivariateDistribution`` keeps the same ``pdf``
+  callable, which must take NumPy scalars; ``ParticleDistribution`` by
+  its locations and log-weights;
+- ``LiuWestResampler`` and ``SMCConfig``
   (``SMCConfig.canonicalize``, which the JAX engine never reads, is not
   carried);
 - from ``tomography/`` the bases (by ``data``, ``dims``, ``labels``),
@@ -36,8 +46,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from . import heuristics, models, tomography
-from .distributions import UniformDistribution
+from . import distributions as dists
+from . import domains, heuristics, models, tomography
 from .resamplers import LiuWestResampler
 from .smc import SMCConfig, SMCState
 
@@ -162,7 +172,63 @@ _CONVERTERS = {
         from_reference(obj.simulator), error_tol=obj.error_tol,
         min_samp=obj.min_samp, samp_step=obj.samp_step,
         est_hedge=obj.est_hedge, max_samp=obj.max_samp, seed=obj.seed),
-    "UniformDistribution": lambda obj: UniformDistribution(obj.ranges),
+    "NDieModel": lambda obj: models.NDieModel(n=obj.n),
+    "MultinomialModel": lambda obj: models.MultinomialModel(
+        from_reference(obj.underlying_model)),
+    "RandomWalkModel": lambda obj: models.RandomWalkModel(
+        from_reference(obj.underlying_model),
+        from_reference(obj.step_distribution)),
+    "GaussianRandomWalkModel": lambda obj: models.GaussianRandomWalkModel(
+        from_reference(obj.underlying_model), diagonal=obj.diagonal),
+    "MLEModel": lambda obj: models.MLEModel(
+        from_reference(obj.underlying_model),
+        likelihood_power=obj.likelihood_power),
+    "ReferencedPoissonModel": lambda obj: models.ReferencedPoissonModel(
+        from_reference(obj.underlying_model), max_rate=obj.max_rate),
+    "RealDomain": lambda obj: domains.RealDomain(min=obj.min, max=obj.max),
+    "IntegerDomain": lambda obj: domains.IntegerDomain(min=obj.min,
+                                                       max=obj.max),
+    "MultinomialDomain": lambda obj: domains.MultinomialDomain(
+        n_meas=obj.n_meas, n_elements=obj.n_elements),
+    "UniformDistribution": lambda obj: dists.UniformDistribution(obj.ranges),
+    "MVUniformDistribution": lambda obj: dists.MVUniformDistribution(
+        dim=obj.dim),
+    "DiscreteUniformDistribution": lambda obj:
+        dists.DiscreteUniformDistribution(num_bits=obj.num_bits),
+    "ConstantDistribution": lambda obj: dists.ConstantDistribution(
+        obj.values),
+    "NormalDistribution": lambda obj: dists.NormalDistribution(
+        mean=obj.mean, var=obj.var, trunc=obj.trunc),
+    "MultivariateNormalDistribution": lambda obj:
+        dists.MultivariateNormalDistribution(obj.mean, obj.cov),
+    "SlantedNormalDistribution": lambda obj: dists.SlantedNormalDistribution(
+        obj.ranges, weight=obj.weight),
+    "LogNormalDistribution": lambda obj: dists.LogNormalDistribution(
+        mu=obj.mu, sigma=obj.sigma),
+    "BetaDistribution": lambda obj: dists.BetaDistribution(obj.alpha,
+                                                           obj.beta),
+    "BetaBinomialDistribution": lambda obj: dists.BetaBinomialDistribution(
+        obj.n, obj.alpha, obj.beta),
+    "GammaDistribution": lambda obj: dists.GammaDistribution(obj.alpha,
+                                                             obj.beta),
+    "ProductDistribution": lambda obj: dists.ProductDistribution(
+        [from_reference(f) for f in obj.factors]),
+    "MixtureDistribution": lambda obj: dists.MixtureDistribution(
+        obj.weights, [from_reference(d) for d in obj.dist]),
+    "PostselectedDistribution": lambda obj: dists.PostselectedDistribution(
+        from_reference(obj.dist), from_reference(obj.model),
+        maxiters=obj.maxiters),
+    "ConstrainedSumDistribution": lambda obj:
+        dists.ConstrainedSumDistribution(
+            from_reference(obj.underlying_distribution),
+            desired_total=obj.desired_total),
+    "InterpolatedUnivariateDistribution": lambda obj:
+        dists.InterpolatedUnivariateDistribution(
+            obj.pdf, compactification_scale=obj.compactification_scale,
+            n_interp_points=obj.n_interp_points),
+    "ParticleDistribution": lambda obj: dists.ParticleDistribution(
+        np.array(obj.particle_locations),
+        log_weights=np.array(obj.particle_log_weights)),
     "TomographyBasis": _basis,
     "TomographyModel": _tomography_model(tomography.TomographyModel),
     "DiffusiveTomographyModel":

@@ -1,4 +1,4 @@
-"""Models. Counterpart of ``qinfer_tpu/models`` (the ported part)."""
+"""Models. Counterpart of ``qinfer_tpu/models``."""
 
 from . import rb
 from .accelerated import AcceleratedPrecessionModel
@@ -14,13 +14,19 @@ from .derived import (
     BinomialModel,
     DerivedModel,
     DifferentiableBinomialModel,
+    GaussianRandomWalkModel,
+    MLEModel,
+    MultinomialModel,
     PoisonedModel,
+    RandomWalkModel,
+    ReferencedPoissonModel,
 )
 from .rb import RandomizedBenchmarkingModel
 from .test_models import (
     CoinModel,
     KnownT2PrecessionModel,
     MultiCosModel,
+    NDieModel,
     NoisyCoinModel,
     SimpleInversionModel,
     SimplePrecessionModel,
@@ -30,9 +36,11 @@ __all__ = [
     "Simulatable", "Model", "FiniteOutcomeModel", "DifferentiableModel",
     "expparams_field",
     "SimplePrecessionModel", "SimpleInversionModel", "CoinModel",
-    "NoisyCoinModel", "MultiCosModel", "KnownT2PrecessionModel",
+    "NoisyCoinModel", "NDieModel", "MultiCosModel", "KnownT2PrecessionModel",
     "DerivedModel", "BinomialModel", "DifferentiableBinomialModel",
-    "PoisonedModel", "RandomizedBenchmarkingModel", "rb",
+    "MultinomialModel", "PoisonedModel", "RandomWalkModel",
+    "GaussianRandomWalkModel", "MLEModel", "ReferencedPoissonModel",
+    "RandomizedBenchmarkingModel", "rb",
     "ALEApproximateModel", "binom_est_p", "binom_est_error",
     "AcceleratedPrecessionModel",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``qinfer_tpu/models/base.py``: ``expparams_field``,
 ``_n_exps``, ``Simulatable`` (with the combinator surface ``base_model``,
-``model_chain``, ``underlying_model``, ``all_outcomes`` and ``Q``),
+``model_chain``, ``underlying_model``, ``all_outcomes``, ``domain``,
+``outcome_ndim`` and ``Q``),
 ``Model``, ``FiniteOutcomeModel`` with the fused single-pass update and
 the simulator (``simulate_experiment``, and ``simulate_trials`` for an
 ensemble of trials, each at its own parameters and experiment), and
@@ -20,6 +21,8 @@ from dataclasses import dataclass
 from typing import Dict, Sequence, Union
 
 import torch
+
+from ..domains import Domain, IntegerDomain
 
 __all__ = [
     "Simulatable", "Model", "FiniteOutcomeModel", "DifferentiableModel",
@@ -91,6 +94,13 @@ class Simulatable:
     def is_n_outcomes_constant(self) -> bool:
         return True
 
+    @property
+    def outcome_ndim(self) -> int:
+        """Trailing dimensions of one outcome: 0 for scalar outcomes, 1 for
+        vectors (``MultinomialModel``'s counts). The SMC step keeps that
+        many trailing axes of an outcome."""
+        return 0
+
     def n_outcomes(self, expparams: ExpParams = None) -> int:
         raise NotImplementedError
 
@@ -99,6 +109,9 @@ class Simulatable:
         device of ``expparams`` (the CPU when there are none)."""
         return torch.arange(self.n_outcomes(expparams), dtype=torch.int32,
                             device=_expparams_device(expparams))
+
+    def domain(self, expparams: ExpParams = None) -> Domain:
+        return IntegerDomain(min=0, max=self.n_outcomes(expparams) - 1)
 
     @property
     def Q(self):

@@ -1,5 +1,6 @@
-"""Example models. Counterpart of ``qinfer_tpu/models/test_models.py``
-(all but ``NDieModel``, which has no fused tile)."""
+"""Example models. Counterpart of ``qinfer_tpu/models/test_models.py``:
+the two-outcome models, each with its tile in kernel B1, and ``NDieModel``
+(a ``Model`` without one, which the SMC step updates unfused)."""
 
 from __future__ import annotations
 
@@ -7,11 +8,11 @@ from dataclasses import dataclass
 
 import torch
 
-from .base import FiniteOutcomeModel, _column, expparams_field
+from .base import FiniteOutcomeModel, Model, _column, _n_exps, expparams_field
 
 __all__ = [
     "SimplePrecessionModel", "SimpleInversionModel", "CoinModel",
-    "NoisyCoinModel", "MultiCosModel", "KnownT2PrecessionModel",
+    "NoisyCoinModel", "NDieModel", "MultiCosModel", "KnownT2PrecessionModel",
 ]
 
 
@@ -154,6 +155,58 @@ class NoisyCoinModel(_BiasModel):
                             _column(expparams, "beta", dev)],
                            dim=1).reshape(-1)
         return noisy_coin_pr1, tail, (modelparams[..., 0],)
+
+
+@dataclass(frozen=True, eq=False)
+class NDieModel(Model):
+    """An n-sided die: the model parameters are the n face probabilities,
+    L[o, i, e] = p_i[o] whatever the experiment (field 'exp_num')."""
+
+    n: int = 6
+
+    @property
+    def n_modelparams(self):
+        return self.n
+
+    @property
+    def modelparam_names(self):
+        return tuple(f"p_{k}" for k in range(self.n))
+
+    @property
+    def expparams_dtype(self):
+        return [("exp_num", "int")]
+
+    def n_outcomes(self, expparams=None):
+        return self.n
+
+    def are_models_valid(self, modelparams):
+        nonneg = torch.all(modelparams >= 0.0, dim=-1)
+        norm = torch.abs(torch.sum(modelparams, dim=-1) - 1.0) < 1e-4
+        return nonneg & norm
+
+    def canonicalize(self, modelparams):
+        clipped = torch.clamp(modelparams, min=1e-7)
+        return clipped / torch.sum(clipped, dim=-1, keepdim=True)
+
+    def log_likelihood(self, outcomes, modelparams, expparams):
+        n_exp = _n_exps(expparams_field(expparams, "exp_num"))
+        outcomes = torch.as_tensor(outcomes, device=modelparams.device).to(
+            torch.int64).reshape(-1)
+        logp = torch.log(torch.clamp(modelparams[:, outcomes].T, min=1e-38))
+        return logp[:, :, None].expand(logp.shape + (n_exp,))
+
+    def simulate_experiment(self, generator, modelparams, expparams,
+                            repeat=1):
+        """Faces (repeat, N, E) int32, by the inverse CDF of each row's
+        face probabilities (clipped at 1e-38 and normalised) at a uniform
+        draw."""
+        n_exp = _n_exps(expparams_field(expparams, "exp_num"))
+        p = torch.clamp(modelparams, min=1e-38)
+        cdf = torch.cumsum(p, dim=1) / torch.sum(p, dim=1, keepdim=True)
+        u = torch.rand((repeat, modelparams.shape[0], n_exp),
+                       generator=generator, device=modelparams.device)
+        return torch.sum(u[..., None] >= cdf[None, :, None, :-1],
+                         dim=-1).to(torch.int32)
 
 
 @dataclass(frozen=True, eq=False)

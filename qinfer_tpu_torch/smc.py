@@ -200,6 +200,15 @@ def hypothetical_log_update(model, state: SMCState, outcomes, expparams):
     return log_w_hyp.transpose(1, 2), log_norm
 
 
+def _outcome_rows(model, outcomes):
+    """Outcomes as the O axis the likelihood takes: (O,) scalars, or (O, k)
+    when the model's outcomes are vectors (``outcome_ndim`` ≥ 1: the
+    trailing axis is one outcome)."""
+    if getattr(model, "outcome_ndim", 0) >= 1:
+        return outcomes.reshape(-1, outcomes.shape[-1])
+    return outcomes.reshape(-1)
+
+
 def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
                     outcome, expparams):
     """One Bayes update + conditional resample.
@@ -210,7 +219,8 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
     log_w = state.particle_log_weights
     locs = state.particle_locations
     device = log_w.device
-    outcome_arr = torch.as_tensor(outcome, device=device).reshape(-1)[:1]
+    outcome_arr = _outcome_rows(model, torch.as_tensor(outcome,
+                                                       device=device))[:1]
     use_fused = getattr(model, "fused_update_supported", False) and (
         config.use_fused_update
         if config.use_fused_update is not None
@@ -282,7 +292,8 @@ def smc_update_step_batched(model, resampler, config: SMCConfig,
     """One Bayes update + conditional resample of each of T trials.
 
     ``state`` carries a leading trial axis (``init_batched_smc_state``);
-    ``outcomes``: (T,); ``expparams``: one experiment per trial (E = T).
+    ``outcomes``: (T,) [or (T, k)]; ``expparams``: one experiment per
+    trial (E = T).
     The update of every trial is one launch of kernel B1 on CUDA (its plain
     version on the CPU, or the unfused likelihood trial by trial when the
     model has no fused tile or the config turns it off). The resample mask
@@ -295,7 +306,7 @@ def smc_update_step_batched(model, resampler, config: SMCConfig,
     locs = state.particle_locations  # (T, N, D)
     device = log_w.device
     n_trials, n = log_w.shape
-    outcomes = torch.as_tensor(outcomes, device=device).reshape(n_trials)
+    outcomes = _outcome_rows(model, torch.as_tensor(outcomes, device=device))
     use_fused = getattr(model, "fused_update_supported", False) and (
         config.use_fused_update
         if config.use_fused_update is not None
@@ -394,8 +405,9 @@ def smc_batch_update(model, resampler, config: SMCConfig, state: SMCState,
                      outcomes, expparams):
     """Run the update step over a record of T experiments.
 
-    ``outcomes``: (T,); ``expparams``: tensor or dict of tensors with
-    leading axis T (each step sees a single-experiment slice, E=1).
+    ``outcomes``: (T,) [or (T, k) for vector outcomes]; ``expparams``:
+    tensor or dict of tensors with leading axis T (each step sees a
+    single-experiment slice, E=1).
     Returns (state, log_norms[T]).
     """
     device = state.particle_log_weights.device
@@ -689,7 +701,8 @@ class SMCUpdater(ParticleDistribution):
         """Linear weights (O, E, N) [+ normalization (O, E, 1)]
         [+ likelihood (O, N, E)] of the hypothetical updates."""
         expparams = _expparams_to(expparams, self.device)
-        outcomes = torch.as_tensor(outcomes, device=self.device).reshape(-1)
+        outcomes = _outcome_rows(self.model,
+                                 torch.as_tensor(outcomes, device=self.device))
         log_w_hyp, log_norm = hypothetical_log_update(
             self.model, self.state, outcomes, expparams)
         self._call_count += (outcomes.shape[0] * self._n_particles

@@ -1,7 +1,7 @@
 """Weighted-particle numerics on torch tensors, and host-side helpers.
 
-Counterpart of ``qinfer_tpu/utils.py`` less the multinomial pmfs and
-``sample_multinomial``, plus ``eigh_batched`` and ``cumsum_rows``. The
+Counterpart of ``qinfer_tpu/utils.py``, plus ``eigh_batched`` and
+``cumsum_rows``. The
 tensor functions work on the device of their inputs. The credible-region
 geometry (``mvee``, ``in_ellipsoid``, ``ellipsoid_volume``) and the
 formatting and record-array helpers run on the host in NumPy f64, as in the
@@ -17,6 +17,12 @@ __all__ = [
     "log_binomial_coefficient",
     "log_binomial_pdf",
     "binomial_pdf",
+    "log_multinomial_pdf",
+    "multinomial_pdf",
+    "sample_multinomial",
+    "binomial",
+    "poisson",
+    "standard_gamma",
     "normalize_log_weights",
     "log_effective_sample_size",
     "effective_sample_size",
@@ -77,6 +83,82 @@ def log_binomial_pdf(n, k, p):
 def binomial_pdf(n, k, p):
     """Pr(k | n, p)."""
     return torch.exp(log_binomial_pdf(n, k, p))
+
+
+# torch.binomial, torch.poisson and torch._standard_gamma on CUDA give each
+# thread a Philox stream at the generator's offset and move the offset on
+# by a fixed count a call (tens of draws), while a thread draws for
+# several elements, some in loops of unbounded length, so the next call on
+# the same generator can start inside the last one's draws. On an H100
+# (torch 2.11) a two-call binomial ladder at 2^20 rows came out 9 and 14
+# standard errors off its means where one call alone was on them
+# (chip_smoke.phase_samplers prints both); skipping ahead after each call
+# puts every mean within 2 standard errors.
+_CUDA_SAMPLER_SKIP = 1 << 24
+
+
+def _skip_cuda_stream(generator):
+    """Move a CUDA generator's Philox offset past the draws of the sampler
+    call just made (nothing to do on the CPU's Mersenne twister)."""
+    if generator.device.type == "cuda":
+        generator.set_offset(generator.get_offset() + _CUDA_SAMPLER_SKIP)
+
+
+def binomial(count, prob, generator):
+    """``torch.binomial(count, prob)`` from ``generator``, whose next call
+    then draws afresh."""
+    out = torch.binomial(count, prob, generator=generator)
+    _skip_cuda_stream(generator)
+    return out
+
+
+def poisson(rate, generator):
+    """``torch.poisson(rate)`` from ``generator``, as ``binomial``."""
+    out = torch.poisson(rate, generator=generator)
+    _skip_cuda_stream(generator)
+    return out
+
+
+def standard_gamma(alpha, generator):
+    """Gamma(alpha, 1) draws (``torch._standard_gamma``) from
+    ``generator``, as ``binomial``."""
+    out = torch._standard_gamma(alpha, generator=generator)
+    _skip_cuda_stream(generator)
+    return out
+
+
+def log_multinomial_pdf(ks, ps, eps=1e-12):
+    """log Pr(ks | ps) for a multinomial with n = Σ ks: ``ks`` (..., K)
+    counts, ``ps`` (..., K) probabilities (clipped to [eps, 1])."""
+    ks = _f32(ks)
+    ps = torch.clamp(_f32(ps).to(ks.device), eps, 1.0)
+    n = torch.sum(ks, dim=-1)
+    return (torch.lgamma(n + 1.0) - torch.sum(torch.lgamma(ks + 1.0), dim=-1)
+            + torch.sum(ks * torch.log(ps), dim=-1))
+
+
+def multinomial_pdf(ks, ps):
+    return torch.exp(log_multinomial_pdf(ks, ps))
+
+
+def sample_multinomial(generator, n, ps, shape=()):
+    """Multinomial counts (*shape, K) int32 from ``generator``: the ladder
+    of K − 1 conditional binomials, count k drawn from what the earlier
+    counts left over with probability p_k / (the mass left)."""
+    device = generator.device
+    ps = _f32(ps).to(device)
+    K = ps.shape[-1]
+    p_heads = torch.movedim(ps.expand(tuple(shape) + (K,)), -1, 0)
+    rem_n = _f32(n).to(device).expand(tuple(shape)).contiguous()
+    rem_p = torch.ones(tuple(shape), dtype=torch.float32, device=device)
+    draws = []
+    for p_k in p_heads[:-1]:
+        cond_p = torch.clamp(p_k / torch.clamp(rem_p, min=1e-12), 0.0, 1.0)
+        draw = binomial(rem_n, cond_p.contiguous(), generator)
+        draws.append(draw)
+        rem_n = rem_n - draw
+        rem_p = rem_p - p_k
+    return torch.stack(draws + [rem_n], dim=-1).to(torch.int32)
 
 
 def normalize_log_weights(log_w):

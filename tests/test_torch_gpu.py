@@ -490,3 +490,153 @@ def test_new_updaters_default_to_the_card(cuda):
     assert m.particle_locations.device.type == "cuda"
     m.update(1, {"t": np.array([1.0], np.float32)})
     assert m.model is m.approximate_model
+
+
+# -- the rest of the model zoo (vector outcomes, random walks, Poisson) ----------
+
+def _zoo_likelihood_cases():
+    rng = np.random.default_rng(0)
+    die3 = rng.dirichlet(np.ones(3), 4096).astype(np.float32)
+    walk = np.stack([rng.random(4096), rng.uniform(0, 0.05, 4096)],
+                    1).astype(np.float32)
+    beta = rng.uniform(0.0, 5.0, 4096)
+    pois = np.stack([rng.random(4096), beta + rng.uniform(0, 20, 4096), beta],
+                    1).astype(np.float32)
+    omega = rng.random((4096, 1)).astype(np.float32)
+    return [
+        (qt.NDieModel(n=3), die3, {"exp_num": np.zeros(2, np.int32)},
+         torch.arange(3)),
+        (qt.MultinomialModel(qt.NDieModel(n=3)), die3,
+         {"exp_num": np.zeros(2, np.int32), "n_meas": np.array([20, 20])},
+         qt.MultinomialDomain(20, 3).values),
+        (qt.RandomWalkModel(qt.BinomialModel(qt.SimplePrecessionModel()),
+                            qt.NormalDistribution(0.0, 1e-4)), omega,
+         {"t": np.array([np.pi / 2], np.float32), "n_meas": np.array([40])},
+         torch.arange(41)),
+        (qt.GaussianRandomWalkModel(qt.SimplePrecessionModel()), walk,
+         {"t": np.array([1.0, 9.0], np.float32)}, torch.arange(2)),
+        (qt.MLEModel(qt.CoinModel(), likelihood_power=4.0), omega,
+         {"dummy": np.zeros(1, np.float32)}, torch.arange(2)),
+        (qt.ReferencedPoissonModel(qt.SimplePrecessionModel(), max_rate=25.0),
+         pois, {"t": np.array([1.0, 2.0, 3.0], np.float32),
+                "mode": np.array([0, 1, 2])}, torch.arange(60)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(6), ids=["ndie", "multinomial", "walk",
+                                             "gaussian_walk", "mle",
+                                             "poisson"])
+def test_zoo_model_likelihood_on_cuda_matches_cpu(cuda, i):
+    model, params, ep, outcomes = _zoo_likelihood_cases()[i]
+    ep_dev = {k: torch.as_tensor(v, device=cuda) for k, v in ep.items()}
+    got = model.log_likelihood(outcomes.to(cuda),
+                               torch.from_numpy(params).to(cuda), ep_dev)
+    ref = model.log_likelihood(outcomes, torch.from_numpy(params), ep)
+    assert got.device.type == "cuda"
+    # Likelihoods, as test_torch_models.py holds the two packages: cos and
+    # lgamma round differently on the card, and 1 − cos² near ω = 0
+    # cancels in f32, so Pr(1) there is good to ~2⁻²³ absolute and a
+    # 40-shot likelihood to ~40·2⁻²³ ≈ 5e-6.
+    got, ref = got.cpu().numpy(), ref.numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    np.testing.assert_allclose(np.exp(got), np.exp(ref), rtol=1e-3,
+                               atol=1e-5)
+    sims = model.simulate_experiment(
+        torch.Generator(device=cuda).manual_seed(0),
+        torch.from_numpy(params[:64]).to(cuda), ep_dev, repeat=3)
+    assert sims.device.type == "cuda" and sims.dtype == torch.int32
+
+
+def _assert_moments(x, mean, var):
+    x = x.double()
+    n = x.shape[0]
+    assert torch.all((x.mean(0) - mean).abs() < 5 * (var / n).sqrt() + 1e-9)
+    assert torch.all((x.var(0) / var - 1.0).abs() < 0.05)
+
+
+def test_cuda_generator_draws_by_moments(cuda):
+    """sample_multinomial (torch.binomial), torch.poisson and
+    torch._standard_gamma on a CUDA generator: on the card, reproducible
+    from the seed, with the right first two moments at 2^20 draws."""
+    n = 1 << 20
+
+    def gen(seed=0):
+        return torch.Generator(device=cuda).manual_seed(seed)
+
+    p = torch.tensor([0.6, 0.3, 0.1], device=cuda)
+    counts = qt.utils.sample_multinomial(gen(), torch.tensor(20.0), p, (n,))
+    assert counts.device.type == "cuda"
+    assert bool((counts.sum(1) == 20).all())
+    torch.testing.assert_close(
+        counts, qt.utils.sample_multinomial(gen(), torch.tensor(20.0), p,
+                                            (n,)), rtol=0, atol=0)
+    _assert_moments(counts, 20 * p.double(), 20 * p.double() * (1 - p.double()))
+    lam = torch.full((n, 2), 7.5, device=cuda)
+    lam[:, 1] = 120.0
+    draws = qt.utils.poisson(lam, gen(1))
+    assert draws.device.type == "cuda"
+    _assert_moments(draws, lam[0].double(), lam[0].double())
+    alpha = torch.full((n, 2), 0.7, device=cuda)
+    alpha[:, 1] = 5.0
+    g = qt.utils.standard_gamma(alpha, gen(2))
+    assert g.device.type == "cuda" and bool((g > 0).all())
+    _assert_moments(g, alpha[0].double(), alpha[0].double())
+    beta = qt.BetaDistribution(2.0, 5.0).sample(gen(3), n)
+    _assert_moments(beta, torch.tensor(2 / 7, dtype=torch.float64,
+                                       device=cuda),
+                    torch.tensor(10 / 392, dtype=torch.float64, device=cuda))
+
+
+def test_samplers_in_a_row_are_independent(cuda):
+    """Two binomial (and two Poisson) calls in a row on one CUDA generator
+    draw independently: |r| < 5/√n at 2^20."""
+    n = 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(4)
+    count = torch.full((n,), 20.0, device=cuda)
+    for draw in (lambda: qt.utils.binomial(count, count * 0.02, g),
+                 lambda: qt.utils.poisson(count * 0.4, g)):
+        a, b = draw(), draw()
+        r = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        assert abs(r) < 5 / np.sqrt(n), r
+
+
+def test_every_distribution_samples_on_cuda(cuda):
+    dists = [
+        qt.UniformDistribution([[0, 1], [2, 3]]), qt.MVUniformDistribution(4),
+        qt.DiscreteUniformDistribution(3), qt.ConstantDistribution([1.0]),
+        qt.NormalDistribution(0.0, 2.0),
+        qt.NormalDistribution(0.0, 1.0, trunc=(2.0, 6.0)),
+        qt.MultivariateNormalDistribution([0, 1], [[1, 0.5], [0.5, 2]]),
+        qt.SlantedNormalDistribution([[0, 1]]), qt.LogNormalDistribution(),
+        qt.BetaDistribution(2.0, 5.0), qt.BetaBinomialDistribution(12, 2, 3),
+        qt.GammaDistribution(3.0, 2.0),
+        qt.ProductDistribution(qt.NormalDistribution(),
+                               qt.UniformDistribution([0, 1])),
+        qt.MixtureDistribution([1, 3], [qt.NormalDistribution(-1, 0.5),
+                                        qt.NormalDistribution(2, 0.1)]),
+        qt.ConstrainedSumDistribution(qt.UniformDistribution([[0, 1]] * 3)),
+        qt.PostselectedDistribution(qt.NormalDistribution(0.5, 0.25),
+                                    qt.SimplePrecessionModel()),
+        qt.InterpolatedUnivariateDistribution(lambda x: np.exp(-x * x / 2),
+                                              2.0, 500),
+    ]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for d in dists:
+        s = d.sample(g, 1 << 16)
+        assert s.device.type == "cuda" and s.shape == (1 << 16, d.n_rvs)
+        assert bool(torch.isfinite(s).all()), type(d).__name__
+
+
+@pytest.mark.parametrize("path", chip_smoke.ZOO_PATHS, ids=lambda p: p[0])
+def test_model_zoo_paths_run_unfused_through_b2(cuda, path):
+    """Each model-zoo path at N = 2^16: its gate, no B1 launch (no tile),
+    B2 at least once per resample."""
+    name, make, window, gate = path
+    l1 = b1.fused_bayes_update.launches
+    l2 = b2.expand_sorted_segments.launches
+    w = window(make(1 << 16, 1, cuda))
+    ok, values = gate(w)
+    assert ok, (name, values)
+    assert w["updater"].particle_locations.device.type == "cuda"
+    assert b1.fused_bayes_update.launches == l1
+    assert b2.expand_sorted_segments.launches - l2 >= w["resamples"] > 0

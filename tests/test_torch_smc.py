@@ -289,7 +289,7 @@ def test_interop_static_objects():
     with pytest.raises(ValueError, match="noise kernel"):
         from_reference(qi.LiuWestResampler(kernel=lambda k, s: None))
     with pytest.raises(TypeError, match="no port counterpart"):
-        from_reference(qi.NDieModel())
+        from_reference(qi.ClusteringResampler())
 
 
 @pytest.mark.parametrize("obj,fields", [
