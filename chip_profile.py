@@ -6,10 +6,12 @@
 
 For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
 the PGH loops of config 1 and config 4's known-T2, the three model-zoo
-paths (``chip_smoke.ZOO_PATHS``), all at 2^20 particles, and the two
-trial ensembles, as ``chip_smoke.py`` runs them; ``--paths``
-picks some, and ``--paths`` with no name none) it prints one JSON line
-with:
+paths (``chip_smoke.ZOO_PATHS``), all at 2^20 particles, the two
+trial ensembles, and the four sharded paths (``SHARDED_NAMES``, on an
+NCCL process group of one rank, after one line of the host µs per
+collective and per scalar read there), as ``chip_smoke.py`` runs them;
+``--paths`` picks some, and ``--paths`` with no name none) it prints one
+JSON line with:
 
 - ``window_ms``: unprofiled windows, after one warm-up window;
 - ``no_resample_ms``: windows with ``resample_thresh=-1`` (no resampling);
@@ -19,8 +21,10 @@ with:
 - ``redraw_rounds_per_resample`` of the unprofiled windows;
 - one window under ``torch.profiler``: the device's busy time (the union
   of its kernel intervals), the idle share against the median unprofiled
-  window, the number of device events and of scalar reads to the host
-  (``aten::_local_scalar_dense``), and the eight largest device items.
+  window, the number of device events, of scalar reads to the host
+  (``aten::_local_scalar_dense``) and of collectives by name (``nccl:*``,
+  ``c10d::*``), the eight largest device items and the eight host ops
+  with the most host time of their own.
 
 ``--parent DIR ...`` also times B1's tiles (``chip_smoke.phase_timing_zoo``),
 B1's flagship tile and B2 at D = 1, 4, 16 (``chip_smoke.phase_timing``)
@@ -134,8 +138,60 @@ PATHS = {"flagship": flagship,
             for name, make, window, _ in cs.ZOO_PATHS}}
 
 
+# The sharded paths of chip_smoke.phase_sharded; main() runs them on an
+# NCCL process group of one rank (chip_smoke.nccl_world_one).
+SHARDED_NAMES = ("sharded_flagship", "sharded_flagship_ring",
+                 "sharded_config1_pgh", "sharded_config5_eig")
+
+
+def sharded_paths(mesh):
+    """The runners of ``SHARDED_NAMES`` on ``mesh``."""
+    def runner(kind, migration="all_gather"):
+        def run(seed, device, resample_thresh=None, resampler=None):
+            config = (None if resample_thresh is None else cs.qt.SMCConfig(
+                zero_weight_policy="reset", resample_thresh=resample_thresh))
+            kw = dict(config=config, resampler=resampler)
+            if kind == "flagship":
+                w = cs.sharded_flagship_window(mesh, migration, seed, 0,
+                                               device, **kw)
+            else:
+                w = cs.sharded_episode_window(mesh, kind, seed, device, **kw)
+            return w["seconds"], w["resamples"]
+        return run
+
+    return dict(zip(SHARDED_NAMES, (runner("flagship"),
+                                    runner("flagship", "ring"),
+                                    runner("pgh"), runner("eig"))))
+
+
+def collective_cost(device, iters=1000):
+    """Host µs per call on the one-rank NCCL group: ``all_reduce`` of a
+    0-d tensor, ``all_gather`` of a 1-element one into a list, and a
+    scalar read to the host (``float``), each ``iters`` calls in a row,
+    the device synchronised before and after."""
+    dist = cs.dist
+    x = torch.zeros((), device=device)
+    parts = [torch.zeros(1, device=device)]
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / iters
+
+    print(json.dumps({"collective_host_us": {
+        "all_reduce": per_call(lambda: dist.all_reduce(x)),
+        "all_gather": per_call(lambda: dist.all_gather(parts, x[None])),
+        "scalar_read": per_call(lambda: float(x + 1.0))}}), flush=True)
+
+
 def device_busy(prof):
-    """Busy ms (union of device intervals), events, scalar reads, top items."""
+    """Busy ms (union of device intervals), events, scalar reads, the
+    collectives by name, the top device items and the top host ops by
+    their own host time."""
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -147,12 +203,21 @@ def device_busy(prof):
         else:
             cur[1] = max(cur[1], b)
     busy += 0.0 if cur is None else cur[1] - cur[0]
-    top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:8]
+    averages = prof.key_averages()
+    top = sorted(averages, key=lambda k: -k.device_time_total)[:8]
+    host = sorted(averages, key=lambda k: -k.self_cpu_time_total)[:8]
+    collectives = {}
+    for e in events:
+        if e.name.startswith(("nccl:", "c10d::")):
+            collectives[e.name] = collectives.get(e.name, 0) + 1
     return {"busy_ms": busy / 1e3, "device_events": len(spans),
             "scalar_reads": sum(e.name == "aten::_local_scalar_dense"
                                 for e in events),
+            "collectives": collectives,
             "top": [(k.key[:60], k.device_time_total / 1e3, k.count)
-                    for k in top]}
+                    for k in top],
+            "host_top": [(k.key[:60], k.self_cpu_time_total / 1e3, k.count)
+                         for k in host]}
 
 
 def profile_path(name, run, device):
@@ -377,7 +442,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", nargs="+", default=[],
                     help="trees to time the kernels against")
-    ap.add_argument("--paths", nargs="*", choices=sorted(PATHS),
+    ap.add_argument("--paths", nargs="*",
+                    choices=sorted(PATHS) + list(SHARDED_NAMES),
                     help="profile only these paths (default: all)")
     ap.add_argument("--b2-forms", action="store_true",
                     help="time B2's two forms at each width")
@@ -399,6 +465,14 @@ def main():
     for name, run in PATHS.items():
         if args.paths is None or name in args.paths:
             profile_path(name, run, device)
+    sharded = [n for n in SHARDED_NAMES
+               if args.paths is None or n in args.paths]
+    if sharded:
+        with cs.nccl_world_one(device) as mesh:
+            collective_cost(device)
+            runners = sharded_paths(mesh)
+            for name in sharded:
+                profile_path(name, runners[name], device)
     if args.parent:
         compare_tiles(args.parent)
     if args.b2_forms:

@@ -90,13 +90,39 @@ Phases, in order; any failure exits non-zero before the result line:
    Then (``phase_samplers``) the samplers that loop per draw on the card
    (the multinomial ladder, Beta, BetaBinomial, Poisson) against their
    exact means at 2^20 draws, and two binomial calls in a row uncorrelated.
-12. timing: each kernel against its plain version at 2^20, with CUDA
+12. distributed layer (``qinfer_tpu_torch.parallel``). First
+   (``phase_compare_sharded``) B2 on every rank's window of a 2^20 bank
+   spread over K ∈ {2, 4, 8} ranks (``shard_windows``: the all-gather
+   migration's starts, one bank's, shifted by each window's origin and
+   clamped at 0), D ∈ {1, 4}, three weight kinds: each window bit-equal
+   to its plain version in the wrapper's form and in the rows form
+   forced, and the windows together bit-equal to one bank's
+   ``systematic_expand``; and B1's raw statistics (``return_stats``) on K
+   slices merged as the sharded step merges them, within ``B1_TOL`` of
+   the one-bank launch (precession and born4). Then (``phase_sharded``)
+   an NCCL process group of one rank (a file store in a temporary
+   directory, destroyed whatever happens) runs four paths at 2^20, one
+   JSON line each with the card: ``sharded_flagship`` (the flagship
+   record through ``make_sharded_update_step``, all-gather migration; a
+   warm-up and three gated windows; B1 once per update, B2 at least once
+   per resample), ``sharded_flagship_ring`` (one window, ring migration,
+   B2 0 times), ``sharded_config1_pgh`` and ``sharded_config5_eig``
+   (``make_sharded_adaptive_episode`` with the sharded PGH and greedy EIG
+   proposes, gated as config 1's PGH loop and config 5). Then
+   (``phase_aux``) ``ThroughputMeter``, ``trace`` and ``annotate`` around
+   one flagship window (a non-empty trace holding the annotation), and a
+   CUDA updater's ``save_npz`` → ``load_npz`` → ``batch_update`` bit-equal
+   to the uninterrupted run.
+13. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
    Born tiles of the paths; B2 at D = 1, 2, 3, 4 and 16, and beside it
    ``torch.repeat_interleave`` (the pick without the affine); the batched
    B1 in both ensemble regimes; the batched B2 on the inputs of each
    regime's median resample (``B2Capture``), checked bit-equal to its plain
-   version there too. Each timing of a dispatched form that replaced
+   version there too; B2 on rank 1's window of a bank over 4 ranks
+   (n_in = 2^20, n_out = 2^18, D = 1) beside ``repeat_interleave`` over
+   the window's counts, and B1 with ``return_stats`` (precession, born4).
+   Each timing of a dispatched form that replaced
    another (B1's one launch, B2's merge path) times the old form in the
    same turns (B1 two passes, B2 rows), printed with the form and grid
    the wrapper took on earlier JSON lines.
@@ -113,22 +139,29 @@ its bytes and operations, and the library call's time or null) and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
+import datetime
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import qinfer_tpu_torch as qt
 from qinfer_tpu_torch import _build
+from qinfer_tpu_torch import parallel as par
 from qinfer_tpu_torch import tomography as tomo
 from qinfer_tpu_torch.ops import fused_update as b1
 from qinfer_tpu_torch.ops import resample_expand as b2
+from qinfer_tpu_torch.parallel import sharded_smc
 from qinfer_tpu_torch.resamplers import systematic_segment_starts
 
 N_FLAGSHIP = 1 << 20
@@ -1689,6 +1722,363 @@ def phase_model_zoo(device):
     return launches
 
 
+
+# -- the distributed layer (qinfer_tpu_torch.parallel) --------------------------
+
+SHARD_KS = (2, 4, 8)  # ranks whose windows the compare phase checks
+SHARD_DS = (1, 4)
+
+
+def shard_windows(log_w, k_shards, u0):
+    """The starts of a bank split over ``k_shards`` ranks, as the sharded
+    step's all-gather migration computes them on every rank (one bank's
+    ``systematic_segment_starts``), and each rank's window of them: the
+    starts shifted by the window's origin k·n_local and clamped at 0, what
+    its B2 launch takes. Returns (starts (N,), the K windows)."""
+    n_local = log_w.shape[0] // k_shards
+    starts = systematic_segment_starts(log_w, log_w.shape[0], u0=u0)
+    return starts, [torch.clamp(starts - k * n_local, min=0)
+                    for k in range(k_shards)]
+
+
+def merge_lse(values):
+    """``sharded_smc._merge_lse``'s arithmetic over the K ranks' values,
+    in one process: the max, then the sum of exp(value − max)."""
+    m = torch.amax(values)
+    return m + torch.log(torch.sum(torch.exp(values - m)))
+
+
+def phase_compare_sharded(device):
+    """B2 on the K ranks' windows (K ∈ SHARD_KS, D ∈ SHARD_DS, the three
+    weight kinds of ``_weights``, 2^20 rows): each window's launch, in the
+    wrapper's form and in the rows form forced, bit-equal to its plain
+    version, and the K windows' rows together bit-equal to the one-bank
+    ``systematic_expand`` at the same u0. B1 per shard: ``return_stats``
+    on K slices (precession and born4), merged as ``_merge_lse`` merges,
+    within B1_TOL of the one-bank launch, the slices' raw lw bit-equal to
+    the one-bank raw lw. Raises on any mismatch; returns the worst errors
+    {"precession", "born4", "B2"}."""
+    worst = {"precession": 0.0, "born4": 0.0, "B2": 0.0}
+    rng = np.random.default_rng(5)
+    n = N_FLAGSHIP
+    for d in SHARD_DS:
+        vals = torch.as_tensor(rng.standard_normal((n, d)),
+                               dtype=torch.float32, device=device)
+        shift = 0.02 * torch.as_tensor(rng.standard_normal(d),
+                                       dtype=torch.float32, device=device)
+        aff = b2._affine(0.98, shift, d, device)
+        for kind in ("random", "degenerate", "single_heavy"):
+            log_w = torch.as_tensor(_weights(kind, n, rng), device=device)
+            one = b2.systematic_expand(log_w, vals, scale=0.98, shift=shift,
+                                       u0=0.37)
+            for k_shards in SHARD_KS:
+                n_local = n // k_shards
+                windows = shard_windows(log_w, k_shards, 0.37)[1]
+                outs, same = [], True
+                for shifted in windows:
+                    out_k = b2.expand_sorted_segments(
+                        shifted, vals, n_out=n_local, scale=0.98, shift=shift)
+                    out_r = b2._expand_cuda_batched(
+                        shifted[None], vals[None], n_local, aff[None],
+                        form=b2.ROWS)[0]
+                    out_p = b2.expand_plain(shifted, vals, n_local, aff)
+                    same &= torch.equal(out_k, out_p) and torch.equal(out_r,
+                                                                      out_p)
+                    worst["B2"] = max(worst["B2"], float(
+                        torch.max(torch.abs(out_k - out_p))))
+                    outs.append(out_k)
+                whole = torch.equal(torch.cat(outs), one)
+                print(f"B2 sharded K={k_shards} D={d} {kind}: windows "
+                      f"(form {b2.kernel_form(d, n + n_local)} and rows) "
+                      f"{'bit-equal' if same else 'DIFFER'} to plain, "
+                      f"together {'bit-equal' if whole else 'DIFFERENT'} "
+                      f"to one bank")
+                if not (same and whole):
+                    raise AssertionError(f"B2 on a shard window differs: "
+                                         f"K={k_shards} D={d} {kind}")
+    omega, lw = _b1_inputs(n, 11, device)
+    cases = {"precession": (b1.two_outcome_tile(b1.precession_pr1),
+                            torch.tensor([1.0, 17.3], device=device), lw,
+                            (omega,)),
+             "born4": tomo_inputs(TOMO[0], n, 11, device)}
+    for name, (tile, scal, lw, cols) in cases.items():
+        lw_1, ln_1, ess_1 = b1.fused_bayes_update(tile, scal, lw, cols)
+        raw_1 = b1.fused_bayes_update(tile, scal, lw, cols,
+                                      return_stats=True)[0]
+        for k_shards in SHARD_KS:
+            blocks = [slice(k * (n // k_shards), (k + 1) * (n // k_shards))
+                      for k in range(k_shards)]
+            parts = [b1.fused_bayes_update(tile, scal, lw[b],
+                                           tuple(c[b] for c in cols),
+                                           return_stats=True)
+                     for b in blocks]
+            raw = torch.cat([p[0] for p in parts])
+            log_norm = merge_lse(torch.stack([p[1] for p in parts]))
+            lse2 = merge_lse(torch.stack([p[2] for p in parts]))
+            ess = torch.exp(-(lse2 - 2.0 * log_norm))
+            torch.cuda.synchronize()
+            err = float(torch.max(torch.abs((raw - log_norm) - lw_1)))
+            ln_err = abs(float(log_norm) - float(ln_1))
+            ess_rel = abs(float(ess) / float(ess_1) - 1.0)
+            raw_same = torch.equal(raw, raw_1)
+            ok = (err <= B1_TOL["lw_atol"] and ln_err <= B1_TOL["log_norm_atol"]
+                  and ess_rel <= B1_TOL["ess_rtol"] and raw_same)
+            print(f"B1 {name} sharded K={k_shards}: max|dlw|={err:.3g} "
+                  f"|dlog_norm|={ln_err:.3g} ess_rel={ess_rel:.3g}, raw lw "
+                  f"{'bit-equal' if raw_same else 'DIFFERS'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"B1's merged shard statistics disagree "
+                                     f"with one bank: {name} K={k_shards}")
+            worst[name] = max(worst[name], err, ln_err)
+    return worst
+
+
+N_SHARDED_EPISODE_SEEDS = (0, 1, 2, 3)  # the warm-up window's, then three
+
+
+def _sharded_setup(config, resampler):
+    """The sharded paths' config and resampler unless given."""
+    return (qt.SMCConfig(zero_weight_policy="reset") if config is None
+            else config,
+            qt.LiuWestResampler(a=0.98) if resampler is None else resampler)
+
+
+def sharded_flagship_window(mesh, migration, seed, record_seed, device,
+                            config=None, resampler=None):
+    """The flagship record (``experiment_record``) through
+    ``make_sharded_update_step`` on this rank's block of a 2^20 bank
+    (``config`` and ``resampler`` replace the path's when given)."""
+    model = qt.SimplePrecessionModel()
+    config, resampler = _sharded_setup(config, resampler)
+    step = par.make_sharded_update_step(mesh, model, resampler, config,
+                                        migration=migration)
+    group = mesh.get_group(par.PARTICLE_AXIS)
+    ts, outcomes = experiment_record(N_EXP, record_seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = par.shard_state(qt.init_smc_state(
+        g, model, N_FLAGSHIP, qt.UniformDistribution([0, 1])), mesh)
+    ts = torch.as_tensor(ts, device=device)
+    outcomes = torch.as_tensor(outcomes, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(N_EXP):
+        state, _ = step(state, outcomes[i], {"t": ts[i:i + 1]})
+    mu = sharded_smc.sharded_moments(state.particle_log_weights,
+                                     state.particle_locations, group)[0]
+    est = float(mu[0])  # forces the window to finish
+    seconds = time.perf_counter() - t0
+    finite = bool(torch.isfinite(state.particle_locations).all())
+    return {"seconds": seconds, "est": est,
+            "resamples": int(state.n_resamples),
+            "ok": finite and abs(est - TRUE_OMEGA) < GATE,
+            "gate": {"est": est, "finite": finite}}
+
+
+def sharded_episode_window(mesh, kind, seed, device, config=None,
+                           resampler=None):
+    """One window of ``make_sharded_adaptive_episode`` on a 2^20 bank:
+    ``kind`` "pgh" is config 1's loop (PGH, ω = 0.512, 100 steps, gate
+    |est − ω| < 6σ + 1e-3), "eig" config 5's (greedy EIG over the three
+    effects, 80 steps, the config-5 gate). The simulator draws from a
+    replicated generator seeded ``seed + 1``. ``config`` and
+    ``resampler`` replace the path's when given."""
+    group = mesh.get_group(par.PARTICLE_AXIS)
+    config, resampler = _sharded_setup(config, resampler)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "pgh":
+        model, truth, n_steps = qt.SimplePrecessionModel(), [[0.512]], 100
+        prior = qt.UniformDistribution([0, 1])
+        propose = par.make_sharded_pgh_propose(mesh)
+    else:
+        model, truth = tomo.TomographyModel(PAULI1), TRUE_X_1Q
+        n_steps, prior = N_STEPS_1Q, tomo.GinibreDistribution(PAULI1)
+        propose = par.make_sharded_greedy_propose(
+            mesh, model, {"meas": EFFECTS_1Q})
+    episode = par.make_sharded_adaptive_episode(
+        mesh, model, resampler, config, propose, truth, n_steps)
+    state = par.shard_state(qt.init_smc_state(g, model, N_FLAGSHIP, prior),
+                            mesh)
+    sim = torch.Generator(device=device).manual_seed(seed + 1)
+    _sync(device)
+    t0 = time.perf_counter()
+    state, rec = episode(state, sim)
+    mu, cov = sharded_smc.sharded_moments(state.particle_log_weights,
+                                          state.particle_locations, group)
+    mean, cov = mu.cpu().numpy(), cov.cpu().numpy()  # forces the window
+    seconds = time.perf_counter() - t0
+    finite = bool(torch.isfinite(state.particle_locations).all())
+    shapes = (tuple(rec["log_norm"].shape) == (n_steps,)
+              and tuple(rec["est_mean"].shape) == (n_steps, len(mean)))
+    if kind == "pgh":
+        sd = float(np.sqrt(cov[0, 0]))
+        err = abs(float(mean[0]) - 0.512)
+        ok = finite and shapes and err < 6 * sd + 1e-3
+        gate = {"est": float(mean[0]), "sd": sd}
+    else:
+        spread = float(np.sqrt(np.trace(cov)))
+        err = float(np.linalg.norm(mean - TRUE_X_1Q))
+        physical = bool(model.are_models_valid(torch.as_tensor(
+            mean[None]))[0])
+        ig = par.make_sharded_expdesign(mesh, model)[1](
+            state, {"meas": torch.as_tensor(EFFECTS_1Q, device=device)})
+        igs = bool(ig.shape == (3,) and torch.isfinite(ig).all())
+        ok = (finite and shapes and physical and igs
+              and err < Z_1Q * spread and spread < SPREAD_1Q)
+        meas = rec["expparams"]["meas"].cpu().numpy()
+        chosen = np.argmin(np.abs(meas[:, None] - EFFECTS_1Q[None]).sum(-1),
+                           axis=1)
+        gate = {"err": err, "spread": spread, "physical": physical,
+                "final_ig": ig.tolist(),
+                "choices": np.bincount(chosen, minlength=3).tolist()}
+    return {"seconds": seconds, "resamples": int(state.n_resamples),
+            "ok": ok, "gate": gate}
+
+
+def _sharded_path(name, window, n_windows, n_updates, smi, warm_up=True,
+                  ring=False):
+    """One sharded path: a warm-up window (``window(0)``) unless told
+    otherwise, then ``n_windows`` timed windows (``window(1)``, …) with
+    every counter set to 0 just before them and read just after. Every
+    window is gated; B1 must launch once per update, B2 at least once per
+    resample (never on the ring). One JSON line; returns the counts."""
+    warm = [window(0)] if warm_up else []
+    _reset_counters()
+    windows = [window(i + 1) for i in range(n_windows)]
+    counts, rounds = _read_counters()
+    ms = [1e3 * w["seconds"] for w in windows]
+    resamples = [w["resamples"] for w in windows]
+    print(json.dumps({
+        "path": name, "n_particles": N_FLAGSHIP, "world_size": 1,
+        "card": smi, "ok": [w["ok"] for w in warm + windows],
+        "window_ms_median": statistics.median(ms),
+        "window_ms_range": [min(ms), max(ms)], "window_ms": ms,
+        "particle_updates_per_s":
+            N_FLAGSHIP * n_updates / statistics.median(ms) * 1e3,
+        "resamples": resamples, "redraw_rounds": rounds,
+        "gate_values": [w["gate"] for w in warm + windows],
+        "launches": counts}))
+    if not all(w["ok"] for w in warm + windows):
+        raise AssertionError(f"{name}: gate failed")
+    if counts["B1"] != n_updates * n_windows:
+        raise AssertionError(f"{name}: B1 launched {counts['B1']} times, "
+                             f"expected one per update "
+                             f"({n_updates * n_windows})")
+    if ring and counts["B2"] != 0:
+        raise AssertionError(f"{name}: B2 launched {counts['B2']} times on "
+                             "the ring, which never takes it")
+    if not ring and (sum(resamples) == 0 or counts["B2"] < sum(resamples)):
+        raise AssertionError(f"{name}: B2 launched {counts['B2']} times for "
+                             f"{sum(resamples)} resamples")
+    return counts
+
+
+def phase_sharded(device, smi):
+    """The sharded paths at 2^20 on an NCCL process group of one rank
+    (a file store in a temporary directory), destroyed at the end whatever
+    happens: ``sharded_flagship`` (all-gather migration: a warm-up and
+    three gated windows), ``sharded_flagship_ring`` (one window, ring
+    migration), ``sharded_config1_pgh`` and ``sharded_config5_eig``
+    (``make_sharded_adaptive_episode``: a warm-up and three windows each).
+    Returns the launch counts by path."""
+    with nccl_world_one(device) as mesh:
+
+        def flagship(migration):
+            return lambda i: sharded_flagship_window(
+                mesh, migration, 1000 * i if i else 10_000, max(i - 1, 0),
+                device)
+
+        def episode(kind):
+            return lambda i: sharded_episode_window(
+                mesh, kind, N_SHARDED_EPISODE_SEEDS[i], device)
+
+        return {
+            "sharded_flagship": _sharded_path(
+                "sharded_flagship", flagship("all_gather"), 3, N_EXP, smi),
+            "sharded_flagship_ring": _sharded_path(
+                "sharded_flagship_ring", flagship("ring"), 1, N_EXP, smi,
+                warm_up=False, ring=True),
+            "sharded_config1_pgh": _sharded_path(
+                "sharded_config1_pgh", episode("pgh"), 3, N_PGH_STEPS, smi),
+            "sharded_config5_eig": _sharded_path(
+                "sharded_config5_eig", episode("eig"), 3, N_STEPS_1Q, smi),
+        }
+
+
+@contextlib.contextmanager
+def nccl_world_one(device):
+    """An NCCL process group of one rank on ``device`` (a file store in a
+    temporary directory), destroyed on exit whatever happens; yields the
+    particle mesh."""
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            yield par.make_particle_mesh()
+        finally:
+            dist.destroy_process_group()
+
+
+_STATE_ARRAYS = ("particle_locations", "particle_log_weights", "n_resamples",
+                 "min_n_ess", "log_total_likelihood", "n_zero_weight_events")
+
+
+def phase_aux(device):
+    """The auxiliary modules on the card: ``ThroughputMeter``, ``trace``
+    and ``annotate`` around one flagship window (the trace written, non-
+    empty, holding the annotation), and a CUDA updater stopped half-way
+    through the flagship record, written by ``save_npz``, read by
+    ``load_npz`` into another updater and run on: its state bit-equal to
+    the uninterrupted run's, resamples after the load included. One JSON
+    line."""
+    from qinfer_tpu_torch import checkpointing, profiling
+
+    ts, outcomes = experiment_record(N_EXP, 0)
+    half = N_EXP // 2
+
+    def updater(seed):
+        return qt.SMCUpdater(qt.SimplePrecessionModel(), N_FLAGSHIP,
+                             qt.UniformDistribution([0, 1]),
+                             zero_weight_policy="reset", seed=seed,
+                             device=device)
+
+    meter = profiling.ThroughputMeter()
+    u = updater(21)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with meter.measure(N_FLAGSHIP * N_EXP,
+                               sync=u.particle_log_weights):
+                with profiling.annotate("flagship_window"):
+                    u.batch_update(outcomes, {"t": ts})
+        trace_file = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(trace_file)
+        with open(trace_file) as f:
+            events = json.load(f)["traceEvents"]
+        a = updater(22)
+        a.batch_update(outcomes[:half], {"t": ts[:half]})
+        at_save = a.resample_count
+        checkpointing.save_npz(os.path.join(tmp, "ckpt.npz"), a)
+        b = checkpointing.load_npz(os.path.join(tmp, "ckpt.npz"), updater(23))
+    for x in (a, b):
+        x.batch_update(outcomes[half:], {"t": ts[half:]})
+    same = all(torch.equal(getattr(a.state, f), getattr(b.state, f))
+               for f in _STATE_ARRAYS)
+    est = float(u.est_mean()[0])
+    annotated = any(e.get("name") == "flagship_window" for e in events)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    ok = (size > 0 and annotated and abs(est - TRUE_OMEGA) < GATE and same
+          and a.resample_count > at_save)
+    print(json.dumps({"aux": {
+        "ok": ok, "meter": meter.report(), "trace_bytes": size,
+        "trace_annotated": annotated, "trace_kernel_events": kernels,
+        "est": est, "resume_bit_equal": same,
+        "resamples_after_load": a.resample_count - at_save}}))
+    if not ok:
+        raise AssertionError("an auxiliary module failed on the card")
+
+
 SAMPLER_N = 1 << 20
 SAMPLER_Z = 5.0
 
@@ -1987,6 +2377,51 @@ def phase_timing_batched(device, b2_inputs):
     return times
 
 
+def phase_timing_sharded(device):
+    """B2 on rank 1's window of a bank over 4 ranks (n_in = 2^20, n_out =
+    2^18, D = 1) beside its plain version and ``repeat_interleave`` over
+    the window's counts, its bound from the starts this window needs (the
+    last at 0 to the first past it) and the rows they pick; and B1 with
+    ``return_stats`` (the sharded step's call) for the precession and
+    born4 tiles at 2^20."""
+    n = N_FLAGSHIP
+    n_local = n // 4
+    rng = np.random.default_rng(1)
+    log_w = torch.as_tensor(_weights("random", n, rng), device=device)
+    shifted = shard_windows(log_w, 4, 0.37)[1][1]
+    vals = torch.rand((n, 1), device=device)
+    affine = b2._affine(0.98, 0.02 * vals.mean(0), 1, device)
+    edges = torch.tensor([0, n_local], dtype=torch.int32, device=device)
+    lo = int(torch.searchsorted(shifted, edges[:1], right=True)) - 1
+    hi = int(torch.searchsorted(shifted, edges[1:]))  # first past the window
+    needed = shifted[lo:hi]
+    times = {"B2_window": _alternate(
+        lambda: b2.expand_plain(shifted, vals, n_local, affine),
+        lambda: b2._expand_cuda(shifted, vals, n_local, affine),
+        _repeat_interleave(needed, vals[lo:hi], n_local),
+        old=lambda: b2._expand_cuda_batched(
+            shifted[None], vals[None], n_local, affine[None], form=b2.ROWS))}
+    times["B2_window"]["work"] = b2_work(needed, 1, n_local)
+    times["B2_window"]["form"] = b2.kernel_form(1, n + n_local)
+    omega, lw = _b1_inputs(n, 7, device)
+    cases = {"B1_stats": (b1.two_outcome_tile(b1.precession_pr1),
+                          torch.tensor([1.0, 17.3], device=device), lw,
+                          (omega,)),
+             "born4_stats": tomo_inputs(TOMO[0], n, 7, device)}
+    for name, (tile, scal, lw, cols) in cases.items():
+        times[name] = _alternate(
+            lambda: b1.fused_update_plain(tile, scal, lw, cols)[:3],
+            lambda: b1.fused_bayes_update(tile, scal, lw, cols,
+                                          return_stats=True))
+        times[name]["work"] = b1_work(len(cols), n)
+    print(json.dumps({"sharded_ms": {
+        name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+               "library_ms": t["library_ms"], "old_ms": t["old_ms"],
+               "bound_ms": bound(t["work"])[0]}
+        for name, t in times.items()}}))
+    return times
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, t):
     """One entry of the kernels line from a timing record ``t``."""
     bound_ms, bound_by = bound(t["work"])
@@ -2004,7 +2439,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    phase_device()
+    smi = phase_device()
     phase_build()
     err = {"B1": phase_compare_b1(device), "B2": phase_compare_b2(device)}
     zoo_err = phase_compare_zoo(device)
@@ -2022,9 +2457,13 @@ def main():
     api_launches = phase_engine_api(device)
     zoo_launches = phase_model_zoo(device)
     phase_samplers(device)
+    sharded_err = phase_compare_sharded(device)
+    sharded_launches = phase_sharded(device, smi)
+    phase_aux(device)
     times = phase_timing(device)
     zoo_times = phase_timing_zoo(device)
     batched_times = phase_timing_batched(device, b2_inputs)
+    sharded_times = phase_timing_sharded(device)
     src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
     src2 = "qinfer_tpu_torch/csrc/resample_expand.cu"
     b1_line = "qinfer_tpu/ops/fused_update.py:{}".format
@@ -2086,6 +2525,23 @@ def main():
         for d, name, timing in ((1, "random_walk_tracking", "B2"),
                                 (2, "gaussian_walk_drift", "B2[D=2]"),
                                 (3, "multinomial_die", "B2[D=3]"))]
+    precession_paths = ("sharded_flagship", "sharded_flagship_ring",
+                        "sharded_config1_pgh")
+    kernels += [
+        kernel_row("fused_bayes_update[precession, sharded, return_stats]",
+                   src1, b1_line(36),
+                   sum(sharded_launches[p]["B1"] for p in precession_paths),
+                   sharded_err["precession"], sharded_times["B1_stats"]),
+        kernel_row("fused_bayes_update[born4, sharded episode]", src1,
+                   b1_line(347), sharded_launches["sharded_config5_eig"]["B1"],
+                   sharded_err["born4"], sharded_times["born4_stats"]),
+        kernel_row("expand_sorted_segments[sharded window]", src2, b2_kernel,
+                   sum(sharded_launches[p]["B2"] for p in precession_paths),
+                   sharded_err["B2"], sharded_times["B2_window"]),
+        kernel_row("expand_sorted_segments[D=4, sharded episode]", src2,
+                   b2_kernel, sharded_launches["sharded_config5_eig"]["B2"],
+                   sharded_err["B2"], times["B2[D=4]"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,12 +29,20 @@ and the rest of the model zoo: vector outcomes (``MultinomialModel`` over
 ``NDieModel``, on ``MultinomialDomain``), the time-dependent
 ``RandomWalkModel`` and ``GaussianRandomWalkModel``, ``MLEModel`` and
 ``ReferencedPoissonModel``, which the SMC step updates unfused, with the
-domains and every distribution of the JAX package.
+domains and every distribution of the JAX package; and the distributed
+layer (``parallel``: the sharded SMC step over the ranks of a
+``torch.distributed`` process group, distributed systematic resampling,
+sharded design and adaptive episodes, ``DirectViewParallelizedModel``);
+and the auxiliary modules: ``checkpointing``, ``profiling``
+(``ThroughputMeter``, ``trace``, ``annotate``), ``clustering`` and
+``metrics`` with ``ClusteringResampler`` and the cluster estimators (on
+the host, with scikit-learn), ``ipy`` and ``version``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 It imports ``torch`` and never ``jax``.
 """
 
-from ._exceptions import ApproximationWarning
+from .version import __version__
+from ._exceptions import ApproximationWarning, ResamplerError, ResamplerWarning
 from .domains import Domain, IntegerDomain, MultinomialDomain, RealDomain
 from .distributions import (
     BetaBinomialDistribution,
@@ -95,7 +103,7 @@ from .models import (
     rb,
 )
 from .perf_testing import perf_test, perf_test_multiple, run_episodes, timing
-from .resamplers import LiuWestResampler, Resampler
+from .resamplers import ClusteringResampler, LiuWestResampler, Resampler
 from .score import ScoreMixin
 from .simple_est import load_data_or_txt, simple_est_prec, simple_est_rb
 from .smc import (
@@ -113,10 +121,16 @@ from .smc import (
     smc_update_step,
     smc_update_step_batched,
 )
-from . import tomography, utils
+from .clustering import NOISE, particle_clusters
+from .ipy import IPythonProgressBar
+from .metrics import rescaled_distance_mtx, weighted_pairwise_distances
+from .profiling import ThroughputMeter, annotate, trace
+from .parallel import DirectViewParallelizedModel
+from . import checkpointing, parallel, tomography, utils
 
 __all__ = [
-    "ApproximationWarning",
+    "__version__",
+    "ApproximationWarning", "ResamplerWarning", "ResamplerError",
     "Domain", "RealDomain", "IntegerDomain", "MultinomialDomain",
     "Distribution", "SingleSampleMixin", "UniformDistribution",
     "MVUniformDistribution", "DiscreteUniformDistribution",
@@ -140,11 +154,16 @@ __all__ = [
     "RandomizedBenchmarkingModel", "rb",
     "ALEApproximateModel", "binom_est_p", "binom_est_error",
     "FiniteDifference", "ScoreMixin",
-    "Resampler", "LiuWestResampler",
+    "Resampler", "LiuWestResampler", "ClusteringResampler",
     "SMCConfig", "SMCState", "SMCUpdater", "SMCUpdaterBCRB",
     "MixedApproximateSMCUpdater", "init_smc_state",
     "smc_update_step", "smc_batch_update", "hypothetical_log_update",
     "init_batched_smc_state", "smc_update_step_batched",
     "bayes_risk_fn", "expected_information_gain_fn",
+    "particle_clusters", "NOISE",
+    "rescaled_distance_mtx", "weighted_pairwise_distances",
+    "IPythonProgressBar", "checkpointing", "ThroughputMeter", "trace",
+    "annotate",
+    "DirectViewParallelizedModel", "parallel",
     "tomography", "utils",
 ]

@@ -1,4 +1,5 @@
-"""Warning types. Counterpart of ``qinfer_tpu/_exceptions.py``."""
+"""Warning and exception types. Counterpart of
+``qinfer_tpu/_exceptions.py``."""
 
 
 class ApproximationWarning(Warning):
@@ -6,3 +7,11 @@ class ApproximationWarning(Warning):
 
     Counterpart of ``qinfer_tpu._exceptions.ApproximationWarning``.
     """
+
+
+class ResamplerWarning(Warning):
+    """Flags resampler irregularities (e.g. postselection exhaustion)."""
+
+
+class ResamplerError(RuntimeError):
+    """Raised when resampling cannot produce valid particles."""

@@ -4,7 +4,11 @@
 example ``jax.tree_util.tree_map(np.asarray, state)``, or a dict with the
 same field names) and returns this package's ``SMCState``;
 ``state_to_numpy`` goes back to a dict of numpy arrays. The JAX key is not
-carried: the port seeds its own ``torch.Generator``.
+carried: the port seeds its own ``torch.Generator``. ``shard_from_numpy``
+carries the same state to one rank's block of a bank spread over a mesh
+(``state_from_numpy`` and then ``parallel.shard_state``), so that a test
+can feed the JAX package's ``shard_map`` step and the port's sharded step
+one bank.
 
 ``from_reference`` converts the ported static objects by their fields:
 - the models of ``models/`` (``AcceleratedPrecessionModel`` included),
@@ -23,7 +27,8 @@ carried: the port seeds its own ``torch.Generator``.
   turn; ``InterpolatedUnivariateDistribution`` keeps the same ``pdf``
   callable, which must take NumPy scalars; ``ParticleDistribution`` by
   its locations and log-weights;
-- ``LiuWestResampler`` and ``SMCConfig``
+- ``LiuWestResampler``, ``ClusteringResampler`` (with its secondary
+  resampler converted in turn) and ``SMCConfig``
   (``SMCConfig.canonicalize``, which the JAX engine never reads, is not
   carried);
 - from ``tomography/`` the bases (by ``data``, ``dims``, ``labels``),
@@ -48,10 +53,11 @@ import torch
 
 from . import distributions as dists
 from . import domains, heuristics, models, tomography
-from .resamplers import LiuWestResampler
+from .resamplers import ClusteringResampler, LiuWestResampler
 from .smc import SMCConfig, SMCState
 
-__all__ = ["state_from_numpy", "state_to_numpy", "from_reference"]
+__all__ = ["state_from_numpy", "state_to_numpy", "shard_from_numpy",
+           "from_reference"]
 
 _STATE_DTYPES = {
     "particle_locations": torch.float32,
@@ -82,6 +88,15 @@ def state_from_numpy(d, device="cpu", generator=None, seed=0) -> SMCState:
 
     return SMCState(generator=generator,
                     **{name: field(name) for name in _STATE_DTYPES})
+
+
+def shard_from_numpy(d, mesh, device="cpu", generator=None, seed=0):
+    """This rank's block of the JAX state's bank on ``mesh`` (see
+    ``parallel.shard_state``); ``generator``/``seed`` as in
+    ``state_from_numpy``, alike on every rank."""
+    from .parallel import shard_state
+
+    return shard_state(state_from_numpy(d, device, generator, seed), mesh)
 
 
 def state_to_numpy(state: SMCState) -> dict:
@@ -244,6 +259,10 @@ _CONVERTERS = {
     "GinibreUniform": lambda obj: tomography.GinibreUniform(
         rank=obj.rank, dim=obj.basis.dim),
     "LiuWestResampler": _resampler,
+    "ClusteringResampler": lambda obj: ClusteringResampler(
+        eps=obj.eps, min_particles=obj.min_particles,
+        secondary_resampler=from_reference(obj.secondary_resampler),
+        weighted=obj.weighted, quiet=obj.quiet),
     "ExpSparseHeuristic": _exp_sparse,
     "PGH": _pgh,
     "SMCConfig": lambda obj: SMCConfig(

@@ -1,10 +1,11 @@
 """Resamplers on torch tensors.
 
 Counterpart of ``qinfer_tpu/resamplers.py``: the integer-quantized
-systematic segment starts, the systematic and multinomial index draws, and
-``LiuWestResampler``. Randomness comes from an explicit ``torch.Generator``;
-the stratum offset ``u0`` and the smear noise (the ``kernel=`` hook) can be
-injected, which is how the tests feed both packages the same draws.
+systematic segment starts, the systematic and multinomial index draws,
+``LiuWestResampler`` and the host-side ``ClusteringResampler``. Randomness
+comes from an explicit ``torch.Generator``; the stratum offset ``u0`` and
+the smear noise (the ``kernel=`` hook) can be injected, which is how the
+tests feed both packages the same draws.
 
 Not ported, on purpose: ``systematic_pick_blocked`` and the three-level
 ``exact_int_cumsum`` exist for the TPU's slow gathers and scans. Here the
@@ -37,6 +38,7 @@ from .utils import (
 __all__ = [
     "Resampler",
     "LiuWestResampler",
+    "ClusteringResampler",
     "systematic_segment_starts",
     "systematic_segment_starts_batched",
     "systematic_resample_indices",
@@ -277,3 +279,50 @@ class LiuWestResampler(Resampler):
         # tomography it is a batched eigh per row).
         bad = torch.nonzero(~ok).squeeze(1)
         return new_locs.index_copy(0, bad, model.canonicalize(new_locs[bad]))
+
+
+class ClusteringResampler(Resampler):
+    """Resample within DBSCAN clusters, so that a multimodal posterior
+    keeps each mode's local moments: the secondary resampler (a
+    ``LiuWestResampler`` by default) runs on each cluster's particles with
+    their renormalized weights, taking its draws from the one generator
+    in cluster order; the noise particles are left as they are.
+
+    Counterpart of the JAX package's ``ClusteringResampler`` ([unverified]
+    against upstream qinfer, as there). The clustering runs on the host
+    (scikit-learn), so ``host_side`` is True: ``SMCUpdater`` then resamples
+    after the step, on the host's decision.
+    """
+
+    host_side = True
+
+    def __init__(self, eps=0.5, min_particles=5, secondary_resampler=None,
+                 weighted=False, quiet=True):
+        self.eps = eps
+        self.min_particles = min_particles
+        self.secondary_resampler = (secondary_resampler
+                                    if secondary_resampler is not None
+                                    else LiuWestResampler())
+        self.weighted = weighted
+        self.quiet = quiet
+
+    def __call__(self, generator, model, particle_locations,
+                 particle_log_weights, u0=None):
+        from .clustering import NOISE, particle_clusters
+
+        locs = particle_locations
+        w = torch.exp(normalize_log_weights(particle_log_weights)[0])
+        w_host = w.cpu().numpy()
+        new_locs = locs.clone()
+        for label, mask in particle_clusters(
+                locs, w_host, eps=self.eps, min_particles=self.min_particles,
+                weighted=self.weighted, quiet=self.quiet):
+            if label == NOISE:
+                continue
+            rows = torch.from_numpy(mask.nonzero()[0]).to(locs.device)
+            sub_w = w_host[mask]
+            sub_log_w = torch.log(torch.as_tensor(
+                sub_w / sub_w.sum(), dtype=torch.float32, device=locs.device))
+            new_locs[rows] = self.secondary_resampler(
+                generator, model, locs[rows], sub_log_w)
+        return new_locs

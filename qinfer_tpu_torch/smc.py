@@ -42,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._exceptions import ApproximationWarning
 from .distributions import Distribution, ParticleDistribution
@@ -186,16 +187,42 @@ def resample_state(model, resampler, state: SMCState) -> SMCState:
     )
 
 
-def hypothetical_log_update(model, state: SMCState, outcomes, expparams):
+def _psum(x, group, op=None):
+    """``x`` summed over the ranks of ``group`` (another ``ReduceOp`` with
+    ``op``), as a new tensor; ``x`` itself when ``group`` is None (one
+    bank). The counterpart of the JAX package's ``_psum``/``axis_name``."""
+    if group is None:
+        return x
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+    return out
+
+
+def _pmax(x, group):
+    return _psum(x, group, dist.ReduceOp.MAX)
+
+
+def hypothetical_log_update(model, state: SMCState, outcomes, expparams,
+                            group=None):
     """Log-space hypothetical update: (log_w_hyp[O, E, N], log_norm[O, E]),
     where log_norm[o, e] = log Pr(outcome o | expparam e) under the current
-    posterior and log_w_hyp is normalized over N."""
+    posterior and log_w_hyp is normalized over N.
+
+    ``group``: the bank is one rank's block of a bank spread over the
+    ranks of this process group (``qinfer_tpu_torch.parallel``); the
+    normalization is then a max and a sum across the ranks."""
     log_L = model.log_likelihood(outcomes, state.particle_locations,
                                  expparams)  # (O, N, E)
     # Lower clip only: log-densities may exceed 0.
     log_L = torch.clamp(log_L, min=_LOG_TINY)
     log_w_hyp = state.particle_log_weights[None, :, None] + log_L
-    log_norm = torch.logsumexp(log_w_hyp, dim=1)  # (O, E)
+    if group is None:
+        log_norm = torch.logsumexp(log_w_hyp, dim=1)  # (O, E)
+    else:
+        m = _pmax(torch.amax(log_w_hyp, dim=1), group)
+        log_norm = m + torch.log(_psum(
+            torch.sum(torch.exp(log_w_hyp - m[:, None, :]), dim=1), group))
     log_w_hyp = log_w_hyp - log_norm[:, None, :]
     return log_w_hyp.transpose(1, 2), log_norm
 
@@ -456,7 +483,8 @@ def _streaming_pr1(model, state: SMCState, expparams, outcomes):
                        0.0, 1.0)  # (N, E)
 
 
-def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None):
+def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None,
+                  group=None):
     """Expected posterior quadratic loss per candidate experiment, (E,):
     risk(e) = Σ_o Pr(o|e) · tr[Q · Cov_post(o, e)].
 
@@ -464,7 +492,9 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None):
     per-outcome second moments centered at the current posterior mean;
     other models take the general (O, N, E) route, also centered.
     ``outcomes``: pre-enumerated outcomes (``model.all_outcomes`` when
-    None). ``Q`` is moved to the bank's device.
+    None). ``Q`` is moved to the bank's device. ``group``: the bank is one
+    rank's block (see ``hypothetical_log_update``); every sum over the
+    particles is all-reduced across the ranks.
     """
     if outcomes is None:
         outcomes = model.all_outcomes(expparams)
@@ -474,7 +504,7 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None):
          if Q is None else torch.as_tensor(Q, dtype=torch.float32,
                                            device=device))
     w = torch.exp(state.particle_log_weights)  # (N,)
-    mu_hat = w @ locs  # (D,) current posterior mean, the centering point
+    mu_hat = _psum(w @ locs, group)  # (D,) posterior mean, the centering
     y = locs - mu_hat[None, :]
 
     pr1 = _streaming_pr1(model, state, expparams, outcomes)
@@ -483,12 +513,12 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None):
         # outcome 1), A = Σ w·pr1·y, B = Σ w·pr1·y² (outcome-1 moments),
         # T = Σ w·y, U = Σ w·y² (totals: outcome 0 is total − outcome 1).
         wp = w[:, None] * pr1  # (N, E)
-        marg1 = wp.sum(0)
+        marg1 = _psum(wp.sum(0), group)
         marg0 = torch.clamp(1.0 - marg1, 0.0, 1.0)
-        A = wp.T @ y
-        B = wp.T @ (y * y)
-        T = w @ y
-        U = w @ (y * y)
+        A = _psum(wp.T @ y, group)
+        B = _psum(wp.T @ (y * y), group)
+        T = _psum(w @ y, group)
+        U = _psum(w @ (y * y), group)
 
         def tr_qvar(m, a, b):
             m_safe = torch.clamp(m, min=1e-30)[:, None]
@@ -499,22 +529,23 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None, outcomes=None):
                 + marg0 * tr_qvar(marg0, T[None, :] - A, U[None, :] - B))
 
     log_w_hyp, log_norm = hypothetical_log_update(model, state, outcomes,
-                                                  expparams)
+                                                  expparams, group)
     w_hyp = torch.exp(log_w_hyp)  # (O, E, N)
-    mu = w_hyp @ y  # (O, E, D)
-    second = w_hyp @ (y * y)
+    mu = _psum(w_hyp @ y, group)  # (O, E, D)
+    second = _psum(w_hyp @ (y * y), group)
     var = torch.clamp(second - mu * mu, min=0.0)
     return torch.sum(torch.exp(log_norm) * (var @ q), dim=0)
 
 
 def expected_information_gain_fn(model, state: SMCState, expparams,
-                                 outcomes=None):
+                                 outcomes=None, group=None):
     """Mutual information I(outcome; params | e) per candidate, (E,):
     IG(e) = H[Σ_n w_n L(o|n,e)] − Σ_n w_n H[L(·|n,e)].
 
     Two-outcome models stream from one (N, E) pr1 tensor (the binary
     entropy replaces the (O, N, E) log-likelihood); other models take the
-    general route, with xlogy's 0·log 0 = 0.
+    general route, with xlogy's 0·log 0 = 0. ``group``: as in
+    ``bayes_risk_fn``.
     """
     if outcomes is None:
         outcomes = model.all_outcomes(expparams)
@@ -522,20 +553,20 @@ def expected_information_gain_fn(model, state: SMCState, expparams,
 
     pr1 = _streaming_pr1(model, state, expparams, outcomes)
     if pr1 is not None:
-        marg1 = w @ pr1  # (E,)
+        marg1 = _psum(w @ pr1, group)  # (E,)
         marg0 = torch.clamp(1.0 - marg1, 0.0, 1.0)
         h_marg = -(torch.xlogy(marg1, marg1) + torch.xlogy(marg0, marg0))
         pr0 = 1.0 - pr1
         h_bin = -(torch.xlogy(pr1, pr1) + torch.xlogy(pr0, pr0))  # (N, E)
-        return h_marg - w @ h_bin
+        return h_marg - _psum(w @ h_bin, group)
 
     log_L = torch.clamp(
         model.log_likelihood(outcomes, state.particle_locations, expparams),
         _LOG_TINY, 0.0)  # (O, N, E)
     L = torch.exp(log_L)
-    marg = torch.einsum("n,one->oe", w, L)  # Pr(o | e)
+    marg = _psum(torch.einsum("n,one->oe", w, L), group)  # Pr(o | e)
     h_marg = -torch.sum(torch.xlogy(marg, marg), dim=0)
-    h_cond = -torch.einsum("n,one->e", w, L * log_L)
+    h_cond = -_psum(torch.einsum("n,one->e", w, L * log_L), group)
     return h_marg - h_cond
 
 
@@ -817,6 +848,38 @@ class SMCUpdater(ParticleDistribution):
             std = torch.sqrt(torch.diag(cov))
             cov = cov / torch.outer(std, std)
         return cov
+
+    # -- cluster estimators (host, scikit-learn) ---------------------------
+
+    def est_cluster_moments(self, cluster_opts=None):
+        """Yield (label, total weight, mean, covariance) of each DBSCAN
+        cluster of the cloud (``clustering.particle_clusters`` with
+        ``cluster_opts``), in NumPy f32 on the host, as the JAX package
+        does ([unverified] signature against upstream qinfer)."""
+        from .clustering import particle_clusters
+
+        w = self.particle_weights.cpu().numpy()
+        locs = self.particle_locations.cpu().numpy()
+        for label, mask in particle_clusters(locs, w, **(cluster_opts or {})):
+            total = w[mask].sum()
+            if total <= 0:
+                continue
+            w_n = w[mask] / total
+            mu = w_n @ locs[mask]
+            centered = locs[mask] - mu
+            yield label, total, mu, (w_n[:, None] * centered).T @ centered
+
+    def est_cluster_metrics(self, cluster_opts=None):
+        """The number of clusters, the largest cluster's weight and the
+        noise's weight."""
+        from .clustering import NOISE
+
+        weights = {label: total for label, total, _, _
+                   in self.est_cluster_moments(cluster_opts)}
+        clusters = [w for label, w in weights.items() if label != NOISE]
+        return {"n_clusters": len(clusters),
+                "largest_cluster_weight": max(clusters, default=0.0),
+                "noise_weight": weights.get(NOISE, 0.0)}
 
     # -- credible regions --------------------------------------------------
 

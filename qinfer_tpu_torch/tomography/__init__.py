@@ -18,6 +18,12 @@ from .distributions import (
     HilbertSchmidtUniform,
 )
 from .models import DiffusiveTomographyModel, TomographyModel
+from .plotting_tools import (
+    plot_decorate_rebits,
+    plot_rebit_posterior,
+    plot_rebit_prior,
+    rebit_coords,
+)
 
 __all__ = [
     "TomographyBasis",
@@ -34,4 +40,8 @@ __all__ = [
     "HilbertSchmidtUniform",
     "HaarUniform",
     "GinibreUniform",
+    "plot_decorate_rebits",
+    "plot_rebit_prior",
+    "plot_rebit_posterior",
+    "rebit_coords",
 ]

@@ -640,3 +640,110 @@ def test_model_zoo_paths_run_unfused_through_b2(cuda, path):
     assert w["updater"].particle_locations.device.type == "cuda"
     assert b1.fused_bayes_update.launches == l1
     assert b2.expand_sorted_segments.launches - l2 >= w["resamples"] > 0
+
+
+@pytest.mark.parametrize("k_shards", chip_smoke.SHARD_KS)
+@pytest.mark.parametrize("d", chip_smoke.SHARD_DS)
+@pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
+def test_expand_kernel_on_shard_windows(cuda, k_shards, d, kind):
+    """B2 on each rank's window of a 2^20 bank over K ranks (n_in = 2^20,
+    n_out = 2^20 / K, shifted starts with a run of leading zeros) bit-equal
+    to its plain version; the windows together equal one bank's expand."""
+    rng = np.random.default_rng(k_shards + d)
+    log_w = torch.as_tensor(_log_weights(kind, N, rng), device=cuda)
+    vals = torch.as_tensor(rng.standard_normal((N, d)), dtype=torch.float32,
+                           device=cuda)
+    n_local = N // k_shards
+    starts, windows = chip_smoke.shard_windows(log_w, k_shards, 0.61)
+    torch.testing.assert_close(starts, systematic_segment_starts(
+        log_w, N, u0=0.61), rtol=0, atol=0)
+    launches = b2.expand_sorted_segments.launches
+    outs = [b2.expand_sorted_segments(w, vals, n_out=n_local, scale=0.98,
+                                      shift=0.5) for w in windows]
+    assert b2.expand_sorted_segments.launches == launches + k_shards
+    aff = b2._affine(0.98, 0.5, d, cuda)
+    for w, out in zip(windows, outs):
+        assert torch.equal(out, b2.expand_plain(w, vals, n_local, aff))
+    assert torch.equal(torch.cat(outs), b2.systematic_expand(
+        log_w, vals, scale=0.98, shift=0.5, u0=0.61))
+
+
+@pytest.mark.parametrize("name", ["precession", "born4"])
+def test_fused_update_stats_merge_over_shards(cuda, name):
+    """B1's raw statistics on 4 slices, merged as the sharded step merges
+    them, against the one-bank launch (B1_TOL), the raw lw bit-equal."""
+    if name == "precession":
+        omega, lw = chip_smoke._b1_inputs(N, 3, cuda)
+        tile, scal, cols = (b1.two_outcome_tile(b1.precession_pr1),
+                            torch.tensor([0.0, 9.1], device=cuda), (omega,))
+    else:
+        tile, scal, lw, cols = chip_smoke.tomo_inputs(chip_smoke.TOMO[0], N,
+                                                      3, cuda)
+    lw_1, ln_1, ess_1 = b1.fused_bayes_update(tile, scal, lw, cols)
+    blocks = [slice(k * N // 4, (k + 1) * N // 4) for k in range(4)]
+    parts = [b1.fused_bayes_update(tile, scal, lw[b], tuple(c[b] for c in cols),
+                                   return_stats=True) for b in blocks]
+    log_norm = chip_smoke.merge_lse(torch.stack([p[1] for p in parts]))
+    lse2 = chip_smoke.merge_lse(torch.stack([p[2] for p in parts]))
+    raw = torch.cat([p[0] for p in parts])
+    assert torch.equal(raw, b1.fused_bayes_update(tile, scal, lw, cols,
+                                                  return_stats=True)[0])
+    torch.testing.assert_close(raw - log_norm, lw_1, atol=1e-4, rtol=0)
+    assert abs(float(log_norm) - float(ln_1)) <= 1e-4
+    assert float(torch.exp(2 * log_norm - lse2)) == pytest.approx(
+        float(ess_1), rel=1e-3)
+
+
+@pytest.fixture
+def nccl_world_one(cuda):
+    """An NCCL process group of one rank (file store), destroyed after the
+    test; yields the particle mesh."""
+    with chip_smoke.nccl_world_one(cuda) as mesh:
+        yield mesh
+
+
+@pytest.mark.parametrize("migration", ["all_gather", "ring"])
+def test_sharded_step_on_nccl_world_one(cuda, nccl_world_one, migration):
+    """The flagship record through the sharded step at 2^20 on one rank:
+    the gate, B1 once per update (raw statistics), B2 at least once per
+    resample on the all-gather and never on the ring."""
+    l1 = b1.fused_bayes_update.launches
+    l2 = b2.expand_sorted_segments.launches
+    w = chip_smoke.sharded_flagship_window(nccl_world_one, migration, 5, 0,
+                                           cuda)
+    assert w["ok"], w["gate"]
+    assert b1.fused_bayes_update.launches - l1 == chip_smoke.N_EXP
+    b2_launches = b2.expand_sorted_segments.launches - l2
+    if migration == "ring":
+        assert b2_launches == 0 and w["resamples"] > 0
+    else:
+        assert b2_launches >= w["resamples"] > 0
+
+
+@pytest.mark.parametrize("kind", ["pgh", "eig"])
+def test_sharded_episodes_on_nccl_world_one(cuda, nccl_world_one, kind):
+    w = chip_smoke.sharded_episode_window(nccl_world_one, kind, 1, cuda)
+    assert w["ok"], w["gate"]
+
+
+def test_checkpoint_resumes_a_cuda_updater_bit_for_bit(cuda, tmp_path):
+    from qinfer_tpu_torch import checkpointing
+
+    ts, outcomes = chip_smoke.experiment_record(chip_smoke.N_EXP, 0)
+
+    def updater(seed):
+        return qt.SMCUpdater(qt.SimplePrecessionModel(), 1 << 16,
+                             qt.UniformDistribution([0, 1]),
+                             zero_weight_policy="reset", seed=seed,
+                             device=cuda)
+
+    a = updater(1)
+    a.batch_update(outcomes[:50], {"t": ts[:50]})
+    checkpointing.save_npz(tmp_path / "ckpt.npz", a)
+    at_save = a.resample_count
+    b = checkpointing.load_npz(tmp_path / "ckpt.npz", updater(2))
+    for u in (a, b):
+        u.batch_update(outcomes[50:], {"t": ts[50:]})
+    assert a.resample_count > at_save
+    for name in ("particle_locations", "particle_log_weights", "n_resamples"):
+        assert torch.equal(getattr(a.state, name), getattr(b.state, name))

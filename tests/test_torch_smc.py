@@ -288,8 +288,12 @@ def test_interop_static_objects():
     assert c == qt.SMCConfig(0.3, "warn", 1e-8, True)
     with pytest.raises(ValueError, match="noise kernel"):
         from_reference(qi.LiuWestResampler(kernel=lambda k, s: None))
+    cr = from_reference(qi.ClusteringResampler(
+        eps=0.2, secondary_resampler=qi.LiuWestResampler(a=0.9)))
+    assert isinstance(cr, qt.ClusteringResampler) and cr.host_side
+    assert (cr.eps, cr.min_particles, cr.secondary_resampler.a) == (0.2, 5, 0.9)
     with pytest.raises(TypeError, match="no port counterpart"):
-        from_reference(qi.ClusteringResampler())
+        from_reference(object())
 
 
 @pytest.mark.parametrize("obj,fields", [

@@ -380,11 +380,9 @@ def test_diffusive_likelihood_ignores_eps():
 
 
 def test_tomography_exports_match_jax():
-    """The port's tomography package exports what the JAX one does, less
-    the plotting helpers (not ported yet)."""
+    """The port's tomography package exports what the JAX one does, the
+    plotting helpers included."""
     import qinfer_tpu.tomography as j_pkg
 
-    plotting = {"plot_decorate_rebits", "plot_rebit_prior",
-                "plot_rebit_posterior", "rebit_coords"}
-    assert set(tt.__all__) == set(j_pkg.__all__) - plotting
+    assert set(tt.__all__) == set(j_pkg.__all__)
     assert qt.tomography is tt
