@@ -6,8 +6,9 @@
 
 For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
 the PGH loops of config 1 and config 4's known-T2, the three model-zoo
-paths (``chip_smoke.ZOO_PATHS``), all at 2^20 particles, the two
-trial ensembles, and the four sharded paths (``SHARDED_NAMES``, on an
+paths (``chip_smoke.ZOO_PATHS``) and the user model's three
+(``chip_smoke.USER_PATHS``), all at 2^20 particles, the three trial
+ensembles (the user model's too), and the four sharded paths (``SHARDED_NAMES``, on an
 NCCL process group of one rank, after one line of the host µs per
 collective and per scalar read there), as ``chip_smoke.py`` runs them;
 ``--paths`` picks some, and ``--paths`` with no name none) it prints one
@@ -109,14 +110,23 @@ def pgh_runner(model, truth):
     return run
 
 
-def ensemble_runner(n_trials, n, n_exp):
+def ensemble_runner(n_trials, n, n_exp, **model):
     def run(seed, device, resample_thresh=None, resampler=None):
         extra = ({} if resample_thresh is None
                  else {"resample_thresh": resample_thresh})
         seconds, perf, _ = cs.ensemble_run(
             n_trials, n, n_exp, seed, device, extra_updater_args=extra,
-            resampler=resampler)
+            resampler=resampler, **model)
         return seconds, int(perf["resample_count"][:, -1].sum())
+    return run
+
+
+def user_runner(model, record, n_meas):
+    def run(seed, device, **kw):
+        outcomes, ep = cs.user_record(record, n_meas)
+        u = _updater(model, cs.qt.UniformDistribution(cs.USER_PRIOR), seed,
+                     device, **kw)
+        return _batch(u, outcomes, ep)
     return run
 
 
@@ -135,7 +145,12 @@ PATHS = {"flagship": flagship,
             for name, model, truth, _ in cs.PGH_PATHS},
          **{name: ensemble_runner(t, n, e) for name, t, n, e in cs.ENSEMBLES},
          **{name: zoo_runner(make, window)
-            for name, make, window, _ in cs.ZOO_PATHS}}
+            for name, make, window, _ in cs.ZOO_PATHS},
+         **{name: user_runner(model, record, n_meas)
+            for name, model, record, n_meas in cs.USER_PATHS},
+         cs.USER_ENSEMBLE[0]: ensemble_runner(
+             *cs.USER_ENSEMBLE[1:], model=cs.LostVisibilityModel(),
+             prior=cs.qt.UniformDistribution(cs.USER_PRIOR))}
 
 
 # The sharded paths of chip_smoke.phase_sharded; main() runs them on an

@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Exits 1 when torch sees no CUDA device.
 2. build: compiles both CUDA kernels from ``qinfer_tpu_torch/csrc`` with
-   nvcc for sm_90a (into ``build/qinfer_tpu_torch/``).
+   nvcc for sm_90a (into ``build/qinfer_tpu_torch/``), and at once, with a
+   second nvcc, the user model's library (B1's header with the functor
+   ``LOST_VISIBILITY_SOURCE``, into ``build/qinfer_tpu_torch/user/``).
 3. compare: each kernel against its plain PyTorch version on the card —
    B1 (fused Bayes update) within the tolerances of the JAX package's own
    kernel test (atol 1e-4 on log-weights and log_norm, rtol 1e-3 on ESS),
@@ -113,7 +115,27 @@ Phases, in order; any failure exits non-zero before the result line:
    one flagship window (a non-empty trace holding the annotation), and a
    CUDA updater's ``save_npz`` → ``load_npz`` → ``batch_update`` bit-equal
    to the uninterrupted run.
-13. timing: each kernel against its plain version at 2^20, with CUDA
+13. a user's own model (``LostVisibilityModel``, defined in this script
+   as a user would: precession with lost visibility, Pr(1) = v·(1 −
+   cos²(ωt/2)) + (1 − v)/2 over (ω, v), prior U([0, 1] × [0.5, 1]), its
+   torch pr1 and that pr1's CUDA functor). First every shipped path above
+   must have taken 0 launches on a user library and 0 on the column route.
+   Then (``phase_compare_user``) the user tile from its own library
+   against its plain version, two-outcome and binomial, at n ∈ {1000,
+   2^20 + 3, 2^20}; the column route (the torch-only twin: its pr1
+   evaluated on the card, B1 on ``GivenPr1``) within ``B1_TOL`` of the user
+   tile; the trial grid (``B1_BATCH_SHAPES``) per trial bit-equal to
+   single-bank launches. Then (``phase_user_tile``, ``USER_PATHS``) three
+   paths at 2^20, a warm-up and three gated windows each (|ω̂ − ω| < 0.05,
+   v̂ within 4 posterior standard deviations): ``user_tile`` (single shots
+   over the flagship record's times, ω = 0.70710678, v = 0.9) and
+   ``user_tile_binomial`` (``BinomialModel`` over it, 24 experiments × 40
+   shots) with B1 once an update on the user library, ``user_tile_column``
+   (the first with the torch-only twin) with B1 once an update on the
+   column route; and ``user_tile_ensemble`` (``perf_test_multiple``, 256 ×
+   2048 × 100, PGH), gated on the median loss falling tenfold, the batched
+   B1 once a step on the user library. One JSON line each.
+14. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
    Born tiles of the paths; B2 at D = 1, 2, 3, 4 and 16, and beside it
    ``torch.repeat_interleave`` (the pick without the affine); the batched
@@ -125,7 +147,10 @@ Phases, in order; any failure exits non-zero before the result line:
    Each timing of a dispatched form that replaced
    another (B1's one launch, B2's merge path) times the old form in the
    same turns (B1 two passes, B2 rows), printed with the form and grid
-   the wrapper took on earlier JSON lines.
+   the wrapper took on earlier JSON lines. The user tile's B1 at 2^20
+   (two-outcome beside the built-in two-column multicos in the same turns,
+   binomial, the column route beside B1 on ``GivenPr1`` alone) and its
+   trial grid at 256 × 2048.
 
 The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version, bit-equal per trial to single-bank
@@ -149,6 +174,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -287,6 +313,187 @@ CONFIG_TILE = {"config2_binomial_precession": "binomial_precession",
                "config3_binomial_rb": "binomial_rb",
                "config4_multicos2": "multicos",
                "config4_known_t2": "known_t2"}
+
+# -- a user's own model: B1 on the model's own pr1 ----------------------------
+#
+# Written as a user of the library would write it, outside the package: a
+# two-outcome model that defines ``_fused_pr1_parts`` with its own pr1 and,
+# for the card, that pr1's CUDA functor. The JAX package traces the same
+# ``jnp`` pr1 into its Pallas kernel.
+
+
+def lost_visibility_pr1(scalars, off, omega, v):
+    """Precession with lost visibility v: Pr(1) = v·(1 − cos²(ωt/2)) +
+    (1 − v)/2; scalars tail = [t]; columns ω, v."""
+    c = torch.cos(0.5 * omega * scalars[off])
+    return v * (1.0 - c * c) + 0.5 * (1.0 - v)
+
+
+# The same function as a CUDA functor, rounded as the torch pr1 computes it.
+LOST_VISIBILITY_SOURCE = r"""
+struct UserPr1 {
+  static constexpr int kMinCols = 2, kMaxColsUsed = 2;
+  float t;
+  __device__ UserPr1(const float* s, const Consts&, int) : t(s[0]) {}
+  template <class C>
+  __device__ __forceinline__ float operator()(const C& c, int64_t i) const {
+    const float v = c(1, i);
+    const float p = one_minus_cos2(mul(mul(0.5f, c(0, i)), t));
+    return add(mul(v, p), mul(0.5f, sub(1.0f, v)));
+  }
+};
+"""
+
+LOST_VISIBILITY_CUDA = b1.cuda_pr1(lost_visibility_pr1, LOST_VISIBILITY_SOURCE)
+LOST_VISIBILITY_TORCH = lost_visibility_pr1  # torch only: the column route
+
+
+@dataclass(frozen=True, eq=False)
+class LostVisibilityModel(qt.FiniteOutcomeModel):
+    """Precession with lost visibility: parameters (ω, v), expparams t,
+    Pr(1) = v·(1 − cos²(ωt/2)) + (1 − v)/2. ``pr1``: the pr1 that B1 runs
+    (the CUDA functor, or the torch-only twin)."""
+
+    pr1: object = LOST_VISIBILITY_CUDA
+
+    @property
+    def n_modelparams(self):
+        return 2
+
+    @property
+    def modelparam_names(self):
+        return ("omega", "v")
+
+    @property
+    def expparams_dtype(self):
+        return [("t", "float")]
+
+    def are_models_valid(self, modelparams):
+        v = modelparams[:, 1]
+        return (modelparams[:, 0] >= 0.0) & (v >= 0.0) & (v <= 1.0)
+
+    def canonicalize(self, modelparams):
+        lo = torch.tensor([0.0, 0.0], device=modelparams.device)
+        hi = torch.tensor([float("inf"), 1.0], device=modelparams.device)
+        return torch.clamp(modelparams, lo, hi)
+
+    def _t(self, expparams, device):
+        t = qt.models.base.expparams_field(expparams, "t")
+        return torch.as_tensor(t, device=device).to(torch.float32).reshape(-1)
+
+    def pr0(self, modelparams, expparams):
+        t = self._t(expparams, modelparams.device)
+        return 1.0 - self.pr1(t[None, None, :], 0, modelparams[:, :1],
+                              modelparams[:, 1:])
+
+    def _fused_pr1_parts(self, modelparams, expparams):
+        t = self._t(expparams, modelparams.device)
+        return self.pr1, t, (modelparams[..., 0], modelparams[..., 1])
+
+
+USER_TRUTH = (TRUE_OMEGA, 0.9)
+USER_PRIOR = ((0.0, 1.0), (0.5, 1.0))
+USER_V_SDS = 4.0  # v̂ within 4 posterior standard deviations of the truth
+
+
+def user_pr1_f64(omega, v, t):
+    return (v * (1.0 - np.cos(0.5 * omega * np.asarray(t, np.float64)) ** 2)
+            + 0.5 * (1.0 - v))
+
+
+def user_records():
+    """The user model's records: single shots at the flagship record's
+    times (``experiment_record``'s), and config 2's record shape (24
+    experiments × 40 shots at t = min((9/8)^k, 100)), outcomes drawn with
+    numpy at ``USER_TRUTH``. Returns ((ts, outcomes), (ts, counts))."""
+    rng = np.random.default_rng(0)
+    ts = np.minimum((9 / 8) ** np.arange(N_EXP), 1e4).astype(np.float32)
+    shots = (rng.random(N_EXP) < user_pr1_f64(*USER_TRUTH, ts)).astype(np.int32)
+    tb = np.minimum((9 / 8) ** np.arange(24), 1e2).astype(np.float32)
+    counts = rng.binomial(40, user_pr1_f64(*USER_TRUTH, tb)).astype(np.int32)
+    return (ts, shots), (tb, counts)
+
+
+# (name, model, record, shots a count): the user model's three windows.
+USER_PATHS = (
+    ("user_tile", LostVisibilityModel(), 0, None),
+    ("user_tile_binomial", qt.BinomialModel(LostVisibilityModel()), 1, 40),
+    ("user_tile_column", LostVisibilityModel(LOST_VISIBILITY_TORCH), 0, None),
+)
+
+
+def user_record(record, n_meas):
+    """(outcomes, expparams) of one of ``user_records``, with ``n_meas``
+    shots a count (None: single shots)."""
+    ts, outcomes = user_records()[record]
+    if n_meas is None:
+        return outcomes, {"t": ts}
+    return outcomes, {"t": ts, "n_meas": np.full(len(ts), n_meas, np.int32)}
+
+
+def user_window(model, record, n_meas, n, seed, device, **kw):
+    """One ``batch_update`` of the user model over its record; returns
+    (seconds, est, sd, resamples). Gated: |ω̂ − ω| < GATE and v̂ within
+    USER_V_SDS posterior standard deviations of the truth. ``kw``: more
+    arguments of the updater."""
+    outcomes, ep = user_record(record, n_meas)
+    u = qt.SMCUpdater(model, n, qt.UniformDistribution(USER_PRIOR),
+                      zero_weight_policy="reset", seed=seed, device=device,
+                      **kw)
+    _sync(device)
+    t0 = time.perf_counter()
+    u.batch_update(outcomes, ep)
+    est = u.est_mean().cpu().numpy().astype(np.float64)  # ends the window
+    seconds = time.perf_counter() - t0
+    sd = np.sqrt(np.diag(u.est_covariance_mtx().cpu().numpy()).astype(
+        np.float64))
+    locs = u.particle_locations
+    if locs.shape != (n, 2) or not bool(torch.isfinite(locs).all()):
+        raise AssertionError("user model: posterior cloud is not finite of "
+                             f"shape ({n}, 2)")
+    if not (abs(est[0] - USER_TRUTH[0]) < GATE
+            and abs(est[1] - USER_TRUTH[1]) < USER_V_SDS * sd[1]):
+        raise AssertionError(f"user model: gate failed: est={est} sd={sd} "
+                             f"truth={USER_TRUTH}")
+    return seconds, est.tolist(), sd.tolist(), u.resample_count
+
+
+def user_inputs(binomial, n, seed, device):
+    """(tile, scalars, log_w, cols) of the user tile on a bank drawn from
+    the user prior: two-outcome, outcome 1 at t = 7.3, or binomial, 27 of
+    40 at t = 3.1."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.tensor([b[0] for b in USER_PRIOR], device=device)
+    hi = torch.tensor([b[1] for b in USER_PRIOR], device=device)
+    locs = lo + (hi - lo) * torch.rand((n, 2), generator=g, device=device)
+    lw = torch.log(torch.rand(n, generator=g, device=device))
+    if binomial:
+        model, outcome = USER_PATHS[1][1], 27
+        ep = {"t": torch.tensor([3.1], device=device),
+              "n_meas": torch.tensor([40], device=device)}
+    else:
+        model, outcome = USER_PATHS[0][1], 1
+        ep = {"t": torch.tensor([7.3], device=device)}
+    tile, scal, cols = model.fused_spec(outcome, locs, ep)
+    return tile, scal, lw - torch.logsumexp(lw, 0), cols
+
+
+def user_batched_inputs(n_trials, n, seed, device):
+    """(tile, scalars (T, k), log_w (T, N), cols) of the user tile on T
+    banks drawn from the user prior, one experiment (t ∈ [1, 21]) and one
+    outcome per trial, from ``fused_spec_batched``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.tensor([b[0] for b in USER_PRIOR], device=device)
+    hi = torch.tensor([b[1] for b in USER_PRIOR], device=device)
+    locs = lo + (hi - lo) * torch.rand((n_trials, n, 2), generator=g,
+                                       device=device)
+    ep = {"t": 1.0 + 20.0 * torch.rand(n_trials, generator=g, device=device)}
+    outcomes = torch.randint(0, 2, (n_trials,), generator=g, device=device)
+    lw = torch.log(1.0 - torch.rand((n_trials, n), generator=g,
+                                    device=device))
+    tile, scal, cols = USER_PATHS[0][1].fused_spec_batched(outcomes, locs, ep)
+    return tile, scal, lw - torch.logsumexp(lw, 1, keepdim=True), cols
+
 
 # -- tomography (BASELINE config 5 and two qubits) ----------------------------
 
@@ -533,12 +740,23 @@ def phase_device():
 
 
 def phase_build():
-    """Builds the library; prints each kernel's registers and spills from
-    ptxas, labelled Outcome<Pr1> for B1's instantiations."""
-    _, info = _build.library()
-    print(f"build: {info['seconds']:.1f} s -> {info['path']}")
+    """Builds the built-in library and the user model's library
+    (``LOST_VISIBILITY_SOURCE``) at once, one nvcc each; prints each
+    library's build seconds and each kernel's registers and spills from
+    ptxas, labelled Outcome<Pr1> for B1's instantiations (Outcome<UserPr1>
+    for the user functor's)."""
+    with ThreadPoolExecutor(2) as pool:
+        builtin = pool.submit(_build.library)
+        user = pool.submit(_build.user_library, LOST_VISIBILITY_SOURCE)
+        infos = {"build": builtin.result()[1], "build user": user.result()[1]}
+    for label, info in infos.items():
+        print(f"{label}: {info['seconds']:.1f} s -> {info['path']}")
+        _print_ptxas(info["report"])
+
+
+def _print_ptxas(report):
     kernel = "?"
-    for line in info["report"].splitlines():
+    for line in report.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(TwoOutcome|Binomial)INS_\d+(\w+?Pr1)"
                           r"(?:ILi(\d+)E)?E", line)
@@ -599,28 +817,34 @@ def _forms_check(label, tile, scal, lw, cols):
                              f"two-pass form: {label}")
 
 
+def _agree(label, got, want, note=""):
+    """Two (lw, log_norm, ess) results, single bank or T banks, within
+    B1_TOL and ``got`` finite; raises otherwise and returns the larger of
+    max |Δ lw| and max |Δ log_norm|. ``note`` is printed after a pass."""
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(got[0] - want[0])))
+    ln_err = float(torch.max(torch.abs(got[1] - want[1])))
+    ess_rel = float(torch.max(torch.abs(got[2] / want[2] - 1.0)))
+    ok = (err <= B1_TOL["lw_atol"] and ln_err <= B1_TOL["log_norm_atol"]
+          and ess_rel <= B1_TOL["ess_rtol"]
+          and bool(torch.isfinite(got[0]).all()))
+    same = err == 0.0 and ln_err == 0.0
+    print(f"B1 {label}: max|dlw|={err:.3g} |dlog_norm|={ln_err:.3g}"
+          f" ess_rel={ess_rel:.3g}{note if ok else ''} {'ok' if ok else 'FAIL'}"
+          f"{' (lw, log_norm bit-equal)' if same else ''}")
+    if not ok:
+        raise AssertionError(f"B1 disagrees: {label}")
+    return max(err, ln_err)
+
+
 def _b1_check(label, tile, scal, lw, cols):
     """Kernel against plain on one input, and its two per-column forms
     against each other; raises on disagreement and returns the larger of
     max |Δ lw| and |Δ log_norm| against plain."""
     _forms_check(label, tile, scal[None], lw[None], tuple(c[None] for c in cols))
-    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
     lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
-    lw_p = lw_p - lse_p
-    torch.cuda.synchronize()
-    err = float(torch.max(torch.abs(lw_k - lw_p)))
-    ln_err = abs(float(ln_k) - float(lse_p))
-    ess_rel = abs(float(ess_k) / float(ess_p) - 1.0)
-    ok = (err <= B1_TOL["lw_atol"] and ln_err <= B1_TOL["log_norm_atol"]
-          and ess_rel <= B1_TOL["ess_rtol"]
-          and bool(torch.isfinite(lw_k).all()))
-    same = err == 0.0 and ln_err == 0.0
-    print(f"B1 {label}: max|dlw|={err:.3g} |dlog_norm|={ln_err:.3g}"
-          f" ess_rel={ess_rel:.3g} {'ok' if ok else 'FAIL'}"
-          f"{' (lw, log_norm bit-equal)' if same else ''}")
-    if not ok:
-        raise AssertionError(f"B1 disagrees with its plain version: {label}")
-    return max(err, ln_err)
+    return _agree(label, b1.fused_bayes_update(tile, scal, lw, cols),
+                  (lw_p - lse_p, lse_p, ess_p))
 
 
 def phase_compare_b1(device):
@@ -823,38 +1047,29 @@ def phase_compare_b1_batched(device):
     worst = 0.0
     for name in ("precession", "multicos", "born4"):
         for n_trials, n in B1_BATCH_SHAPES:
-            tile, scal, lw, cols = batched_b1_inputs(name, n_trials, n,
-                                                     n_trials + n, device)
-            _forms_check(f"batched {name} T={n_trials} N={n}", tile, scal, lw,
-                         cols)
-            lw_k, ln_k, ess_k = b1.fused_bayes_update_batched(tile, scal, lw,
-                                                              cols)
-            lw_p, lse_p, _, ess_p = b1.fused_update_plain_batched(
-                tile, scal, lw, cols)
-            lw_p = lw_p - lse_p[:, None]
-            torch.cuda.synchronize()
-            err = float(torch.max(torch.abs(lw_k - lw_p)))
-            ln_err = float(torch.max(torch.abs(ln_k - lse_p)))
-            ess_rel = float(torch.max(torch.abs(ess_k / ess_p - 1.0)))
-            same = True
-            for i in range(n_trials):
-                lw_1, ln_1, _ = b1.fused_bayes_update(
-                    tile, scal[i], lw[i], tuple(c[i] for c in cols))
-                same &= torch.equal(lw_1, lw_k[i]) and torch.equal(ln_1,
-                                                                   ln_k[i])
-            ok = (err <= B1_TOL["lw_atol"] and ln_err <= B1_TOL["log_norm_atol"]
-                  and ess_rel <= B1_TOL["ess_rtol"]
-                  and bool(torch.isfinite(lw_k).all()) and same)
-            print(f"B1 batched {name} T={n_trials} N={n}: max|dlw|={err:.3g}"
-                  f" |dlog_norm|={ln_err:.3g} ess_rel={ess_rel:.3g}"
-                  f" per-trial single launches "
-                  f"{'bit-equal' if same else 'DIFFER'}"
-                  f" {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"batched B1 disagrees: {name} "
-                                     f"T={n_trials} N={n}")
-            worst = max(worst, err, ln_err)
+            worst = max(worst, _b1_batched_check(
+                f"{name} T={n_trials} N={n}",
+                *batched_b1_inputs(name, n_trials, n, n_trials + n, device)))
     return worst
+
+
+def _b1_batched_check(label, tile, scal, lw, cols):
+    """Batched B1 on T banks: its two forms bit-equal, within B1_TOL of its
+    plain version, and each trial bit-equal to a single-bank launch; raises
+    otherwise, and returns the larger of max |Δ lw| and max |Δ log_norm|
+    against plain."""
+    _forms_check(f"batched {label}", tile, scal, lw, cols)
+    got = b1.fused_bayes_update_batched(tile, scal, lw, cols)
+    for i in range(lw.shape[0]):
+        lw_1, ln_1, _ = b1.fused_bayes_update(tile, scal[i], lw[i],
+                                              tuple(c[i] for c in cols))
+        if not (torch.equal(lw_1, got[0][i]) and torch.equal(ln_1, got[1][i])):
+            raise AssertionError(f"batched B1 {label}: trial {i} differs "
+                                 f"from a single-bank launch")
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain_batched(tile, scal, lw, cols)
+    return _agree(f"batched {label}", got,
+                  (lw_p - lse_p[:, None], lse_p, ess_p),
+                  note=" per-trial single launches bit-equal")
 
 
 def batched_b2_inputs(n_trials, n, d, seed, device):
@@ -1181,14 +1396,15 @@ ENSEMBLE_SEEDS = (7, 8, 9)
 ENSEMBLE_GATE = 1e-3  # median final loss, bench_ensemble.py:47
 
 
-def ensemble_run(n_trials, n, n_exp, seed, device, **kw):
-    """perf_test_multiple with PGH on SimplePrecessionModel under a
-    uniform prior on [0, 1] (its own warm-up first). Returns the timed
-    run's seconds, the records and the number of timed steps in which a
-    trial resampled."""
+def ensemble_run(n_trials, n, n_exp, seed, device, model=None, prior=None,
+                 **kw):
+    """perf_test_multiple with PGH on ``model`` under ``prior`` (default:
+    SimplePrecessionModel under a uniform prior on [0, 1]; its own warm-up
+    first). Returns the timed run's seconds, the records and the number of
+    timed steps in which a trial resampled."""
     perf, seconds = qt.perf_test_multiple(
-        n_trials, qt.SimplePrecessionModel(), n,
-        qt.UniformDistribution([0, 1]), n_exp, qt.PGH, seed=seed,
+        n_trials, model or qt.SimplePrecessionModel(), n,
+        prior or qt.UniformDistribution([0, 1]), n_exp, qt.PGH, seed=seed,
         return_time=True, device=device, **kw)
     counts = perf["resample_count"]
     steps_resampled = int(np.sum(np.any(
@@ -2138,6 +2354,151 @@ def phase_samplers(device):
                              "moments or correlated across calls")
 
 
+# -- a user's own model on the card (B1 on the model's own pr1) ------------------
+
+# (name, T, N, n_exp): perf_test_multiple on the user model at
+# ensemble_small's shape.
+USER_ENSEMBLE = ("user_tile_ensemble", 256, 2048, 100)
+
+
+def _reset_route_counters():
+    for wrapper in (b1.fused_bayes_update, b1.fused_bayes_update_batched):
+        wrapper.user_launches = wrapper.column_launches = 0
+
+
+def _route_counters():
+    return {"B1_user": b1.fused_bayes_update.user_launches,
+            "B1_column": b1.fused_bayes_update.column_launches,
+            "B1_batched_user": b1.fused_bayes_update_batched.user_launches,
+            "B1_batched_column":
+                b1.fused_bayes_update_batched.column_launches}
+
+
+def phase_compare_user(device):
+    """The user tile on the card, from the library built of its source:
+    two-outcome and binomial against their plain versions (and one launch
+    bit-equal to two passes) at n ∈ {1000, 2^20 + 3, 2^20}; the column
+    route (the torch-only twin, B1 on GivenPr1) against the user tile at
+    the same inputs within B1_TOL, its GivenPr1 forms bit-equal; the trial
+    grid at B1_BATCH_SHAPES within B1_TOL of its plain version and bit-equal
+    per trial to single-bank launches, and its column route within B1_TOL
+    of it. Returns the worst error of each."""
+    worst = {}
+    for binomial in (False, True):
+        name = "binomial" if binomial else "two_outcome"
+        worst[name] = worst[f"column_{name}"] = 0.0
+        for n in (1000, N_FLAGSHIP + 3, N_FLAGSHIP):
+            tile, scal, lw, cols = user_inputs(binomial, n, n, device)
+            worst[name] = max(worst[name], _b1_check(
+                f"user {name} n={n}", tile, scal, lw, cols))
+            twin = type(tile)(LOST_VISIBILITY_TORCH)
+            given, scal_g, cols_g, _ = b1._route(twin, scal, cols, lw.shape,
+                                                 batched=False)
+            _forms_check(f"GivenPr1 {name} n={n}", given, scal_g[None],
+                         lw[None], tuple(c[None] for c in cols_g))
+            worst[f"column_{name}"] = max(worst[f"column_{name}"], _agree(
+                f"column route vs user {name} n={n}",
+                b1.fused_bayes_update(twin, scal, lw, cols),
+                b1.fused_bayes_update(tile, scal, lw, cols)))
+    worst["batched"] = max(
+        _b1_batched_check(f"user T={t} N={n}",
+                          *user_batched_inputs(t, n, t + n, device))
+        for t, n in B1_BATCH_SHAPES)
+    tile, scal, lw, cols = user_batched_inputs(*B1_BATCH_SHAPES[0], 5, device)
+    twin = type(tile)(LOST_VISIBILITY_TORCH)
+    worst["column_batched"] = _agree(
+        "column route vs user, trial grid",
+        b1.fused_bayes_update_batched(twin, scal, lw, cols),
+        b1.fused_bayes_update_batched(tile, scal, lw, cols))
+    return worst
+
+
+def _check_routes(name, counts, expected):
+    """The route counters of a run: ``expected`` of each named one, 0 of
+    the others."""
+    want = {k: expected.get(k, 0) for k in _route_counters()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: B1 routes {got}, expected {want}")
+
+
+def phase_user_tile(device):
+    """The user model's paths at 2^20 (``USER_PATHS``): a warm-up window
+    and three timed ones each, every counter set to 0 just before them and
+    read just after, every window gated (``user_window``); B1 once an
+    update on the user library (``user_tile``, ``user_tile_binomial``) or
+    on the column route (``user_tile_column``), B2 at least once a
+    resample. Then ``USER_ENSEMBLE`` (``perf_test_multiple`` with PGH, three
+    runs, seeds 7–9), gated on the median final loss falling tenfold from
+    the first experiment's (as ``tests/test_torch_ensemble.py``), the
+    batched B1 once a step on the user library. One JSON line each;
+    returns the launch counts."""
+    from qinfer_tpu_torch.perf_testing import _WARMUP_EXPERIMENTS
+
+    out = {}
+    for name, model, record, n_meas in USER_PATHS:
+        n_upd = len(user_records()[record][0])
+        user_window(model, record, n_meas, N_FLAGSHIP, 10_000, device)
+        _reset_counters()
+        _reset_route_counters()
+        windows = [user_window(model, record, n_meas, N_FLAGSHIP,
+                               1000 * (w + 1), device) for w in range(3)]
+        counts = {**_read_counters()[0], **_route_counters()}
+        n_resamples = [w[3] for w in windows]
+        _check_launches(name, counts, 3 * n_upd, sum(n_resamples))
+        route = "B1_column" if name.endswith("_column") else "B1_user"
+        _check_routes(name, counts, {route: 3 * n_upd})
+        secs = [w[0] for w in windows]
+        print(json.dumps({"config": name, "n_particles": N_FLAGSHIP,
+                          "n_updates": n_upd,
+                          "particle_updates_per_s":
+                              N_FLAGSHIP * n_upd / statistics.median(secs),
+                          "window_s": secs, "n_resamples": n_resamples,
+                          "est": [w[1] for w in windows],
+                          "sd": [w[2] for w in windows], "launches": counts}))
+        out[name] = counts
+    name, n_trials, n, n_exp = USER_ENSEMBLE
+    steps = n_exp + min(n_exp, _WARMUP_EXPERIMENTS)
+    runs, total = [], {}
+    for seed in ENSEMBLE_SEEDS:
+        _reset_counters()
+        _reset_route_counters()
+        seconds, perf, steps_resampled = ensemble_run(
+            n_trials, n, n_exp, seed, device, model=LostVisibilityModel(),
+            prior=qt.UniformDistribution(USER_PRIOR))
+        counts = {"B1": b1.fused_bayes_update.launches,
+                  "B1_batched": b1.fused_bayes_update_batched.launches,
+                  "B2_batched": b2.expand_sorted_segments_batched.launches,
+                  **_route_counters()}
+        first = float(np.median(perf["loss"][:, 0]))
+        loss = float(np.median(perf["loss"][:, -1]))
+        if not loss < first / 10 or not np.all(np.isfinite(perf["est"])):
+            raise AssertionError(f"{name}: median loss {first} -> {loss}")
+        if counts["B1_batched"] != steps or counts["B1"] != 0:
+            raise AssertionError(f"{name}: B1 launches {counts}, expected "
+                                 f"{steps} batched, 0 single")
+        _check_routes(name, counts, {"B1_batched_user": steps})
+        if steps_resampled == 0 or counts["B2_batched"] < steps_resampled:
+            raise AssertionError(f"{name}: B2 batched launched "
+                                 f"{counts['B2_batched']} times for "
+                                 f"{steps_resampled} resampling steps")
+        runs.append({"seconds": seconds, "first": first, "loss": loss,
+                     "steps_resampled": steps_resampled})
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    secs = [r["seconds"] for r in runs]
+    print(json.dumps({
+        "config": name, "n_trials": n_trials, "n_particles": n,
+        "n_exp": n_exp,
+        "ensemble_particle_updates_per_s":
+            n_trials * n * n_exp / statistics.median(secs),
+        "wall_s": secs, "median_first_loss": [r["first"] for r in runs],
+        "median_final_loss": [r["loss"] for r in runs],
+        "steps_resampled": [r["steps_resampled"] for r in runs],
+        "launches": total}))
+    out[name] = total
+    return out
+
+
 def _time_ms(fn, iters):
     """Device time per call. A device-side sleep queued first lets the host
     enqueue every call before the device starts them, so the events time
@@ -2191,9 +2552,9 @@ def b1_plan(tile, lw, cols):
     """The form and grid the wrapper takes for these (T, N) inputs."""
     if b1._row_span(cols) is not None:
         return "row span, two passes"
-    outcome, functor, _ = tile.kernel_tile
+    outcome, functor, _, source = b1._kernel_of(tile)
     cap = b1._capacity(outcome, functor, len(cols), lw.shape[0] > 1,
-                       lw.device.index)
+                       lw.device.index, source)
     return "{} (n_blocks {}, blocks {}, per block {}, capacity {})".format(
         *b1.grid_plan(lw.shape[0], lw.shape[1], cap)[:4], cap)
 
@@ -2422,6 +2783,47 @@ def phase_timing_sharded(device):
     return times
 
 
+def phase_timing_user(device):
+    """B1 on the user model's tile at 2^20: the user functor (two-outcome,
+    and beside it the built-in two-column multicos in the same turns;
+    binomial), the column route (the torch pr1 and B1 on GivenPr1, beside
+    it B1 on GivenPr1 alone) and the trial grid at 256 × 2048, each against
+    its plain version. The bound is that of the same function: log_w and
+    two columns read once, lw written once."""
+    times = {}
+    multicos = zoo_inputs(ZOO[0], N_FLAGSHIP, 7, device)
+    for binomial in (False, True):
+        tile, scal, lw, cols = user_inputs(binomial, N_FLAGSHIP, 7, device)
+        times["binomial" if binomial else "two_outcome"] = _alternate(
+            lambda: b1.fused_update_plain(tile, scal, lw, cols),
+            lambda: b1.fused_bayes_update(tile, scal, lw, cols),
+            old=None if binomial else lambda: b1.fused_bayes_update(
+                *multicos))
+    tile, scal, lw, cols = user_inputs(False, N_FLAGSHIP, 7, device)
+    twin = type(tile)(LOST_VISIBILITY_TORCH)
+    given, scal_g, cols_g, _ = b1._route(twin, scal, cols, lw.shape,
+                                         batched=False)
+    times["column"] = _alternate(
+        lambda: b1.fused_update_plain(tile, scal, lw, cols),
+        lambda: b1.fused_bayes_update(twin, scal, lw, cols),
+        old=lambda: b1.fused_bayes_update(given, scal_g, lw, cols_g))
+    for t in times.values():
+        t["work"] = b1_work(2, N_FLAGSHIP)
+    n_trials, n = B1_BATCH_SHAPES[0]
+    tile, scal, lw, cols = user_batched_inputs(n_trials, n, 7, device)
+    times["batched"] = _alternate(
+        lambda: b1.fused_update_plain_batched(tile, scal, lw, cols),
+        lambda: b1.fused_bayes_update_batched(tile, scal, lw, cols))
+    times["batched"]["work"] = b1_work(2, n_trials * n)
+    print(json.dumps({"user_tile_ms": {
+        name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": bound(t["work"])[0],
+               {"two_outcome": "builtin_multicos_ms",
+                "column": "b1_given_pr1_ms"}.get(name, "old_ms"): t["old_ms"]}
+        for name, t in times.items()}}))
+    return times
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, t):
     """One entry of the kernels line from a timing record ``t``."""
     bound_ms, bound_by = bound(t["work"])
@@ -2460,10 +2862,17 @@ def main():
     sharded_err = phase_compare_sharded(device)
     sharded_launches = phase_sharded(device, smi)
     phase_aux(device)
+    # Every shipped path ran on a built-in functor: no B1 launch so far
+    # took a user library or the column route.
+    print(json.dumps({"shipped_paths_b1_routes": _route_counters()}))
+    _check_routes("the shipped paths", _route_counters(), {})
+    user_err = phase_compare_user(device)
+    user_launches = phase_user_tile(device)
     times = phase_timing(device)
     zoo_times = phase_timing_zoo(device)
     batched_times = phase_timing_batched(device, b2_inputs)
     sharded_times = phase_timing_sharded(device)
+    user_times = phase_timing_user(device)
     src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
     src2 = "qinfer_tpu_torch/csrc/resample_expand.cu"
     b1_line = "qinfer_tpu/ops/fused_update.py:{}".format
@@ -2541,6 +2950,25 @@ def main():
         kernel_row("expand_sorted_segments[D=4, sharded episode]", src2,
                    b2_kernel, sharded_launches["sharded_config5_eig"]["B2"],
                    sharded_err["B2"], times["B2[D=4]"]),
+    ]
+    user_src = "qinfer_tpu_torch/csrc/fused_update.cuh"
+    user_b1 = b1_line(36)  # the model's own pr1 tile: :239-245
+    kernels += [
+        kernel_row("fused_bayes_update[user pr1: chip_smoke."
+                   "LOST_VISIBILITY_SOURCE]", user_src, user_b1,
+                   user_launches["user_tile"]["B1_user"],
+                   user_err["two_outcome"], user_times["two_outcome"]),
+        kernel_row("fused_bayes_update[user pr1, binomial]", user_src,
+                   user_b1, user_launches["user_tile_binomial"]["B1_user"],
+                   user_err["binomial"], user_times["binomial"]),
+        kernel_row("fused_bayes_update[column route: torch pr1 + GivenPr1]",
+                   src1, user_b1,
+                   user_launches["user_tile_column"]["B1_column"],
+                   user_err["column_two_outcome"], user_times["column"]),
+        kernel_row("fused_bayes_update_batched[user pr1, {}x{}]".format(
+                       *B1_BATCH_SHAPES[0]), user_src, b1_line(197),
+                   user_launches["user_tile_ensemble"]["B1_batched_user"],
+                   user_err["batched"], user_times["batched"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

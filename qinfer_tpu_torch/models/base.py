@@ -147,6 +147,9 @@ class Simulatable:
         n_exp = _n_exps(expparams)
         return modelparams[:, :, None].expand(modelparams.shape + (n_exp,))
 
+    def clear_cache(self):
+        """No-op: the port keeps no cache of a model's results."""
+
     def experiment_cost(self, expparams):
         """Cost of each experiment, (E,): 1 each by default."""
         return torch.ones(_n_exps(expparams), dtype=torch.float32,
@@ -195,6 +198,11 @@ class Model(Simulatable):
     def likelihood(self, outcomes, modelparams, expparams):
         return torch.exp(self.log_likelihood(outcomes, modelparams, expparams))
 
+    @property
+    def is_model_differentiable(self) -> bool:
+        # autograd differentiates every torch-implemented model.
+        return True
+
 
 @dataclass(frozen=True, eq=False)
 class FiniteOutcomeModel(Model):
@@ -203,6 +211,14 @@ class FiniteOutcomeModel(Model):
 
     def pr0(self, modelparams, expparams):
         raise NotImplementedError
+
+    @staticmethod
+    def pr0_to_likelihood_array(outcomes, pr0):
+        """L[o, n, e] = pr0 for outcome 0, else 1 − pr0; (O, N, E)."""
+        pr0 = torch.as_tensor(pr0)
+        outcomes = torch.as_tensor(outcomes, device=pr0.device).reshape(-1)
+        is_zero = (outcomes == 0)[:, None, None]
+        return torch.where(is_zero, pr0[None], 1.0 - pr0[None])
 
     @staticmethod
     def log_pr0_to_log_likelihood(outcomes, pr0, eps=1e-35):

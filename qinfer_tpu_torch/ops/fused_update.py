@@ -3,10 +3,11 @@
 Counterpart of ``qinfer_tpu/ops/fused_update.py``. One pass over the bank
 computes the likelihood, the log-weight update and both streaming
 log-sum-exps (evidence and ESS). On a CUDA tensor ``fused_bayes_update``
-launches the hand-written kernel in ``csrc/fused_update.cu`` (its header
-says what bounds it and how it is laid out); on a CPU tensor it runs
+launches the hand-written kernels of ``csrc/fused_update.cuh`` (whose note
+says what bounds them and how they are laid out); on a CPU tensor it runs
 ``fused_update_plain``, the same function in plain PyTorch. A failed build
-or launch, or a tile without a CUDA functor, raises: nothing falls back.
+or launch raises, and so does a tile that is neither an outcome
+composition nor has a CUDA functor: nothing falls back.
 
 A likelihood tile is an outcome composition (``TwoOutcomeTile``,
 ``BinomialTile``) over a pr1 function. Both are frozen dataclasses,
@@ -18,6 +19,25 @@ pr1 carries the constants that the JAX package bakes into its closure
 JAX layout. The kernel takes at most ``MAX_COLS`` parameter columns; each
 functor's own bound (8 for MultiCos) is checked by the kernel, and a
 launch it refuses raises.
+
+A model's own pr1, as the JAX package traces any ``jnp`` pr1 into its
+Pallas kernel, takes one of two routes on CUDA:
+
+- ``cuda_pr1(fn, source, consts)``: ``fn`` is the pr1 in torch (the plain
+  version and the CPU route), ``source`` its CUDA functor, a ``struct
+  UserPr1`` with the built-in functors' interface
+  (``csrc/fused_update.cuh``). The tile launches the same kernels from a
+  library of that functor alone, built at first use
+  (``_build.user_library``); a source that does not build raises.
+- a pr1 with no functor (a plain torch function): the column route. The
+  wrapper evaluates the pr1 with torch on the card into one (T, N)
+  column and launches the same outcome composition over ``GivenPr1``,
+  whose Pr(1) is that column: a few more launches and one more round trip
+  of a column through device memory.
+
+Each wrapper counts its launches (``launches``), and of them those on a
+user library (``user_launches``) and on the column route
+(``column_launches``).
 
 The kernel reads the parameter columns in place, and no column is copied
 first. When the columns are views of one row-major (N, s) bank with s ≥ 8
@@ -40,8 +60,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 from dataclasses import dataclass
-from typing import Any, ClassVar, NamedTuple
+from typing import Any, Callable, ClassVar, NamedTuple
 
 import torch
 
@@ -53,7 +74,8 @@ __all__ = [
     "TwoOutcomeTile", "BinomialTile", "two_outcome_tile", "binomial_tile",
     "precession_pr1", "make_multicos_pr1", "make_known_t2_pr1", "rb_pr1",
     "rb_interleaved_pr1", "inversion_pr1", "coin_pr1", "noisy_coin_pr1",
-    "make_born_pr1", "MAX_COLS", "grid_plan", "ONE_LAUNCH", "TWO_PASS",
+    "make_born_pr1", "given_pr1", "cuda_pr1", "CudaPr1", "MAX_COLS",
+    "grid_plan", "ONE_LAUNCH", "TWO_PASS",
 ]
 
 _LOG_TINY = -87.0
@@ -200,12 +222,63 @@ class BornPr1(_Pr1):
         return torch.clamp(acc, 0.0, 1.0)
 
 
+@dataclass(frozen=True)
+class GivenPr1(_Pr1):
+    """The column route's pr1: Pr(1) is the one column, evaluated by a pr1
+    that has no CUDA functor; no scalars."""
+
+    functor_id: ClassVar[int] = 9
+
+    def __call__(self, scalars, off, p):
+        return p
+
+
+@dataclass(frozen=True)
+class CudaPr1:
+    """A model's own pr1 function. ``fn(scalars, off, *cols) -> Pr(1)`` is
+    the pr1 in torch: the plain version, and the CPU route. ``source`` is
+    its CUDA functor, ``struct UserPr1`` with the built-in functors'
+    interface (``kMinCols``, ``kMaxColsUsed`` ≤ 16, a constructor ``(const
+    float* s, const Consts& k, int n_cols)`` and ``template <class C>
+    __device__ float operator()(const C& c, int64_t i) const``; see
+    ``csrc/fused_update.cuh``), and ``consts`` the functor's compile-time
+    constants, at most four floats read as ``k.v[j]`` (``fn`` keeps its own
+    in its closure, as the JAX package's pr1 does). Equal values find the
+    same library."""
+
+    fn: Callable
+    source: str
+    consts: tuple = ()
+
+    def __post_init__(self):
+        consts = tuple(float(c) for c in self.consts)
+        if len(consts) > _MAX_CONSTS:
+            raise ValueError(f"a CUDA pr1 takes at most {_MAX_CONSTS} "
+                             f"constants; got {len(consts)}")
+        object.__setattr__(self, "consts", consts)
+
+    def __call__(self, scalars, off, *cols):
+        return self.fn(scalars, off, *cols)
+
+    @functools.cached_property
+    def library_key(self):
+        """The key of the functor's library: a hash of ``source``."""
+        return hashlib.sha256(self.source.encode()).hexdigest()[:16]
+
+
+def cuda_pr1(fn, source, consts=()):
+    """A model's own pr1: ``fn`` in torch, ``source`` its CUDA functor,
+    ``consts`` the functor's constants."""
+    return CudaPr1(fn, source, tuple(consts))
+
+
 precession_pr1 = PrecessionPr1()
 rb_pr1 = RbPr1()
 rb_interleaved_pr1 = RbInterleavedPr1()
 inversion_pr1 = InversionPr1()
 coin_pr1 = CoinPr1()
 noisy_coin_pr1 = NoisyCoinPr1()
+given_pr1 = GivenPr1()
 
 
 def make_multicos_pr1(n_terms):
@@ -226,12 +299,17 @@ def make_born_pr1(n_cols):
 class _OutcomeTile:
     pr1_fn: Any
     outcome_id: ClassVar[int]
+    head: ClassVar[int]  # scalars before the pr1 function's own
 
     @property
     def kernel_tile(self):
-        """(outcome_id, functor_id, consts) of the CUDA instantiation, or
-        None when the pr1 function has no functor."""
+        """(outcome_id, functor, consts) of the CUDA instantiation:
+        ``functor`` is a built-in functor's id (int) or a user functor's
+        library key (str). None when the pr1 function has neither (the
+        column route)."""
         functor = getattr(self.pr1_fn, "functor_id", None)
+        if functor is None:
+            functor = getattr(self.pr1_fn, "library_key", None)
         if functor is None:
             return None
         return self.outcome_id, functor, tuple(self.pr1_fn.consts)
@@ -243,6 +321,7 @@ class TwoOutcomeTile(_OutcomeTile):
     pr = pr1 for outcome 1 and 1 − pr1 otherwise."""
 
     outcome_id: ClassVar[int] = 0
+    head: ClassVar[int] = 1
 
     def __call__(self, scalars, *cols):
         pr1 = self.pr1_fn(scalars, 1, *cols)
@@ -257,6 +336,7 @@ class BinomialTile(_OutcomeTile):
     clipped to [0, 1] (the clip reproduces xlogy's 0·log 0 = 0)."""
 
     outcome_id: ClassVar[int] = 1
+    head: ClassVar[int] = 3
 
     def __call__(self, scalars, *cols):
         k, n, log_c = scalars[0], scalars[1], scalars[2]
@@ -383,11 +463,20 @@ def grid_plan(n_trials, n, capacity, form=None):
     return GridPlan(TWO_PASS, n_blocks, n_blocks, 1, per_thread)
 
 
+def _library(source):
+    """The library that holds a functor: the built-in one, or the user
+    functor's of this ``source``."""
+    return (_build.library() if source is None
+            else _build.user_library(source))[0]
+
+
 @functools.lru_cache(maxsize=None)
-def _capacity(outcome_id, functor_id, n_cols, batched, device_index):
+def _capacity(outcome_id, functor_id, n_cols, batched, device_index,
+              source=None):
     """Blocks of the one-launch instantiation for this tile resident at
-    once on the device (occupancy × SMs), asked once per instantiation."""
-    lib, _ = _build.library()
+    once on the device (occupancy × SMs), asked once per instantiation;
+    ``source``: the user functor's (None: a built-in one)."""
+    lib = _library(source)
     cap = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.qt_fused_update_capacity(outcome_id, functor_id, n_cols,
@@ -395,6 +484,21 @@ def _capacity(outcome_id, functor_id, n_cols, batched, device_index):
                                            ctypes.byref(cap))
     _build.check(err, "qt_fused_update_capacity")
     return cap.value
+
+
+def _kernel_of(tile_fn):
+    """``(outcome_id, functor_id, consts, source)`` of the tile's CUDA
+    instantiation: ``source`` is a user functor's (functor id 0 of its own
+    library), None for a built-in one. Raises for a tile without one."""
+    spec = getattr(tile_fn, "kernel_tile", None)
+    if spec is None:
+        raise NotImplementedError(
+            f"no CUDA functor for likelihood tile {tile_fn!r}"
+        )
+    outcome_id, functor, consts = spec
+    if isinstance(functor, str):
+        return outcome_id, 0, consts, tile_fn.pr1_fn.source
+    return outcome_id, functor, consts, None
 
 
 def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
@@ -408,13 +512,10 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
     when the layout has none), False the per-column path. ``form``: None
     takes the per-column path's form from ``grid_plan``; ``ONE_LAUNCH`` or
     ``TWO_PASS`` forces one (the row span has only the two-pass form).
-    Both options are for comparing paths and forms."""
-    spec = getattr(tile_fn, "kernel_tile", None)
-    if spec is None:
-        raise NotImplementedError(
-            f"no CUDA functor for likelihood tile {tile_fn!r}"
-        )
-    outcome_id, functor_id, consts = spec
+    Both options are for comparing paths and forms. A tile whose pr1 has
+    no CUDA functor raises here: the wrappers send it to the column route
+    first (``_route``)."""
+    outcome_id, functor_id, consts, source = _kernel_of(tile_fn)
     if len(param_cols) > MAX_COLS:
         raise ValueError(
             f"the fused update kernel takes at most {MAX_COLS} parameter "
@@ -445,7 +546,7 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
     if span and form == ONE_LAUNCH:
         raise ValueError("the row-span path has the two-pass form only")
     capacity = 0 if span or form == TWO_PASS else _capacity(
-        outcome_id, functor_id, len(cols), n_trials > 1, device.index)
+        outcome_id, functor_id, len(cols), n_trials > 1, device.index, source)
     plan = grid_plan(n_trials, n, capacity, TWO_PASS if span else form)
     one = plan.form == ONE_LAUNCH
     out = torch.empty_like(log_w)
@@ -458,7 +559,7 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
     span_offsets = (ctypes.c_int32 * len(cols))(*offsets)
     span_base = min(c.data_ptr() for c in cols) if span else None
     const_buf = (ctypes.c_float * _MAX_CONSTS)(*consts)
-    lib, _ = _build.library()
+    lib = _library(source)
     with torch.cuda.device(device):
         err = lib.qt_fused_update(
             outcome_id, functor_id, scalars.data_ptr(), scalars.shape[1],
@@ -477,6 +578,36 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
     return out, stats[:, 0], stats[:, 1], stats[:, 3]
 
 
+def _route(tile_fn, scalars, param_cols, shape, batched):
+    """What a CUDA launch runs for this tile: ``(tile, scalars, cols,
+    route)``. A tile with a functor runs as it is, on the built-in library
+    (route "builtin") or its user library ("user"). An outcome tile whose
+    pr1 has none takes the column route ("column"): the pr1 evaluated by
+    its torch function, in the wrapper's layout (``batched``: scalars (T,
+    k) and (T, N) columns), is broadcast to ``shape`` and becomes the one
+    column of the same outcome composition over ``GivenPr1``, with the
+    composition's head of the scalars. Any other tile is returned as it is
+    (route None), for ``_fused_update_cuda`` to refuse."""
+    spec = getattr(tile_fn, "kernel_tile", None)
+    if spec is not None:
+        return (tile_fn, scalars, param_cols,
+                "user" if isinstance(spec[1], str) else "builtin")
+    if not isinstance(tile_fn, _OutcomeTile):
+        return tile_fn, scalars, param_cols, None
+    pr1 = tile_fn.pr1_fn(scalars.T[:, :, None] if batched else scalars,
+                         tile_fn.head, *param_cols)
+    return (type(tile_fn)(given_pr1), scalars[..., :tile_fn.head],
+            (torch.broadcast_to(pr1, shape),), "column")
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    if route == "user":
+        wrapper.user_launches += 1
+    elif route == "column":
+        wrapper.column_launches += 1
+
+
 def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
                        return_stats=False):
     """One fused SMC update.
@@ -490,11 +621,13 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
     lse = logsumexp(lw) and lse2 = logsumexp(2·lw).
     """
     if log_w.is_cuda:
+        tile, scal, cols, route = _route(tile_fn, scalars, param_cols,
+                                         log_w.shape, batched=False)
         lw, lse, lse2, ess = _fused_update_cuda(
-            tile_fn, scalars.reshape(1, -1), log_w[None],
-            tuple(c[None] for c in param_cols), normalize=not return_stats)
+            tile, scal.reshape(1, -1), log_w[None],
+            tuple(c[None] for c in cols), normalize=not return_stats)
         lw, lse, lse2, ess = lw[0], lse[0], lse2[0], ess[0]
-        fused_bayes_update.launches += 1
+        _count(fused_bayes_update, route)
     else:
         lw, lse, lse2, ess = fused_update_plain(tile_fn, scalars, log_w,
                                                 param_cols)
@@ -506,6 +639,8 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
 
 
 fused_bayes_update.launches = 0
+fused_bayes_update.user_launches = 0
+fused_bayes_update.column_launches = 0
 
 
 def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
@@ -524,10 +659,11 @@ def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
         raise ValueError(f"the fused update kernel takes at most {MAX_TRIALS} "
                          f"trials; got {log_w.shape[0]}")
     if log_w.is_cuda:
-        lw, lse, lse2, ess = _fused_update_cuda(tile_fn, scalars, log_w,
-                                                param_cols,
+        tile, scal, cols, route = _route(tile_fn, scalars, param_cols,
+                                         log_w.shape, batched=True)
+        lw, lse, lse2, ess = _fused_update_cuda(tile, scal, log_w, cols,
                                                 normalize=not return_stats)
-        fused_bayes_update_batched.launches += 1
+        _count(fused_bayes_update_batched, route)
     else:
         lw, lse, lse2, ess = fused_update_plain_batched(tile_fn, scalars,
                                                         log_w, param_cols)
@@ -539,3 +675,5 @@ def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
 
 
 fused_bayes_update_batched.launches = 0
+fused_bayes_update_batched.user_launches = 0
+fused_bayes_update_batched.column_launches = 0

@@ -87,8 +87,9 @@ def test_zoo_tile_kernel_matches_plain(cuda, case, n):
 
 def test_wide_or_unknown_tile_raises_on_cuda(cuda):
     """More columns than a functor takes (8 for MultiCos, which the kernel
-    refuses; 16 for any tile), or a pr1 with no functor, raises on CUDA
-    instead of running the plain version."""
+    refuses; 16 for any tile) raises on CUDA instead of running the plain
+    version; so does a pr1 with no functor handed to the kernel itself,
+    which the wrapper sends to the column route, counted."""
     model = qt.MultiCosModel(n_terms=9)
     locs = torch.rand((256, 9), device=cuda)
     lw = torch.full((256,), -float(np.log(256.0)), device=cuda)
@@ -102,8 +103,14 @@ def test_wide_or_unknown_tile_raises_on_cuda(cuda):
                               tuple(wide[:, d] for d in range(17)))
     tile = b1.two_outcome_tile(lambda scalars, off, x: x)
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
-        b1.fused_bayes_update(tile, torch.ones(1, device=cuda), lw,
-                              (locs[:, 0],))
+        b1._fused_update_cuda(tile, torch.ones((1, 1), device=cuda), lw[None],
+                              (locs[None, :, 0],))
+    counts = (b1.fused_bayes_update.launches,
+              b1.fused_bayes_update.column_launches)
+    b1.fused_bayes_update(tile, torch.ones(1, device=cuda), lw, (locs[:, 0],))
+    assert (b1.fused_bayes_update.launches,
+            b1.fused_bayes_update.column_launches) == (counts[0] + 1,
+                                                       counts[1] + 1)
 
 
 @pytest.mark.parametrize("n", [1000, N + 3])
@@ -747,3 +754,57 @@ def test_checkpoint_resumes_a_cuda_updater_bit_for_bit(cuda, tmp_path):
     assert a.resample_count > at_save
     for name in ("particle_locations", "particle_log_weights", "n_resamples"):
         assert torch.equal(getattr(a.state, name), getattr(b.state, name))
+
+
+# -- B1 on a model's own pr1 (chip_smoke's user model) ----------------------------
+
+@pytest.mark.parametrize("n", [1000, N + 3, N])
+@pytest.mark.parametrize("binomial", [False, True], ids=["two_outcome",
+                                                         "binomial"])
+def test_user_functor_matches_plain(cuda, binomial, n):
+    """The user library's tile against its plain version, and the column
+    route (the torch-only twin) against the user tile, within B1_TOL."""
+    tile, scal, lw, cols = chip_smoke.user_inputs(binomial, n, n, cuda)
+    counts = (b1.fused_bayes_update.user_launches,
+              b1.fused_bayes_update.column_launches)
+    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
+    twin = type(tile)(chip_smoke.LOST_VISIBILITY_TORCH)
+    lw_c, ln_c, ess_c = b1.fused_bayes_update(twin, scal, lw, cols)
+    assert (b1.fused_bayes_update.user_launches,
+            b1.fused_bayes_update.column_launches) == (counts[0] + 1,
+                                                       counts[1] + 1)
+    lw_p, lse_p, _, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    for lw_x, ln_x, ess_x, lw_y, ln_y, ess_y in (
+            (lw_k, ln_k, ess_k, lw_p - lse_p, lse_p, ess_p),
+            (lw_c, ln_c, ess_c, lw_k, ln_k, ess_k)):
+        torch.testing.assert_close(lw_x, lw_y, atol=1e-4, rtol=0)
+        assert abs(float(ln_x) - float(ln_y)) <= 1e-4
+        assert float(ess_x) == pytest.approx(float(ess_y), rel=1e-3)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.B1_BATCH_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_user_functor_trial_grid_bit_equal_to_single_banks(cuda, shape):
+    tile, scal, lw, cols = chip_smoke.user_batched_inputs(*shape, 3, cuda)
+    lw_k, ln_k, _ = b1.fused_bayes_update_batched(tile, scal, lw, cols)
+    for i in range(shape[0]):
+        lw_1, ln_1, _ = b1.fused_bayes_update(tile, scal[i], lw[i],
+                                              tuple(c[i] for c in cols))
+        assert torch.equal(lw_1, lw_k[i]) and torch.equal(ln_1, ln_k[i])
+
+
+def test_malformed_user_source_raises_with_nvcc_message(cuda):
+    """A user functor that does not compile raises with nvcc's message at
+    its first launch; nothing takes the column route or the plain
+    version."""
+    bad = b1.cuda_pr1(chip_smoke.lost_visibility_pr1,
+                      "struct UserPr1 { this is not C++; };")
+    tile, scal, lw, cols = chip_smoke.user_inputs(False, 1000, 1, cuda)
+    counts = (b1.fused_bayes_update.launches,
+              b1.fused_bayes_update.column_launches)
+    with pytest.raises(RuntimeError, match="nvcc failed") as err:
+        b1.fused_bayes_update(type(tile)(bad), scal, lw, cols)
+    assert "error" in str(err.value)
+    assert (b1.fused_bayes_update.launches,
+            b1.fused_bayes_update.column_launches) == counts

@@ -218,6 +218,8 @@ class _FakeLib:
         names = ("out", "n_blocks", "stats", "n", "n_trials", "grid_blocks",
                  "normalize")
         call = dict(zip(names, args[14:15] + args[16:22]))
+        call.update(outcome=args[0], pr1=args[1], scalar_stride=args[3],
+                    n_cols=args[9])
         n_trials, n = call["n_trials"], call["n"]
         ones = torch.ones(n_trials * n)
         ctypes.memmove(call["out"], ones.data_ptr(), 4 * ones.numel())
@@ -279,3 +281,42 @@ def test_row_span_keeps_two_passes(fake_lib):
         b1._fused_update_cuda(tile, torch.zeros((1, 19)),
                               torch.zeros((1, 4096)), cols,
                               form=b1.ONE_LAUNCH)
+
+
+def test_each_tile_launches_from_its_library(fake_lib, monkeypatch):
+    """A built-in functor launches from the built-in library by its id, a
+    user functor from the library built of its source as functor 0, and
+    the column route's GivenPr1 (id 9) from the built-in library, with the
+    composition's head of the scalars and the pr1 as its one column."""
+    user_lib, sources = _FakeLib(528), []
+
+    def user_library(source):
+        sources.append(source)
+        return user_lib, {}
+
+    monkeypatch.setattr(_build, "user_library", user_library)
+    lw, bank = torch.zeros((1, N)), torch.rand((1, N, 2))
+    cols = (bank[..., 0], bank[..., 1])
+    scal = torch.tensor([[1.0, 7.3]])
+
+    def pr1(scalars, off, w, v):
+        return v * w * scalars[off]
+
+    src = "struct UserPr1 {};"
+    b1._fused_update_cuda(b1.two_outcome_tile(b1.cuda_pr1(pr1, src)), scal,
+                          lw, cols)
+    (call,) = user_lib.calls
+    assert (call["outcome"], call["pr1"], call["n_cols"]) == (0, 0, 2)
+    assert set(sources) == {src}
+    b1._fused_update_cuda(b1.binomial_tile(b1.precession_pr1),
+                          torch.zeros((1, 4)), lw, cols[:1])
+    twin = b1.two_outcome_tile(pr1)
+    tile, scal_g, cols_g, route = b1._route(twin, scal, cols, lw.shape,
+                                            batched=True)
+    assert route == "column"
+    b1._fused_update_cuda(tile, scal_g, lw, cols_g)
+    builtin, given = fake_lib.calls
+    assert (builtin["outcome"], builtin["pr1"]) == (1, 0)
+    assert (given["outcome"], given["pr1"], given["scalar_stride"],
+            given["n_cols"]) == (0, 9, 1, 1)
+    assert torch.equal(cols_g[0], pr1(scal.T[:, :, None], 1, *cols))

@@ -446,3 +446,41 @@ def test_interop_new_models(obj, fields):
     if isinstance(obj, qi.RandomWalkModel):
         assert isinstance(m.step_distribution, qt.NormalDistribution)
         assert m.step_distribution.var == 0.3
+
+
+# -- the four members the port lacked ---------------------------------------------
+
+@pytest.mark.parametrize("cls", ["SimplePrecessionModel", "NDieModel",
+                                 "MultinomialModel"])
+def test_clear_cache_and_differentiability_match_jax(cls):
+    """``Simulatable.clear_cache`` is a no-op and
+    ``Model.is_model_differentiable`` is True, in both packages."""
+    j = {"SimplePrecessionModel": qi.SimplePrecessionModel(),
+         "NDieModel": qi.NDieModel(n=3),
+         "MultinomialModel": qi.MultinomialModel(qi.NDieModel(n=3))}[cls]
+    t = from_reference(j)
+    assert j.clear_cache() is None and t.clear_cache() is None
+    assert t.is_model_differentiable is j.is_model_differentiable is True
+
+
+def test_pr0_to_likelihood_array_matches_jax():
+    rng = np.random.default_rng(3)
+    pr0 = rng.random((17, 4)).astype(np.float32)
+    outcomes = np.array([0, 1, 0, 3], np.int32)  # any outcome ≠ 0 is "1"
+    j = qi.FiniteOutcomeModel.pr0_to_likelihood_array(jnp.asarray(outcomes),
+                                                      jnp.asarray(pr0))
+    t = qt.FiniteOutcomeModel.pr0_to_likelihood_array(
+        torch.from_numpy(outcomes), torch.from_numpy(pr0))
+    assert t.shape == (4, 17, 4)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("j_cls,t_cls,kw", [
+    (qi.SimplePrecessionModel, qt.SimplePrecessionModel, {}),
+    (qi.NDieModel, qt.NDieModel, {"n": 5})], ids=["precession", "die"])
+def test_score_mixin_all_outcomes_matches_jax(j_cls, t_cls, kw):
+    j = type("J", (qi.ScoreMixin, j_cls), {})(**kw)
+    t = type("T", (qt.ScoreMixin, t_cls), {})(**kw)
+    out = t.all_outcomes()
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(j.all_outcomes()))
