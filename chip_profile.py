@@ -34,7 +34,9 @@ and both batched kernels in both ensemble regimes
 the order DIR…, this, this, …DIR, twice, each in a fresh process that
 builds its kernels, and prints each tree's ptxas register lines, then per
 tile and tree the µs of every process and their mean. ``--b2-forms``
-times B2's forms against each other at each width (``compare_b2_forms``),
+times B2's forms against each other at each width and on the small
+launches of the ensembles and of the examples' own banks, the bank form
+at several blocks a trial (``compare_b2_forms``),
 ``--b1-paths`` B1's two column paths at each row stride
 (``compare_b1_paths``), ``--b1-forms`` the per-column path's one-launch
 and two-pass forms (``compare_b1_forms``); ``--kernel-split`` gives the
@@ -414,43 +416,73 @@ def compare_b1_forms(device, rounds=2):
 
 
 B2_FORM_WIDTHS = (1, 2, 3, 4, 5, 8, 12, 16, 17)
-# (T, N, D) of each ensemble's median batched resample (chip_smoke.py's
-# B2Capture: 74 of ensemble_small's 256 trials, 1 of ensemble_big's 4).
-ENSEMBLE_RESAMPLES = ((74, 2048, 1), (1, 1 << 18, 1))
+# (T, N) of the small launches, timed at each of B2_SMALL_WIDTHS: the
+# ensembles' resamples (chip_smoke.py's B2Capture: 74 of ensemble_small's
+# 256 trials of 2048 at the median, up to all 256; ensemble_big's 1 and 4
+# of 2^18), and single banks at the examples' own N (the random walk and
+# the die 2000, config 5 4000, configs 1 and 4 PGH 5000, two-qubit
+# tomography 10000), at 16385 and at 2^17.
+B2_SMALL_LAUNCHES = ((74, 2048), (128, 2048), (256, 2048), (512, 2048),
+                     (1024, 2048), (4, 2048), (16, 2048), (1, 2000),
+                     (1, 4000), (1, 5000), (1, 10000), (1, 16385),
+                     (1, 1 << 17), (1, 1 << 18), (4, 1 << 18))
+B2_SMALL_WIDTHS = (1, 2, 3, 4, 8)
+# Rows a tile of the bank form, timed beside the wrapper's tiling where the
+# bank allows: searched tiles of 256 and 512, scanned tiles of 2048.
+BANK_TILE_ROWS = (256, 512, 2048)
 
 
 def compare_b2_forms(device, rounds=2):
-    """B2's forms (one thread per row, a warp per span of rows, and up to
-    D = 8 the merge path) at 2^20 rows and each width of B2_FORM_WIDTHS,
-    and on the batched ensemble shapes and ENSEMBLE_RESAMPLES at D = 1, in
-    turns rows, span, [merge, merge,] span, rows; µs of each timing and
-    their mean, per width and form."""
+    """B2's forms at 2^20 rows and each width of B2_FORM_WIDTHS (one thread
+    per row, a warp per span of rows, and up to D = 8 the merge path), and
+    on each of B2_SMALL_LAUNCHES at each of B2_SMALL_WIDTHS (rows, merge,
+    and the bank form at the wrapper's tiling and at tiles of each of
+    BANK_TILE_ROWS rows, where a bank's starts fit a block), in turns
+    forward then back; µs of each timing and their mean,
+    per case and form. The first line is the floor of one queued launch
+    (``chip_smoke.launch_floor_ms``)."""
     b2 = cs.b2
+    print(json.dumps({"launch_floor_us": 1e3 * cs.launch_floor_ms()}))
     rng = np.random.default_rng(1)
     log_w = torch.as_tensor(cs._weights("random", N, rng), device=device)
     starts = cs.systematic_segment_starts(log_w, N, u0=0.37)[None]
     cases = {}
     for d in B2_FORM_WIDTHS:
         vals = torch.rand((1, N, d), device=device)
+        forms = ((b2.ROWS, None), (b2.SPAN, None)) + (
+            ((b2.MERGE, None),) if d <= 8 else ())
         cases[f"D={d}"] = (starts, vals, N, b2._affine_batched(
-            0.98, 0.02 * vals[0].mean(0), 1, d, device))
-    for n_trials, n, d in cs.B2_BATCH_SHAPES[:2] + ENSEMBLE_RESAMPLES:
-        s, v, mu = cs.batched_b2_inputs(n_trials, n, d, 7, device)
-        cases[f"{n_trials}x{n}"] = (s, v, n, b2._affine_batched(
-            0.98, 0.02 * mu, n_trials, d, device))
-    labels = {b2.ROWS: "rows", b2.SPAN: "span", b2.MERGE: "merge"}
+            0.98, 0.02 * vals[0].mean(0), 1, d, device), forms)
+    for n_trials, n in B2_SMALL_LAUNCHES:
+        for d in B2_SMALL_WIDTHS:
+            s, v, mu = cs.batched_b2_inputs(n_trials, n, d, 7, device)
+            tilings = {b2.bank_tiles(n_trials, n)} | {
+                -(-n // rows) for rows in BANK_TILE_ROWS}
+            forms = ((b2.ROWS, None), (b2.MERGE, None)) + tuple(
+                (b2.BANK, t) for t in sorted(tilings) if n <= b2.BANK_CAP)
+            cases[f"{n_trials}x{n} D={d}"] = (s, v, n, b2._affine_batched(
+                0.98, 0.02 * mu, n_trials, d, device), forms)
     out = {}
-    for name, (s, v, n, aff) in cases.items():
-        forms = (b2.ROWS, b2.SPAN) + ((b2.MERGE,) if v.shape[2] <= 8 else ())
+    for name, (s, v, n, aff, forms) in cases.items():
         runs = {form: [] for form in forms}
         for _ in range(rounds):
-            for form in forms + forms[::-1]:
-                runs[form].append(1e3 * cs._time_ms(
-                    lambda: b2._expand_cuda_batched(s, v, n, aff, form=form),
-                    20))
-        out[name] = {labels[form]: {"mean": float(np.mean(r)), "runs": r}
+            for form, tiles in forms + forms[::-1]:
+                runs[form, tiles].append(1e3 * cs._time_ms(
+                    lambda: b2._expand_cuda_batched(s, v, n, aff, form=form,
+                                                    tiles=tiles), 20))
+        out[name] = {_form_label(*form): {"mean": float(np.mean(r)),
+                                          "runs": r}
                      for form, r in runs.items()}
+        out[name]["wrapper"] = _form_label(
+            b2.kernel_form(v.shape[2], v.shape[0], v.shape[1], n),
+            b2.bank_tiles(v.shape[0], n))
     print(json.dumps({"b2_form_us": out}))
+
+
+def _form_label(form, tiles):
+    """The form's name; the bank form's with its blocks a trial."""
+    name = cs.b2.FORM_NAMES[form]
+    return f"{name}/{tiles}" if form == cs.b2.BANK and tiles else name
 
 
 def main():
@@ -461,7 +493,7 @@ def main():
                     choices=sorted(PATHS) + list(SHARDED_NAMES),
                     help="profile only these paths (default: all)")
     ap.add_argument("--b2-forms", action="store_true",
-                    help="time B2's two forms at each width")
+                    help="time B2's forms at each width and small launch")
     ap.add_argument("--b1-paths", action="store_true",
                     help="time B1's two column paths at each row stride")
     ap.add_argument("--b1-forms", action="store_true",

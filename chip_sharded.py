@@ -105,7 +105,7 @@ def phase_flagship(mesh, migration, n_windows, device):
         b1_ok = counts["B1"] == cs.N_EXP * n_windows
         b2_ok = counts["B2"] == 0 if ring else counts["B2"] >= resamples > 0
     else:
-        b1_ok = b2_ok = counts == {"B1": 0, "B2": 0}
+        b1_ok = b2_ok = counts["B1"] == counts["B2"] == 0
     return {"ok": all(w["ok"] for w in windows) and b1_ok and b2_ok,
             "window_ms_median": statistics.median(ms), "window_ms": ms,
             "resamples": [w["resamples"] for w in windows],

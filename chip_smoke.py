@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero before the result line:
    every B1 case the per-column path's one-launch form bit for bit
    against its two-pass form, both forced (lw − lse, lse, lse2, ESS and
    the raw lw of ``return_stats``); B2 (systematic expand) bit for bit at
-   D ∈ {1, 2, 3, 4, 5, 16, 17}, in the wrapper's form (the merge path up
-   to D = 8) and, up to D = 8, in the rows form forced.
+   D ∈ {1, 2, 3, 4, 5, 16, 17} and N ∈ ``B2_SIZES``, in the wrapper's form
+   and, up to D = 8, in the merge path, the rows form and, where N is
+   within its cap, the bank form forced (``b2_forced``); one over the cap
+   a forced bank form must raise ValueError.
 4. main path: ``SMCUpdater`` with 2^20 particles on ``SimplePrecessionModel``
    and the Liu–West resampler, one warm-up window and three timed windows,
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
@@ -52,7 +54,9 @@ Phases, in order; any failure exits non-zero before the result line:
    2^20, 100 steps of ``PGH`` → ``simulate_experiment`` on the card →
    ``update`` per window; a warm-up window and three timed ones, each
    gated |est − ω| < 6σ + slack; B1 once per update, B2 at least once per
-   resample. One JSON line each.
+   resample. One JSON line each. Then ``config1_quickstart_pgh_native``,
+   config 1's loop at the example's own N = 5000 (``phase_pgh_native``),
+   gated the same way, every B2 launch on the bank form.
 9. ensemble_small (256 × 2048 × 100) and ensemble_big (4 × 2^18 × 50),
    ``ENSEMBLES``: ``perf_test_multiple`` with ``PGH`` on the card, three
    runs each, gated on the median final loss (< 1e-3); the batched B1
@@ -143,7 +147,10 @@ Phases, in order; any failure exits non-zero before the result line:
    regime's median resample (``B2Capture``), checked bit-equal to its plain
    version there too; B2 on rank 1's window of a bank over 4 ranks
    (n_in = 2^20, n_out = 2^18, D = 1) beside ``repeat_interleave`` over
-   the window's counts, and B1 with ``return_stats`` (precession, born4).
+   the window's counts, and B1 with ``return_stats`` (precession, born4);
+   the floor of one queued launch (a one-element add, ``launch_floor_ms``)
+   and B2 on a single bank of 5000 (``phase_timing_bank``), the bank form
+   beside the rows form.
    Each timing of a dispatched form that replaced
    another (B1's one launch, B2's merge path) times the old form in the
    same turns (B1 two passes, B2 rows), printed with the form and grid
@@ -156,7 +163,13 @@ The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version, bit-equal per trial to single-bank
 launches and its one-launch form to its two-pass form
 (``B1_BATCH_SHAPES``, three tiles), batched B2 bit-equal to its plain
-version and to single-bank launches (``B2_BATCH_SHAPES``).
+version and to single-bank launches, and its forced forms to both
+(``B2_BATCH_SHAPES``).
+
+Every path's JSON line carries B2's launches by form (``B2_forms``,
+``B2_batched_forms``: rows, span, merge, bank). The bank form must launch
+on ensemble_small, user_tile_ensemble and config1_quickstart_pgh_native,
+and on no 2^20 path nor ensemble_big (``_check_bank``).
 
 The last two lines are the kernel table (each kernel with its launches on
 its path, its worst error, its time, its plain version's, the bound from
@@ -769,10 +782,10 @@ def _print_ptxas(report):
                         else " [one launch]")
             else:
                 form = " [trial grid]" if "Lb1E" in line else ""
-            merge = re.search(r"expand_mergeILi(\d+)E", line)
+            merge = re.search(r"expand_(merge|bank)ILi(\d+)E", line)
             b2_form = ("expand_rows" if "expand_rows" in line
-                       else "expand_merge<{}{}>".format(
-                           merge.group(1), ", vector" if "Lb1E" in line
+                       else "expand_{}<{}{}>".format(
+                           *merge.groups(), ", vector" if "Lb1E" in line
                            else "") if merge
                        else "expand_span<float4>" if "Lb1E" in line
                        else "expand_span")
@@ -962,21 +975,44 @@ def _weights(kind, n, rng):
         return np.log(w / w.sum()).astype(np.float32)
 
 
-# B2's forms forced beside the wrapper's, above D = 8 and up to it.
-B2_FORCED = {False: (), True: (b2.MERGE, b2.ROWS)}
+def b2_forced(d, n_in):
+    """B2's forms forced beside the wrapper's: none above D = 8; up to it
+    the merge path, the rows form and, where a bank's n_in starts fit a
+    block, the bank form."""
+    if d > 8:
+        return ()
+    return (b2.MERGE, b2.ROWS) + ((b2.BANK,) if n_in <= b2.BANK_CAP else ())
+
+
+# Single banks of phase_compare_b2: ragged, the examples' own N (the random
+# walk and the die 2000, configs 1 and 4 PGH 5000, two-qubit tomography
+# 10000), 16385, the bank form's cap and one over it, and 2^20.
+B2_SIZES = (257, 2000, 5000, 10000, 16385, b2.BANK_CAP, b2.BANK_CAP + 1,
+            N_FLAGSHIP)
 
 
 def phase_compare_b2(device):
-    """B2 bit-equal to its plain version: the wrapper's form and, up to
-    D = 8, the merge path and the rows form forced."""
+    """B2 bit-equal to its plain version at each of B2_SIZES: the
+    wrapper's form and every form of ``b2_forced`` forced; one over the
+    bank form's cap, a forced bank form raises ValueError."""
     worst = 0.0
     rng = np.random.default_rng(0)
-    for n in (257, 16385, N_FLAGSHIP):
+    for n in B2_SIZES:
         for d in (1, 2, 3, 4, 5, 16, 17):
             vals = torch.as_tensor(rng.standard_normal((n, d)),
                                    dtype=torch.float32, device=device)
             mu = torch.as_tensor(rng.standard_normal(d), dtype=torch.float32,
                                  device=device)
+            if d <= 8 and n > b2.BANK_CAP:
+                starts = torch.zeros(n, dtype=torch.int32, device=device)
+                try:
+                    b2._expand_cuda_batched(starts[None], vals[None], n, None,
+                                            form=b2.BANK)
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError(f"B2's bank form took n_in = {n}, "
+                                         f"over its cap {b2.BANK_CAP}")
             for kind in ("random", "degenerate", "single_heavy"):
                 log_w = torch.as_tensor(_weights(kind, n, rng), device=device)
                 starts = systematic_segment_starts(log_w, n, u0=0.37)
@@ -989,12 +1025,12 @@ def phase_compare_b2(device):
                     forced = [b2._expand_cuda_batched(
                         starts[None], vals[None], n,
                         None if aff is None else aff[None], form=form)[0]
-                        for form in B2_FORCED[d <= 8]]
+                        for form in b2_forced(d, n)]
                     torch.cuda.synchronize()
                     same = all(torch.equal(o, out_p) for o in [out_k] + forced)
                     print(f"B2 n={n} D={d} {kind} affine={affine}: wrapper's "
-                          f"form {b2.kernel_form(d, 2 * n)} and forms "
-                          f"{B2_FORCED[d <= 8]} forced "
+                          f"form {b2.kernel_form(d, 1, n, n)} and forms "
+                          f"{b2_forced(d, n)} forced "
                           f"{'bit-equal' if same else 'FAIL'}")
                     if not same:
                         raise AssertionError(
@@ -1007,9 +1043,11 @@ def phase_compare_b2(device):
 # -- batched kernels (trial ensembles) ------------------------------------------
 
 # (T, N) of the two ensemble regimes of bench_ensemble.py:54-58, and a
-# ragged one.
+# ragged one; for B2 also ensemble_small's median resample (74 of its 256
+# trials) and a few banks of tomography's 10000 at D = 2.
 B1_BATCH_SHAPES = ((256, 2048), (4, 1 << 18), (3, 1000 + 3))
-B2_BATCH_SHAPES = ((256, 2048, 1), (4, 1 << 18, 1), (8, 4099, 4))
+B2_BATCH_SHAPES = ((256, 2048, 1), (4, 1 << 18, 1), (8, 4099, 4),
+                   (74, 2048, 1), (3, 10000, 2))
 
 
 def batched_b1_inputs(name, n_trials, n, seed, device):
@@ -1108,13 +1146,13 @@ def phase_compare_b2_batched(device):
                 for i in range(n_trials)])
             aff = b2._affine_batched(scale, shift, n_trials, d, device)
             forced = [b2._expand_cuda_batched(starts, vals, n, aff, form=form)
-                      for form in B2_FORCED[d <= 8]]
+                      for form in b2_forced(d, n)]
             torch.cuda.synchronize()
             same = (torch.equal(out_k, out_p) and torch.equal(out_k, singles)
                     and all(torch.equal(o, out_p) for o in forced))
             print(f"B2 batched T={n_trials} N={n} D={d} affine={affine}: "
                   f"{'bit-equal to plain, single launches and forms ' if same else 'FAIL '}"
-                  f"{B2_FORCED[d <= 8]} forced")
+                  f"{b2_forced(d, n)} forced")
             if not same:
                 raise AssertionError(f"batched B2 differs at T={n_trials} "
                                      f"N={n} D={d} affine={affine}")
@@ -1142,11 +1180,10 @@ def _window(seed, record_seed, device):
 
 def phase_main_path(device):
     _window(10_000, 0, device)  # warm-up
-    b1.fused_bayes_update.launches = 0
-    b2.expand_sorted_segments.launches = 0
+    _reset_counters()
     windows = [_window(1000 * (w + 1), w, device) for w in range(3)]
-    launches = {"B1": b1.fused_bayes_update.launches,
-                "B2": b2.expand_sorted_segments.launches}
+    launches = _read_counters()[0]
+    _check_bank("main_path", launches, taken=False)
     n_resamples = [w[2] for w in windows]
     if launches["B1"] != 3 * N_EXP:
         raise AssertionError(f"B1 launched {launches['B1']} times, expected "
@@ -1196,14 +1233,11 @@ def phase_configs(device):
         cfg = make()
         n_upd = len(cfg.outcomes)
         _config_window(cfg, 10_000, device)  # warm-up
-        b1.fused_bayes_update.launches = 0
-        b2.expand_sorted_segments.launches = 0
-        qt.LiuWestResampler.redraw_rounds = 0
+        _reset_counters()
         windows = [_config_window(cfg, 1000 * (w + 1), device)
                    for w in range(3)]
-        counts = {"B1": b1.fused_bayes_update.launches,
-                  "B2": b2.expand_sorted_segments.launches}
-        rounds = qt.LiuWestResampler.redraw_rounds
+        counts, rounds = _read_counters()
+        _check_bank(cfg.name, counts, taken=False)
         n_resamples = [w[3] for w in windows]
         if counts["B1"] != 3 * n_upd:
             raise AssertionError(f"{cfg.name}: B1 launched {counts['B1']} "
@@ -1230,25 +1264,52 @@ def phase_configs(device):
 
 def _reset_counters():
     b1.fused_bayes_update.launches = 0
-    b2.expand_sorted_segments.launches = 0
     b1.fused_bayes_update_batched.launches = 0
-    b2.expand_sorted_segments_batched.launches = 0
+    b2.reset_form_launches()
     qt.LiuWestResampler.redraw_rounds = 0
+
+
+def _b2_forms():
+    """B2's launches by form, of the single-bank and the batched wrapper."""
+    return {"B2_forms": dict(b2.expand_sorted_segments.form_launches),
+            "B2_batched_forms":
+                dict(b2.expand_sorted_segments_batched.form_launches)}
 
 
 def _read_counters():
     return ({"B1": b1.fused_bayes_update.launches,
-             "B2": b2.expand_sorted_segments.launches},
+             "B2": b2.expand_sorted_segments.launches, **_b2_forms()},
             qt.LiuWestResampler.redraw_rounds)
 
 
-def _check_launches(name, counts, n_updates, n_resamples):
+def _check_bank(name, counts, taken):
+    """B2's bank form on a path: on none of its launches (``taken`` False:
+    the 2^20 paths and ensemble_big) or on some (True), in ``counts`` as
+    ``_read_counters`` gives them."""
+    bank = (counts["B2_forms"]["bank"]
+            + counts["B2_batched_forms"]["bank"])
+    if (bank > 0) != taken:
+        raise AssertionError(f"{name}: B2's bank form launched {bank} times"
+                             f" ({counts['B2_forms']}, batched "
+                             f"{counts['B2_batched_forms']})")
+
+
+def _check_launches(name, counts, n_updates, n_resamples, bank=False):
+    """B1 once an update, B2 at least once a resample, and the bank form
+    on those launches (``bank``) or on none (``_check_bank``)."""
+    _check_bank(name, counts, bank)
     if counts["B1"] != n_updates:
         raise AssertionError(f"{name}: B1 launched {counts['B1']} times, "
                              f"expected one per update ({n_updates})")
     if n_resamples == 0 or counts["B2"] < n_resamples:
         raise AssertionError(f"{name}: B2 launched {counts['B2']} times for "
                              f"{n_resamples} resamples")
+
+
+def _sum_counts(total, counts):
+    """``total`` plus ``counts``, key by key (the by-form dicts too)."""
+    return {k: _sum_counts(total.get(k, {}), v) if isinstance(v, dict)
+            else total.get(k, 0) + v for k, v in counts.items()}
 
 
 def phase_config5(device):
@@ -1356,35 +1417,57 @@ def pgh_window(model, truth, seed, device, n=N_FLAGSHIP, n_steps=N_PGH_STEPS,
             "finite": bool(torch.isfinite(u.particle_locations).all())}
 
 
-def phase_pgh_paths(device):
-    """Each PGH path at 2^20: a warm-up window, then three timed windows
+def _pgh_path(name, model, truth, slack, device, n=N_FLAGSHIP, bank=False):
+    """One PGH path at ``n``: a warm-up window, then three timed windows
     (seeds 1–3) with every counter set to 0 just before them and read just
-    after; every window gated |est − ω| < 6σ + slack. One JSON line each."""
-    launches = {}
-    for name, model, truth, slack in PGH_PATHS:
-        pgh_window(model, truth, 0, device)  # warm-up
-        _reset_counters()
-        windows = [pgh_window(model, truth, s, device) for s in (1, 2, 3)]
-        counts, rounds = _read_counters()
-        for w in windows:
-            if not (w["finite"] and abs(w["est"] - truth)
-                    < 6 * w["sd"] + slack):
-                raise AssertionError(f"{name}: gate failed: est={w['est']} "
-                                     f"sd={w['sd']} truth={truth}")
-        n_resamples = [w["resamples"] for w in windows]
-        _check_launches(name, counts, 3 * N_PGH_STEPS, sum(n_resamples))
-        secs = [w["seconds"] for w in windows]
-        print(json.dumps({
-            "config": name, "n_particles": N_FLAGSHIP,
-            "n_updates": N_PGH_STEPS,
-            "particle_updates_per_s":
-                N_FLAGSHIP * N_PGH_STEPS / statistics.median(secs),
-            "window_s": secs, "est": [w["est"] for w in windows],
-            "sd": [w["sd"] for w in windows], "truth": truth,
-            "n_resamples": n_resamples, "redraw_rounds": rounds,
-            "launches": counts}))
-        launches[name] = counts
-    return launches
+    after; every window gated |est − ω| < 6σ + slack; B1 once an update,
+    B2 at least once a resample, on the bank form (``bank``) or never.
+    One JSON line; returns the counts."""
+    pgh_window(model, truth, 0, device, n=n)  # warm-up
+    _reset_counters()
+    windows = [pgh_window(model, truth, s, device, n=n) for s in (1, 2, 3)]
+    counts, rounds = _read_counters()
+    for w in windows:
+        if not (w["finite"] and abs(w["est"] - truth) < 6 * w["sd"] + slack):
+            raise AssertionError(f"{name}: gate failed: est={w['est']} "
+                                 f"sd={w['sd']} truth={truth}")
+    n_resamples = [w["resamples"] for w in windows]
+    _check_launches(name, counts, 3 * N_PGH_STEPS, sum(n_resamples), bank)
+    secs = [w["seconds"] for w in windows]
+    print(json.dumps({
+        "config": name, "n_particles": n, "n_updates": N_PGH_STEPS,
+        "particle_updates_per_s": n * N_PGH_STEPS / statistics.median(secs),
+        "window_s": secs, "window_ms": [1e3 * t for t in secs],
+        "est": [w["est"] for w in windows], "sd": [w["sd"] for w in windows],
+        "truth": truth, "n_resamples": n_resamples, "redraw_rounds": rounds,
+        "launches": counts}))
+    return counts
+
+
+def phase_pgh_paths(device):
+    """Each PGH path at 2^20 (``_pgh_path``). Returns the counts by path."""
+    return {path[0]: _pgh_path(*path, device) for path in PGH_PATHS}
+
+
+# Config 1's PGH loop at the example's own N (examples/config1_precession_
+# quickstart.py:12-32, SMCUpdater(5000)): the size a user runs, where every
+# resample takes B2's bank form.
+N_NATIVE = 5000
+NATIVE_PGH = "config1_quickstart_pgh_native"
+
+
+def phase_pgh_native(device):
+    """``NATIVE_PGH``: config 1's gate, a warm-up and three windows at
+    N_NATIVE (``_pgh_path``); every B2 launch on the bank form. Returns
+    the counts."""
+    _, model, truth, slack = PGH_PATHS[0]
+    counts = _pgh_path(NATIVE_PGH, model, truth, slack, device, n=N_NATIVE,
+                       bank=True)
+    if counts["B2_forms"]["bank"] != counts["B2"]:
+        raise AssertionError(f"{NATIVE_PGH}: B2 by form "
+                             f"{counts['B2_forms']}, expected the bank form "
+                             f"on all {counts['B2']}")
+    return counts
 
 
 # -- trial ensembles (perf_test_multiple) ---------------------------------------
@@ -1463,7 +1546,9 @@ def phase_ensembles(device):
             run_counts = {"B1": b1.fused_bayes_update.launches,
                           "B1_batched": b1.fused_bayes_update_batched.launches,
                           "B2_batched":
-                              b2.expand_sorted_segments_batched.launches}
+                              b2.expand_sorted_segments_batched.launches,
+                          **_b2_forms()}
+            _check_bank(name, run_counts, taken=name == "ensemble_small")
             loss = float(np.median(perf["loss"][:, -1]))
             steps = n_exp + min(n_exp, _WARMUP_EXPERIMENTS)
             if not loss < ENSEMBLE_GATE or not np.all(
@@ -1481,8 +1566,7 @@ def phase_ensembles(device):
                          "steps_resampled": steps_resampled,
                          "resamples": int(perf["resample_count"][:, -1].sum()),
                          "launches": run_counts})
-            counts = {k: (counts or {}).get(k, 0) + v
-                      for k, v in run_counts.items()}
+            counts = _sum_counts(counts or {}, run_counts)
         secs = [r["seconds"] for r in runs]
         print(json.dumps({
             "config": name, "n_trials": n_trials, "n_particles": n,
@@ -1928,6 +2012,7 @@ def phase_model_zoo(device):
             "gate_values": [g[1] for g in gates], "launches": counts}))
         if not all(g[0] for g in gates):
             raise AssertionError(f"{name}: gate failed")
+        _check_bank(name, counts, taken=False)
         if counts["B1"] != 0:
             raise AssertionError(f"{name}: B1 launched {counts['B1']} times; "
                                  "these models have no tile")
@@ -2005,7 +2090,7 @@ def phase_compare_sharded(device):
                     outs.append(out_k)
                 whole = torch.equal(torch.cat(outs), one)
                 print(f"B2 sharded K={k_shards} D={d} {kind}: windows "
-                      f"(form {b2.kernel_form(d, n + n_local)} and rows) "
+                      f"(form {b2.kernel_form(d, 1, n, n_local)} and rows) "
                       f"{'bit-equal' if same else 'DIFFER'} to plain, "
                       f"together {'bit-equal' if whole else 'DIFFERENT'} "
                       f"to one bank")
@@ -2176,6 +2261,7 @@ def _sharded_path(name, window, n_windows, n_updates, smi, warm_up=True,
         "launches": counts}))
     if not all(w["ok"] for w in warm + windows):
         raise AssertionError(f"{name}: gate failed")
+    _check_bank(name, counts, taken=False)
     if counts["B1"] != n_updates * n_windows:
         raise AssertionError(f"{name}: B1 launched {counts['B1']} times, "
                              f"expected one per update "
@@ -2469,7 +2555,8 @@ def phase_user_tile(device):
         counts = {"B1": b1.fused_bayes_update.launches,
                   "B1_batched": b1.fused_bayes_update_batched.launches,
                   "B2_batched": b2.expand_sorted_segments_batched.launches,
-                  **_route_counters()}
+                  **_route_counters(), **_b2_forms()}
+        _check_bank(name, counts, taken=True)
         first = float(np.median(perf["loss"][:, 0]))
         loss = float(np.median(perf["loss"][:, -1]))
         if not loss < first / 10 or not np.all(np.isfinite(perf["est"])):
@@ -2484,7 +2571,7 @@ def phase_user_tile(device):
                                  f"{steps_resampled} resampling steps")
         runs.append({"seconds": seconds, "first": first, "loss": loss,
                      "steps_resampled": steps_resampled})
-        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        total = _sum_counts(total, counts)
     secs = [r["seconds"] for r in runs]
     print(json.dumps({
         "config": name, "n_trials": n_trials, "n_particles": n,
@@ -2517,6 +2604,13 @@ def _time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_floor_ms():
+    """The floor of one queued launch on the card: ``_time_ms`` of a
+    one-element in-place add, timed as every kernel is."""
+    x = torch.zeros(1, device="cuda")
+    return _time_ms(lambda: x.add_(1.0), 20)
 
 
 def _alternate(plain, kernel, library=None, old=None, iters=20):
@@ -2644,7 +2738,7 @@ def phase_timing(device):
                 starts[None], vals[None], N_FLAGSHIP, affine[None],
                 form=b2.ROWS))
         times[name]["work"] = b2_work(starts, d, N_FLAGSHIP)
-        times[name]["form"] = b2.kernel_form(d, 2 * N_FLAGSHIP)
+        times[name]["form"] = b2.kernel_form(d, 1, N_FLAGSHIP, N_FLAGSHIP)
     for name, t in times.items():
         print(f"{name} at 2^20: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, "
@@ -2653,6 +2747,35 @@ def phase_timing(device):
         name: {"ms": t["ms"], "old_ms": t["old_ms"], "form": t["form"]}
         for name, t in times.items()}}))
     return times
+
+
+def phase_timing_bank(device, smi):
+    """B2 on a single bank of N_NATIVE (config 1's own N), D = 1, random
+    weights, with the affine: the wrapper's form (the bank form) against
+    the rows form in the same turns, the plain version and
+    ``repeat_interleave``; and the floor of one queued launch
+    (``launch_floor_ms``). One JSON line each, with the card."""
+    floor_ms = launch_floor_ms()
+    print(json.dumps({"launch_floor_ms": floor_ms, "card": smi}))
+    n = N_NATIVE
+    rng = np.random.default_rng(2)
+    log_w = torch.as_tensor(_weights("random", n, rng), device=device)
+    starts = systematic_segment_starts(log_w, n, u0=0.37)
+    vals = torch.rand((n, 1), device=device)
+    affine = b2._affine(0.98, 0.02 * vals.mean(0), 1, device)
+    t = _alternate(
+        lambda: b2.expand_plain(starts, vals, n, affine),
+        lambda: b2._expand_cuda(starts, vals, n, affine),
+        _repeat_interleave(starts, vals, n),
+        old=lambda: b2._expand_cuda_batched(starts[None], vals[None], n,
+                                            affine[None], form=b2.ROWS))
+    t["work"] = b2_work(starts, 1, n)
+    t["form"] = b2.FORM_NAMES[b2.kernel_form(1, 1, n, n)]
+    print(json.dumps({f"B2_ms[N={n}]": {
+        "ms": t["ms"], "rows_ms": t["old_ms"], "plain_ms": t["plain_ms"],
+        "library_ms": t["library_ms"], "bound_ms": bound(t["work"])[0],
+        "launch_floor_ms": floor_ms, "form": t["form"], "card": smi}}))
+    return t, floor_ms
 
 
 def phase_timing_zoo(device):
@@ -2688,9 +2811,10 @@ def phase_timing_zoo(device):
 def phase_timing_batched(device, b2_inputs):
     """Batched B1 (the ensembles' precession tile) in both ensemble
     regimes, and batched B2 on ``b2_inputs`` (per regime, the inputs of a
-    resample that the path made, from ``phase_ensembles``; bit-equal to its
-    plain version or it raises): kernel, plain, and for B2 the library
-    call."""
+    resample that the path made, from ``phase_ensembles``; in the
+    wrapper's form and every ``b2_forced`` form bit-equal to its plain
+    version or it raises): kernel, plain, the rows form in the same turns,
+    and for B2 the library call."""
     times = {}
     for n_trials, n in B1_BATCH_SHAPES[:2]:
         tile, scal, lw, cols = batched_b1_inputs("precession", n_trials, n, 7,
@@ -2710,11 +2834,12 @@ def phase_timing_batched(device, b2_inputs):
     for name, (starts, vals, scale, shift) in b2_inputs.items():
         n_trials, n, d = vals.shape
         affine = b2._affine_batched(scale, shift, n_trials, d, device)
-        out_k = b2._expand_cuda_batched(starts, vals, n, affine)
-        out_m = b2._expand_cuda_batched(starts, vals, n, affine, form=b2.MERGE)
+        outs = [b2._expand_cuda_batched(starts, vals, n, affine)] + [
+            b2._expand_cuda_batched(starts, vals, n, affine, form=form)
+            for form in b2_forced(d, n)]
         out_p = b2.expand_plain_batched(starts, vals, n, affine)
         torch.cuda.synchronize()
-        if not (torch.equal(out_k, out_p) and torch.equal(out_m, out_p)):
+        if not all(torch.equal(o, out_p) for o in outs):
             raise AssertionError(f"batched B2 differs from its plain version "
                                  f"on {name}'s resample")
         t = _alternate(
@@ -2725,7 +2850,7 @@ def phase_timing_batched(device, b2_inputs):
                                                 form=b2.ROWS))
         t["work"] = b2_work(starts, d, n)
         t["shape"] = [n_trials, n, d]
-        t["form"] = b2.kernel_form(d, n_trials * 2 * n)
+        t["form"] = b2.FORM_NAMES[b2.kernel_form(d, n_trials, n, n)]
         times[f"B2_batched[{name}]"] = t
     print(json.dumps({"batched_old_form_ms": {
         name: {"ms": t["ms"], "old_ms": t["old_ms"], "form": t["form"]}
@@ -2763,7 +2888,7 @@ def phase_timing_sharded(device):
         old=lambda: b2._expand_cuda_batched(
             shifted[None], vals[None], n_local, affine[None], form=b2.ROWS))}
     times["B2_window"]["work"] = b2_work(needed, 1, n_local)
-    times["B2_window"]["form"] = b2.kernel_form(1, n + n_local)
+    times["B2_window"]["form"] = b2.kernel_form(1, 1, n, n_local)
     omega, lw = _b1_inputs(n, 7, device)
     cases = {"B1_stats": (b1.two_outcome_tile(b1.precession_pr1),
                           torch.tensor([1.0, 17.3], device=device), lw,
@@ -2855,6 +2980,7 @@ def main():
     config_launches["config5_adaptive_tomography"] = phase_config5(device)
     config_launches["tomography_2q_binomial"] = phase_tomography_2q(device)
     pgh_launches = phase_pgh_paths(device)
+    native_launches = phase_pgh_native(device)
     ens_launches, b2_inputs = phase_ensembles(device)
     api_launches = phase_engine_api(device)
     zoo_launches = phase_model_zoo(device)
@@ -2869,6 +2995,7 @@ def main():
     user_err = phase_compare_user(device)
     user_launches = phase_user_tile(device)
     times = phase_timing(device)
+    bank_time, _ = phase_timing_bank(device, smi)
     zoo_times = phase_timing_zoo(device)
     batched_times = phase_timing_batched(device, b2_inputs)
     sharded_times = phase_timing_sharded(device)
@@ -2888,6 +3015,10 @@ def main():
         kernel_row("expand_sorted_segments[D=16]", src2, b2_kernel,
                    config_launches["tomography_2q_binomial"]["B2"],
                    err["B2"], times["B2[D=16]"]),
+        kernel_row(f"expand_sorted_segments[bank form, N={N_NATIVE}, "
+                   f"{NATIVE_PGH}]", src2, b2_kernel,
+                   native_launches["B2_forms"]["bank"], err["B2"],
+                   bank_time),
     ]
     tile_line = {case[0]: case[5] for case in ZOO}
     rows = [(cfg, tile, tile, tile_line[tile])

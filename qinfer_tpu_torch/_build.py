@@ -59,8 +59,8 @@ _SIGNATURES = {
     # (outcome, pr1, n_cols, n_trials, capacity (host int, written))
     "qt_fused_update_capacity": (_I32, _I32, _I32, _I32, _P),
     # (starts, n_in, values, n_cols, affine or NULL, out, n_out, n_trials,
-    #  form, stream)
-    "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _I32, _P),
+    #  form, tiles (the bank form's blocks a trial), stream)
+    "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _I32, _I32, _P),
 }
 
 

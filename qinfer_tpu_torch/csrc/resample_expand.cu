@@ -13,13 +13,15 @@
 // TB/s). A binary search for each row reads ~20 starts, dependent loads
 // from the 50 MB L2 cache whose latency and not their bytes set the time.
 //
-// Design: three forms (`form`, chosen by the caller from D and the
-// launch's size, ops/resample_expand.py:kernel_form):
+// Design: four forms (`form`, chosen by the caller from D, the trial count
+// and the bank's size, ops/resample_expand.py:kernel_form):
 //  - rows (form 0): one thread per output row binary-searches
 //    upper_bound(starts, i) − 1 and reads and writes its D values. At
 //    D = 1 neighbouring lanes write neighbouring floats; the time is the
 //    search's ~20 dependent probes, mostly cache hits, so latency and not
-//    bytes bounded it up to D = 8 (≈ 25 µs at 2^20 on an H100);
+//    bytes bounded it up to D = 8 (≈ 25 µs at 2^20 on an H100). It stays
+//    for single banks too large for the bank form's block and too small
+//    for the merge path;
 //  - merge path (form 2, D ≤ 8): the starts and the row indices 0…n_out−1
 //    are merged (a start equal to i before row i), and block x takes the
 //    merged items [x·2048, (x + 1)·2048): its starts [a0, a1) and rows
@@ -33,11 +35,28 @@
 //    starts marks its row in shared memory, and a block-wide max-scan
 //    fills the rows between, a fixed cost a row for any weights (halving
 //    the window for each row cost a dozen instructions a probe, and most
-//    of a block's time). The block then writes its rows, (b1 − b0)·D
-//    contiguous floats, in element order, as float4s or float2s where D
-//    and the alignment allow: coalesced at every D. On launches of few
-//    items its per-block search and barriers are not amortised, and one
-//    thread a row stays faster there;
+//    of a block's time). The block then writes its rows (copy_rows),
+//    (b1 − b0)·D contiguous floats, in element order, as float4s or float2s
+//    where D and the alignment allow: coalesced at every D. Its per-block
+//    searches are amortised only on large launches;
+//  - bank (form 3, D ≤ 8, n_in ≤ 2^15): for launches of fewer items, the
+//    masked trials of an ensemble's resample (74 of 256 banks of 2048 at
+//    the median) and the small banks of the examples (2000–10000
+//    particles). Block (x, y) writes a tile of ≤ 2048 rows of trial y. It
+//    stages the bank's starts below its rows' end in shared memory with
+//    16-byte cp.async copies, all of a phase in flight at once, and finds
+//    every row's source there, searching nothing in global memory. On many
+//    banks a block takes a whole bank of 2048 rows and scans: each staged
+//    start in its rows that ends its run marks its row, the last start
+//    below its rows is found in the same pass (the one whose successor is
+//    not below them), a thread owns four consecutive rows and a warp scan
+//    of the threads' maxima fills the rows between. On a few banks, small
+//    tiles (256 rows) spread a bank over as many SMs, and each thread
+//    binary-searches its row in the staged starts (about 13 probes in
+//    shared memory at 5000). Either way a row costs the same for any
+//    weights, and copy_rows writes the tile. Its latency is one staged
+//    load, the search or scan, and the copy, against the rows form's ~11
+//    dependent probes a row in global memory at 2048;
 //  - span (form 1, D > 8): a warp writes its 32 consecutive rows, one
 //    contiguous span of 32·D floats. The warp finds the bounds of its rows'
 //    sources together (32 probes a round, four rounds for 2^20 starts) and
@@ -47,20 +66,20 @@
 //    floats, each taking its row's source by shuffle. At D = 16 the rows
 //    form's lanes were 64 bytes apart, so every store instruction wrote 32
 //    partial sectors (171 µs at 2^20 on an H100, against 64 µs).
-// Measured on an H100 (chip_profile.py --b2-forms): the rows form was
-// faster than the span form up to D = 8, the span form from D = 12; a
-// block-wide search (256 probes a round, a window keyed to the block's
-// rows, unbounded under degenerate weights) and the per-lane search in the
-// span form were both slower at D = 16.
+// Measured on an H100 (chip_profile.py --b2-forms, PERF.md §6): the rows
+// form was faster than the span form up to D = 8, the span form from
+// D = 12; a block-wide search (256 probes a round, a window keyed to the
+// block's rows, unbounded under degenerate weights) and the per-lane
+// search in the span form were both slower at D = 16.
 // None of the TPU kernel's machinery carries over: the DMA ring, the bf16
 // plane splits, the MXU one-hot selects and the shifted value streams all
 // work around Mosaic (see that module's docstring). The affine is rounded
 // as a product and then a sum (no FMA contraction), exactly as the plain
-// PyTorch version computes it, so the two agree bit for bit in both forms.
+// PyTorch version computes it, so the two agree bit for bit in every form.
 //
 // Trials. T independent banks (the JAX package's sequential_vmap,
 // resample_expand.py:359, which runs the kernel once per trial) are one
-// launch on a (row block or merge tile, trial) grid: blockIdx.y picks the
+// launch on a (row block, merge tile or bank tile, trial) grid: blockIdx.y picks the
 // trial's starts, values, affine (μ differs per trial) and output rows. A
 // single bank is T = 1, where blockIdx.y is 0 and nothing moves. gridDim.y bounds T at
 // 65535.
@@ -282,6 +301,29 @@ __device__ __forceinline__ float4 affine_lanes(float4 v, const float* a, int n, 
                      affine_at(v.z, a, n, c + 2), affine_at(v.w, a, n, c + 3));
 }
 
+// Writes a block's `rows` consecutive output rows from their sources in
+// shared memory: rows·kD contiguous floats in element order, kW =
+// merge_width<kD, kVec>() at a time, neighbouring threads on neighbouring
+// elements. `values` and `affine` are the trial's, `dst_rows` its first
+// row; the block has kBlock threads.
+template <int kBlock, int kD, bool kVec>
+__device__ __forceinline__ void copy_rows(const int32_t* source, int rows,
+                                          const float* __restrict__ values,
+                                          const float* __restrict__ affine,
+                                          float* __restrict__ dst_rows) {
+  constexpr int kW = merge_width<kD, kVec>();
+  constexpr int kPerRow = kD / kW;
+  using T = typename Vec<kW>::T;
+  const T* src = reinterpret_cast<const T*>(values);
+  T* dst = reinterpret_cast<T*>(dst_rows);
+  for (int e = threadIdx.x; e < rows * kPerRow; e += kBlock) {
+    const int r = e / kPerRow;
+    const int c = e - r * kPerRow;
+    const T v = __ldg(src + static_cast<int64_t>(source[r]) * kPerRow + c);
+    dst[e] = affine != nullptr ? affine_lanes(v, affine, kD, c * kW) : v;
+  }
+}
+
 // Form 2: block x merges the items [x·kMergeTile, (x + 1)·kMergeTile)
 // (see the header) at kD columns, copied kW = merge_width<kD, kVec>() at a
 // time.
@@ -358,17 +400,7 @@ expand_merge(const int32_t* __restrict__ starts, int64_t n_in,
     }
   }
   __syncthreads();
-  constexpr int kW = merge_width<kD, kVec>();
-  constexpr int kPerRow = kD / kW;
-  using T = typename Vec<kW>::T;
-  const T* src = reinterpret_cast<const T*>(values);
-  T* dst = reinterpret_cast<T*>(out + b0 * kD);
-  for (int e = threadIdx.x; e < rows * kPerRow; e += kThreads) {
-    const int r = e / kPerRow;
-    const int c = e - r * kPerRow;
-    const T v = __ldg(src + static_cast<int64_t>(source[r]) * kPerRow + c);
-    dst[e] = affine != nullptr ? affine_lanes(v, affine, kD, c * kW) : v;
-  }
+  copy_rows<kThreads, kD, kVec>(source, rows, values, affine, out + b0 * kD);
 }
 
 template <int kD, bool kVec>
@@ -391,19 +423,210 @@ static void launch_merge(const int32_t* s, int64_t n_in, const float* v, const f
   }
 }
 
+constexpr int kBankCap = 1 << 15;     // starts a bank-form block stages (128 KB)
+constexpr int kBankThreads = 512;     // threads a bank-form block has
+constexpr int kBankRowsPerThread = 4; // consecutive rows a thread owns on a scanned tile
+constexpr int kBankMaxRows = kBankThreads * kBankRowsPerThread;  // rows a tile
+constexpr int kStagePhase = 1 << 14;  // starts a staging phase copies
+
+__device__ __forceinline__ void cp_async16(int32_t* dst, const int32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// Stages the bank's starts [0, m) into `window` and returns m: the starts
+// the tile's rows [·, r1) can need, those below ub(r1 − 1), rounded up to
+// a phase. Each phase copies kStagePhase starts, 16 bytes a copy
+// (cp.async, all in flight at once; the head and tail that are not
+// 16-byte aligned with single loads, in the first phase); a phase whose
+// last start lies at or past r1 ends the staging, since every later one
+// does too. `window` is offset so that window + k and starts + k share
+// their alignment mod 16. Ends with the block synchronised.
+__device__ __forceinline__ int stage_starts(const int32_t* __restrict__ starts, int n_in,
+                                            int64_t r1, int32_t* window) {
+  int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(starts) & 15)) & 15) >> 2;
+  head = head < n_in ? head : n_in;
+  const int n4 = (n_in - head) >> 2;  // whole 16-byte groups after the head
+  const int tail = head + 4 * n4;     // [tail, n_in): the unaligned end
+  const int t = threadIdx.x;
+  if (t < head) window[t] = __ldg(starts + t);
+  if (t < n_in - tail) window[tail + t] = __ldg(starts + tail + t);
+  for (int q0 = 0;; q0 += kStagePhase / 4) {  // block-uniform
+    const int q1 = q0 + kStagePhase / 4 < n4 ? q0 + kStagePhase / 4 : n4;
+    for (int q = q0 + t; q < q1; q += kBankThreads) {
+      cp_async16(window + head + 4 * q, starts + head + 4 * q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    if (q1 == n4) return n_in;
+    const int m = head + 4 * q1;  // staged: [0, m) and the tail
+    if (window[m - 1] >= r1) return m;
+  }
+}
+
+// Form 3, the bank form (kD ≤ 8): block (x, y) writes rows [r0, r1) =
+// [x·rows_per_tile, …) of trial y, one bank or a tile of one (see the
+// header). It stages the starts below r1 (stage_starts), finds each row's
+// source on chip, writes the sources to shared memory and copies the rows
+// as the merge path does (copy_rows). kSearch (tiles of ≤ kBankThreads
+// rows, a few banks): thread t searches row r0 + t in the staged starts.
+// Else (tiles of ≤ kBankMaxRows rows, many banks): each staged start in
+// [r0, r1) that ends its run of equal starts marks its row, the last start
+// below r0 (the one whose successor is not below r0) is found in the same
+// pass, and each row takes the last mark at or before it: thread t owns
+// rows [4t, 4t + 4), scans them, and a warp scan of the threads' maxima
+// and the maxima of the warps before finish it.
+template <int kD, bool kVec, bool kSearch>
+__global__ void __launch_bounds__(kBankThreads)
+expand_bank(const int32_t* __restrict__ starts, int n_in,
+            const float* __restrict__ values, const float* __restrict__ affine,
+            float* __restrict__ out, int64_t n_out, int rows_per_tile) {
+  extern __shared__ int4 bank_smem[];
+  int32_t* warp_max = reinterpret_cast<int32_t*>(bank_smem);  // a slot a warp
+  int32_t* before = warp_max + 32;                            // 4 slots, 1 used
+  int32_t* source = before + 4;                               // rows_per_tile, 16-byte aligned
+  const int64_t y = blockIdx.y;
+  starts += y * n_in;
+  values += y * n_in * kD;
+  out += y * n_out * kD;
+  if (affine != nullptr) affine += y * 2 * kD;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_tile;
+  const int64_t r1 = r0 + rows_per_tile < n_out ? r0 + rows_per_tile : n_out;
+  const int rows = static_cast<int>(r1 - r0);
+  int32_t* window = source + ((rows_per_tile + 3) & ~3) +
+                    ((reinterpret_cast<uintptr_t>(starts) >> 2) & 3);
+  if constexpr (kSearch) {
+    const int m = stage_starts(starts, n_in, r1, window);
+    if (static_cast<int>(threadIdx.x) < rows) {
+      // #{k < m : window[k] ≤ i}, by halving a (first, count) range.
+      const int64_t i = r0 + threadIdx.x;
+      const int32_t* first = window;
+      int count = m;
+      while (count > 0) {
+        const int half = count >> 1;
+        if (static_cast<int64_t>(first[half]) <= i) {
+          first += half + 1;
+          count -= half + 1;
+        } else {
+          count = half;
+        }
+      }
+      const int c = static_cast<int>(first - window);
+      source[threadIdx.x] = c > 0 ? c - 1 : 0;
+    }
+  } else {
+    const int base = threadIdx.x * kBankRowsPerThread;  // the thread's first row
+    int4* own = reinterpret_cast<int4*>(source) + threadIdx.x;
+    if (base < rows) *own = make_int4(-1, -1, -1, -1);
+    if (threadIdx.x == 0) *before = 0;
+    const int m = stage_starts(starts, n_in, r1, window);
+    for (int x = threadIdx.x; x < m; x += kBankThreads) {
+      const int32_t v = window[x];
+      // x + 1 < m here unless x + 1 == n_in: staging stopped at a start ≥ r1.
+      if (v >= r1) continue;
+      const bool last = x + 1 == n_in;
+      if (v >= r0) {
+        if (last || window[x + 1] != v) source[v - r0] = x;
+      } else if (last || window[x + 1] >= r0) {
+        *before = x;
+      }
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int4 q = base < rows ? *own : make_int4(-1, -1, -1, -1);
+    q.y = q.x > q.y ? q.x : q.y;
+    q.z = q.y > q.z ? q.y : q.z;
+    q.w = q.z > q.w ? q.z : q.w;
+    int32_t incl = q.w;  // the max over the lane's rows and those before in the warp
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int32_t o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off && o > incl) incl = o;
+    }
+    int32_t floor = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) floor = -1;
+    if (lane == 31) warp_max[warp] = incl;
+    __syncthreads();
+    int32_t w = lane < warp ? warp_max[lane] : -1;  // the warps before, a lane each
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int32_t o = __shfl_xor_sync(0xffffffffu, w, off);
+      w = o > w ? o : w;
+    }
+    floor = w > floor ? w : floor;
+    floor = *before > floor ? *before : floor;
+    if (base < rows) {
+      *own = make_int4(q.x > floor ? q.x : floor, q.y > floor ? q.y : floor,
+                       q.z > floor ? q.z : floor, q.w > floor ? q.w : floor);
+    }
+  }
+  __syncthreads();
+  copy_rows<kBankThreads, kD, kVec>(source, rows, values, affine, out + r0 * kD);
+}
+
+// Dynamic shared memory of a bank-form block: 32 warp maxima and `before`
+// (36 slots), rows_per_tile sources rounded up to 16 bytes, and n_in starts
+// with up to 3 slots of alignment offset.
+__host__ __device__ constexpr size_t bank_smem_bytes(int n_in, int rows_per_tile) {
+  return 4 * (36 + ((static_cast<size_t>(rows_per_tile) + 3) & ~size_t{3}) + n_in + 3);
+}
+
+template <int kD, bool kVec, bool kSearch>
+static int launch_bank(const int32_t* s, int n_in, const float* v, const float* a, float* o,
+                       int64_t n_out, int n_trials, int tiles, int rows_per_tile,
+                       cudaStream_t st) {
+  const size_t bytes = bank_smem_bytes(n_in, rows_per_tile);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        expand_bank<kD, kVec, kSearch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(n_trials));
+  expand_bank<kD, kVec, kSearch><<<grid, kBankThreads, bytes, st>>>(s, n_in, v, a, o, n_out,
+                                                                    rows_per_tile);
+  return 0;
+}
+
+// Tiles of at most kBankThreads rows are searched, larger ones scanned.
+template <int kD>
+static int launch_bank(const int32_t* s, int n_in, const float* v, const float* a, float* o,
+                       int64_t n_out, int n_trials, int tiles, cudaStream_t st) {
+  const int rows_per_tile = static_cast<int>((n_out + tiles - 1) / tiles);
+  tiles = static_cast<int>((n_out + rows_per_tile - 1) / rows_per_tile);  // none empty
+  const bool search = rows_per_tile <= kBankThreads;
+  constexpr int kW = merge_width<kD, true>();
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (kW > 1 && bits % (4 * kW) == 0) {
+    return search ? launch_bank<kD, true, true>(s, n_in, v, a, o, n_out, n_trials, tiles,
+                                                rows_per_tile, st)
+                  : launch_bank<kD, true, false>(s, n_in, v, a, o, n_out, n_trials, tiles,
+                                                 rows_per_tile, st);
+  }
+  return search ? launch_bank<kD, false, true>(s, n_in, v, a, o, n_out, n_trials, tiles,
+                                               rows_per_tile, st)
+                : launch_bank<kD, false, false>(s, n_in, v, a, o, n_out, n_trials, tiles,
+                                                rows_per_tile, st);
+}
+
 }  // namespace
 
 // n_trials banks, each: starts int32 (n_in,); values f32 (n_in, n_cols)
 // row-major; affine f32 (2, n_cols) [scale; shift] or NULL; out f32 (n_out,
 // n_cols). The banks lie back to back (trial y's arrays start y times their
 // size after trial 0's). form: 0 one thread per row, 1 a warp per span of
-// 32 rows, 2 the merge path (n_cols ≤ 8). n_in < 2^31. Returns the
-// cudaError_t of the launch (0 on success).
+// 32 rows, 2 the merge path (n_cols ≤ 8), 3 the bank form (n_cols ≤ 8,
+// n_in ≤ 2^15, `tiles` blocks a trial of at most 2048 rows each; `tiles`
+// is read by no other form). n_in < 2^31. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
                          int n_cols, const void* affine, void* out, int64_t n_out,
-                         int n_trials, int form, void* stream) {
+                         int n_trials, int form, int tiles, void* stream) {
   if (n_in <= 0 || n_in > INT32_MAX || n_cols <= 0 || n_out <= 0 || n_trials <= 0 ||
-      n_trials > 65535 || form < 0 || form > 2 || (form == 2 && n_cols > 8)) {
+      n_trials > 65535 || form < 0 || form > 3 || (form >= 2 && n_cols > 8) ||
+      (form == 3 && (n_in > kBankCap || tiles <= 0 || tiles > n_out ||
+                     (n_out + tiles - 1) / tiles > kBankMaxRows))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
@@ -413,7 +636,21 @@ extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
   const auto* v = static_cast<const float*>(values);
   const auto* a = static_cast<const float*>(affine);
   auto* o = static_cast<float*>(out);
-  if (form == 2) {
+  if (form == 3) {
+    const int n = static_cast<int>(n_in);
+    int err;
+    switch (n_cols) {
+      case 1: err = launch_bank<1>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      case 2: err = launch_bank<2>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      case 3: err = launch_bank<3>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      case 4: err = launch_bank<4>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      case 5: err = launch_bank<5>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      case 6: err = launch_bank<6>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      case 7: err = launch_bank<7>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+      default: err = launch_bank<8>(s, n, v, a, o, n_out, n_trials, tiles, st); break;
+    }
+    if (err != 0) return err;
+  } else if (form == 2) {
     switch (n_cols) {
       case 1: launch_merge<1>(s, n_in, v, a, o, n_out, n_trials, st); break;
       case 2: launch_merge<2>(s, n_in, v, a, o, n_out, n_trials, st); break;

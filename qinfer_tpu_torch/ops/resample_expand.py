@@ -6,11 +6,12 @@ Counterpart of ``qinfer_tpu/ops/resample_expand.py``:
 tensor ``expand_sorted_segments`` launches the hand-written kernel in
 ``csrc/resample_expand.cu`` (its header says what bounds it and how it is
 laid out); on a CPU tensor it runs ``expand_plain``, the same function in
-plain PyTorch. The two agree bit for bit. The kernel has three forms,
-chosen from D and the launch's size by ``kernel_form``. A failed build or launch raises:
-nothing falls back. ``expand_sorted_segments_batched`` does the same for T
-independent banks in one launch (its plain version is
-``expand_plain_batched``).
+plain PyTorch. The two agree bit for bit. The kernel has four forms,
+chosen from D, the trial count and the bank's size by ``kernel_form``; each
+wrapper counts its launches in all (``launches``) and by form
+(``form_launches``). A failed build or launch raises: nothing falls back.
+``expand_sorted_segments_batched`` does the same for T independent banks
+in one launch (its plain version is ``expand_plain_batched``).
 """
 
 from __future__ import annotations
@@ -23,21 +24,49 @@ __all__ = ["expand_sorted_segments", "expand_plain", "systematic_expand",
            "expand_sorted_segments_batched", "expand_plain_batched"]
 
 MAX_TRIALS = 65535  # gridDim.y of the kernel
-ROWS, SPAN, MERGE = 0, 1, 2  # the kernel's forms (csrc/resample_expand.cu)
+ROWS, SPAN, MERGE, BANK = 0, 1, 2, 3  # the kernel's forms (csrc/resample_expand.cu)
+FORM_NAMES = {ROWS: "rows", SPAN: "span", MERGE: "merge", BANK: "bank"}
+BANK_CAP = 1 << 15       # starts a bank-form block stages (kBankCap)
+BANK_THREADS = 512       # threads a bank-form block has (kBankThreads)
+BANK_MAX_ROWS = 2048     # rows a bank-form block writes (kBankMaxRows)
+BANK_SEARCH_ROWS = 256   # rows a searched tile writes, on launches of few blocks
+BANK_SEARCH_BLOCKS = 264  # the most searched tiles a launch takes (two an SM of 132)
+BANK_FEW = 12288         # the largest bank the bank form takes below MERGE_ITEMS
+MERGE_ITEMS = 1 << 19    # merged items T·(n_in + n_out) from which the merge path is taken
 
 
-def kernel_form(n_cols, n_items):
-    """The kernel's form for D = ``n_cols`` on a launch that merges
-    ``n_items`` = T·(n_in + n_out) starts and rows: a warp per span of 32
-    rows above D = 8; below, the merge path from 2^19 items, one thread per
-    row on fewer, where the merge path's per-block search is not amortised.
-    Each choice is the faster form on an H100 at the paths' shapes
-    (``chip_profile.py --b2-forms``, PERF.md §6): 2^20 rows at every D,
-    256 trials of 2048, one trial of 2^18 (ensemble_big's resample) and 74
-    trials of 2048 (ensemble_small's, where one thread a row wins)."""
+def kernel_form(n_cols, n_trials, n_in, n_out):
+    """The kernel's form for D = ``n_cols`` on T = ``n_trials`` banks of
+    ``n_in`` starts and ``n_out`` rows: a warp per span of 32 rows above
+    D = 8; up to it, the bank form on banks of at most 2048 starts (a block
+    a bank) at any T, the merge path on other launches from 2^19 merged
+    items T·(n_in + n_out), the bank form again on banks of at most 12288
+    starts, and one thread a row on the rest (a few banks of 12289 to 2^18
+    starts). Measured on an H100 (``chip_profile.py --b2-forms``, PERF.md
+    §6): the bank form beat the merge path from 74 to 1024 trials of 2048
+    and the rows form on single banks of 2000 to 10000; the rows form beat
+    both on a single bank of 16385 and of 2^17, the merge path both from
+    one bank of 2^18."""
     if n_cols > 8:
         return SPAN
-    return MERGE if n_items >= 1 << 19 else ROWS
+    if n_in <= BANK_MAX_ROWS:
+        return BANK
+    if n_trials * (n_in + n_out) >= MERGE_ITEMS:
+        return MERGE
+    return BANK if n_in <= BANK_FEW else ROWS
+
+
+def bank_tiles(n_trials, n_out):
+    """The bank form's blocks a trial: tiles of BANK_SEARCH_ROWS rows, each
+    row searched by a thread of its own, while the launch has at most
+    BANK_SEARCH_BLOCKS of them; else tiles of up to BANK_MAX_ROWS rows,
+    scanned (a block a bank of 2048). On an H100 the searched tiles were
+    the faster on 1 to 16 banks of 2048 and single banks of 2000 to 10000,
+    the scanned on 74 to 1024 banks of 2048."""
+    searched = -(-n_out // BANK_SEARCH_ROWS)
+    if n_trials * searched <= BANK_SEARCH_BLOCKS:
+        return searched
+    return -(-n_out // BANK_MAX_ROWS)
 
 
 def _affine(scale, shift, n_cols, device):
@@ -67,11 +96,15 @@ def expand_plain_batched(starts, values, n_out, affine=None):
     return out
 
 
-def _expand_cuda_batched(starts, values, n_out, affine, form=None):
+def _expand_cuda_batched(starts, values, n_out, affine, form=None,
+                         tiles=None):
     """Kernel B2 on T banks laid out back to back: ``starts`` int32 (T,
     n_in), ``values`` f32 (T, n_in, D), ``affine`` (T, 2, D) or None, all
-    contiguous. ``form``: ROWS, SPAN or MERGE (D ≤ 8), ``kernel_form``'s
-    by default.
+    contiguous. ``form``: ROWS, SPAN, MERGE (D ≤ 8) or BANK (D ≤ 8, n_in ≤
+    BANK_CAP), ``kernel_form``'s by default; ``tiles``: the bank form's
+    blocks a trial (``bank_tiles``'s by default, each of at most
+    BANK_MAX_ROWS rows). A form or tiling that these inputs do not allow
+    raises ValueError; nothing takes another form.
     Returns (T, n_out, D)."""
     device = values.device
     if starts.device != device:
@@ -87,6 +120,18 @@ def _expand_cuda_batched(starts, values, n_out, affine, form=None):
     if n_trials > MAX_TRIALS:
         raise ValueError(f"the expand kernel takes at most {MAX_TRIALS} "
                          f"trials; got {n_trials}")
+    if form is None:
+        form = kernel_form(n_cols, n_trials, n_in, n_out)
+    if form not in FORM_NAMES or (form in (MERGE, BANK) and n_cols > 8):
+        raise ValueError(f"no expand form {form} at D = {n_cols}")
+    if form == BANK:
+        if n_in > BANK_CAP:
+            raise ValueError(f"the bank form stages at most {BANK_CAP} starts "
+                             f"a block; got n_in = {n_in}")
+        tiles = bank_tiles(n_trials, n_out) if tiles is None else int(tiles)
+        if n_out > 0 and not (-(-n_out // BANK_MAX_ROWS) <= tiles <= n_out):
+            raise ValueError(f"the bank form writes at most {BANK_MAX_ROWS} "
+                             f"rows a block: {tiles} tiles of {n_out} rows")
     out = torch.empty((n_trials, n_out, n_cols), dtype=torch.float32,
                       device=device)
     if n_out == 0:
@@ -96,9 +141,8 @@ def _expand_cuda_batched(starts, values, n_out, affine, form=None):
         err = lib.qt_expand(
             starts.data_ptr(), n_in, values.data_ptr(), n_cols,
             None if affine is None else affine.data_ptr(),
-            out.data_ptr(), n_out, n_trials,
-            kernel_form(n_cols, n_trials * (n_in + n_out)) if form is None
-            else form,
+            out.data_ptr(), n_out, n_trials, form,
+            tiles if form == BANK else 0,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "qt_expand")
@@ -108,11 +152,26 @@ def _expand_cuda_batched(starts, values, n_out, affine, form=None):
 def _expand_cuda(starts, values, n_out, affine):
     """Kernel B2 on one bank: (n_in,) starts, (n_in, D) values, (2, D)
     affine or None. Returns (n_out, D)."""
-    out = _expand_cuda_batched(
-        starts[None], values[None], n_out,
-        None if affine is None else affine[None])[0]
-    expand_sorted_segments.launches += 1
+    return _launch(expand_sorted_segments, starts[None], values[None], n_out,
+                   None if affine is None else affine[None])[0]
+
+
+def _launch(wrapper, starts, values, n_out, affine):
+    """Kernel B2 on T banks in ``kernel_form``'s form, counted on
+    ``wrapper`` in all and under its form."""
+    n_trials, n_in, n_cols = values.shape
+    form = kernel_form(n_cols, n_trials, n_in, n_out)
+    out = _expand_cuda_batched(starts, values, n_out, affine, form=form)
+    wrapper.launches += 1
+    wrapper.form_launches[FORM_NAMES[form]] += 1
     return out
+
+
+def reset_form_launches():
+    """Sets both wrappers' launch counters, in all and by form, to 0."""
+    for wrapper in (expand_sorted_segments, expand_sorted_segments_batched):
+        wrapper.launches = 0
+        wrapper.form_launches = dict.fromkeys(FORM_NAMES.values(), 0)
 
 
 def _check_n_out(n_out):
@@ -146,6 +205,7 @@ def expand_sorted_segments(starts, values, n_out=None, scale=None,
 
 
 expand_sorted_segments.launches = 0
+expand_sorted_segments.form_launches = dict.fromkeys(FORM_NAMES.values(), 0)
 
 
 def _affine_batched(scale, shift, n_trials, n_cols, device):
@@ -188,14 +248,16 @@ def expand_sorted_segments_batched(starts, values, n_out=None, scale=None,
     affine = _affine_batched(scale, shift, n_trials, vals3d.shape[2],
                              vals3d.device)
     if vals3d.is_cuda:
-        out = _expand_cuda_batched(starts, vals3d, n_out, affine)
-        expand_sorted_segments_batched.launches += 1
+        out = _launch(expand_sorted_segments_batched, starts, vals3d, n_out,
+                      affine)
     else:
         out = expand_plain_batched(starts, vals3d, n_out, affine)
     return out[:, :, 0] if squeeze else out
 
 
 expand_sorted_segments_batched.launches = 0
+expand_sorted_segments_batched.form_launches = dict.fromkeys(
+    FORM_NAMES.values(), 0)
 
 
 def systematic_expand(log_w, values, scale=None, shift=None, u0=None,

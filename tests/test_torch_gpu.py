@@ -184,9 +184,9 @@ def test_row_span_path_bit_equal_to_per_column(cuda, case, n):
 @pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_expand_forms_bit_equal(cuda, d, kind, affine):
-    """B2 with n_out < n_in: the wrapper's form (the merge path up to D = 8,
-    the span form at D ≥ 9) and every form forced (the merge path up to
-    D = 8) are bit-equal to the plain version."""
+    """B2 with n_out < n_in: the wrapper's form (the bank form up to D = 8,
+    the span form at D ≥ 9) and every form forced (the merge path and the
+    bank form up to D = 8) are bit-equal to the plain version."""
     n_in, n_out = 16385, 10007
     rng = np.random.default_rng(d)
     vals = torch.as_tensor(rng.standard_normal((n_in, d)),
@@ -200,10 +200,37 @@ def test_expand_forms_bit_equal(cuda, d, kind, affine):
     forms = [b2._expand_cuda_batched(starts[None], vals[None], n_out,
                                      None if aff is None else aff[None],
                                      form=form)[0]
-             for form in (b2.ROWS, b2.SPAN) + ((b2.MERGE,) if d <= 8 else ())]
+             for form in (b2.ROWS, b2.SPAN) + ((b2.MERGE, b2.BANK) if d <= 8 else ())]
     ref = b2.expand_plain(starts, vals, n_out, aff)
     torch.cuda.synchronize()
     assert all(torch.equal(o, ref) for o in [out] + forms)
+
+
+@pytest.mark.parametrize("n,n_out", [(2000, 2000), (16385, 16385),
+                                     (1 << 15, 1 << 15), (1 << 15, 9001)])
+@pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
+@pytest.mark.parametrize("rows", [None, 100, 256, 512, 513, 1000, 2048])
+def test_bank_form_tiles_bit_equal(cuda, n, n_out, kind, rows):
+    """B2's bank form on three trials back to back (unaligned trial
+    offsets at odd n), in tiles of ``rows`` rows (searched up to 512 rows,
+    scanned above; the wrapper's tiling for None), the starts staged in
+    one phase or, at the cap, two: bit-equal to the plain version."""
+    rng = np.random.default_rng(n + n_out)
+    log_w = torch.as_tensor(np.stack([_log_weights(kind, n, rng)
+                                      for _ in range(3)]), device=cuda)
+    starts = qt.resamplers.systematic_segment_starts_batched(
+        log_w, n, u0=torch.full((3,), 0.37, device=cuda))
+    if n_out < n:
+        starts = torch.clamp(starts - n // 5, min=0).to(torch.int32)
+    vals = torch.as_tensor(rng.standard_normal((3, n, 3)),
+                           dtype=torch.float32, device=cuda)
+    aff = b2._affine_batched(0.98, 0.02 * vals[:, 0], 3, 3, cuda)
+    out = b2._expand_cuda_batched(
+        starts, vals, n_out, aff, form=b2.BANK,
+        tiles=None if rows is None else -(-n_out // rows))
+    ref = b2.expand_plain_batched(starts, vals, n_out, aff)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 def _one_and_two_passes_equal(tile, scal, lw, cols):

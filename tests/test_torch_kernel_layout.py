@@ -117,7 +117,7 @@ def test_more_columns_than_the_row_stride():
                                     (8, b2.MERGE), (9, b2.SPAN),
                                     (16, b2.SPAN), (17, b2.SPAN)])
 def test_expand_form_by_width(d, form):
-    assert b2.kernel_form(d, 2 << 20) == form
+    assert b2.kernel_form(d, 1, 1 << 20, 1 << 20) == form
 
 
 @pytest.mark.parametrize("n_trials,n,d,form", [
@@ -125,15 +125,49 @@ def test_expand_form_by_width(d, form):
     (1, 1 << 20, 4, b2.MERGE),    # config 5's
     (4, 1 << 18, 1, b2.MERGE),    # ensemble_big's, every trial
     (1, 1 << 18, 1, b2.MERGE),    # ensemble_big's median resample
-    (256, 2048, 1, b2.MERGE),
-    (74, 2048, 1, b2.ROWS),       # ensemble_small's median resample
+    (256, 2048, 1, b2.BANK),      # every trial of ensemble_small
+    (74, 2048, 1, b2.BANK),       # ensemble_small's median resample
     (1, 16385, 1, b2.ROWS),
     (74, 2048, 16, b2.SPAN),
 ])
 def test_expand_form_by_launch_size(n_trials, n, d, form):
-    """The merge path from 2^19 merged items (T·(n_in + n_out)), one thread
-    a row on fewer, the span form above D = 8 at any size."""
-    assert b2.kernel_form(d, n_trials * 2 * n) == form
+    """The bank form on banks of up to 2048 at any T, the merge path from
+    2^19 merged items (T·(n_in + n_out)) on the rest, the bank form below
+    that on banks of up to 12288, one thread a row above, the span form
+    above D = 8 at any size."""
+    assert b2.kernel_form(d, n_trials, n, n) == form
+
+
+@pytest.mark.parametrize("n", [2000, 4000, 5000, 10000])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+def test_examples_banks_take_the_bank_form(n, d):
+    """The examples' own N (the random walk and the die 2000, config 5
+    4000, configs 1 and 4 PGH 5000, two-qubit tomography 10000) at D ≤ 8."""
+    assert b2.kernel_form(d, 1, n, n) == b2.BANK
+
+
+@pytest.mark.parametrize("n_trials,n_in,n_out,form", [
+    (1, 1 << 20, 1 << 18, b2.MERGE),     # a rank's window of a bank over 4
+    (1024, 2048, 2048, b2.BANK),         # measured faster than the merge path
+    (3, 10000, 10000, b2.BANK),
+    (1, b2.BANK_FEW, b2.BANK_FEW, b2.BANK),
+    (1, b2.BANK_FEW + 1, b2.BANK_FEW + 1, b2.ROWS),
+    (1, 1 << 15, 1 << 13, b2.ROWS),      # a shifted window over BANK_FEW
+    (1, 1 << 17, 1 << 17, b2.ROWS),      # a single bank between bank and merge
+    (64, 4096, 4096, b2.MERGE),          # 2^19 merged items
+])
+def test_expand_form_at_the_edges(n_trials, n_in, n_out, form):
+    assert b2.kernel_form(1, n_trials, n_in, n_out) == form
+
+
+@pytest.mark.parametrize("n_trials,n_out,tiles", [
+    (1, 2000, 8), (1, 5000, 20), (1, 10000, 40),  # searched tiles of 256 rows
+    (16, 2048, 8), (33, 2048, 8),                 # ≤ 264 searched tiles
+    (34, 2048, 1), (74, 2048, 1), (256, 2048, 1),  # a scanned block a bank
+    (34, 4099, 3),
+])
+def test_bank_tiles(n_trials, n_out, tiles):
+    assert b2.bank_tiles(n_trials, n_out) == tiles
 
 
 # -- B1's forms: one launch or two passes ----------------------------------------
@@ -214,6 +248,12 @@ class _FakeLib:
         cap._obj.value = self.capacity
         return 0
 
+    def qt_expand(self, *args):
+        names = ("n_in", "n_cols", "n_out", "n_trials", "form", "tiles")
+        self.calls.append(dict(zip(names, args[1:2] + args[3:4]
+                                   + args[6:10])))
+        return 0
+
     def qt_fused_update(self, *args):
         names = ("out", "n_blocks", "stats", "n", "n_trials", "grid_blocks",
                  "normalize")
@@ -268,6 +308,41 @@ def test_wrapper_passes_its_plan(fake_lib, n_trials, n, normalize, form):
     assert torch.equal(lse, torch.full((n_trials,), 0.25))
     expect = 0.75 if normalize and not one else 1.0
     assert torch.equal(out, torch.full((n_trials, n), expect))
+
+
+@pytest.mark.parametrize("n_trials,n,d,form,tiles", [
+    (74, 2048, 1, b2.BANK, 1),        # ensemble_small's median resample: a block a bank
+    (1, 5000, 1, b2.BANK, 20),        # config 1's own bank: tiles of 256 rows
+    (8, 4099, 4, b2.BANK, 17),        # a few banks: tiles of 256 rows
+    (40, 4099, 2, b2.BANK, 3),        # many banks: tiles of up to 2048 rows
+    (1, 1 << 17, 1, b2.ROWS, 0),
+    (256, 4096, 1, b2.MERGE, 0),
+    (3, 2048, 16, b2.SPAN, 0),
+])
+def test_expand_wrappers_launch_their_form(fake_lib, n_trials, n, d, form,
+                                           tiles):
+    """Both B2 wrappers pass ``kernel_form``'s form and the bank form's
+    tiles to the kernel and count the launch in all and under its form;
+    a launch with a forced form counts on neither."""
+    starts = torch.zeros((n_trials, n), dtype=torch.int32)
+    vals = torch.zeros((n_trials, n, d))
+    b2.reset_form_launches()
+    b2._expand_cuda_batched(starts, vals, n, None, form=form)
+    for wrapper in (b2.expand_sorted_segments,
+                    b2.expand_sorted_segments_batched):
+        assert b2._launch(wrapper, starts, vals, n, None).shape == vals.shape
+    assert len(fake_lib.calls) == 3
+    for call in fake_lib.calls:
+        assert (call["form"], call["tiles"]) == (form, tiles)
+        assert (call["n_in"], call["n_out"], call["n_trials"],
+                call["n_cols"]) == (n, n, n_trials, d)
+    for wrapper in (b2.expand_sorted_segments,
+                    b2.expand_sorted_segments_batched):
+        assert wrapper.launches == 1
+        assert wrapper.form_launches == {
+            name: int(name == b2.FORM_NAMES[form])
+            for name in b2.FORM_NAMES.values()}
+    b2.reset_form_launches()
 
 
 def test_row_span_keeps_two_passes(fake_lib):

@@ -274,6 +274,147 @@ def test_merge_path_tiles_cut_runs_of_equal_starts(kind):
     np.testing.assert_array_equal(out, _oracle(starts, vals, n))
 
 
+BANK_PHASE = 1 << 14  # starts a staging phase copies (kStagePhase)
+
+
+def _bank_staged(starts, r1, head):
+    """How many starts a bank-form block stages for rows below r1 (the
+    kernel's stage_starts): ``head`` single loads up to the first 16-byte
+    boundary, then phases of BANK_PHASE starts in whole 16-byte groups,
+    ending at the first phase whose last start is at or past r1."""
+    n_in = starts.shape[0]
+    head = min(head, n_in)
+    n4 = (n_in - head) // 4
+    q1 = 0
+    while True:
+        q1 = min(q1 + BANK_PHASE // 4, n4)
+        if q1 == n4:
+            return n_in
+        if starts[head + 4 * q1 - 1] >= r1:
+            return head + 4 * q1
+
+
+def _bank_sources(window, n_in, r0, r1):
+    """The scanned tile's sources of rows [r0, r1) from the staged starts:
+    each staged start in [r0, r1) that ends its run of equal starts marks
+    its row, the last start below r0 (the one whose successor is not below
+    r0) fills the rows before the first mark (0 if none), and each row
+    takes the last mark at or before it. Its thread layout (four rows a
+    thread, a warp scan, the warps' maxima) orders the same maxima."""
+    m = window.shape[0]
+    succ = np.append(window[1:], window[-1] + 1 if m == n_in else r1)
+    last = np.arange(m) + 1 == n_in
+    ends = last | (succ != window)
+    mark = (window >= r0) & (window < r1) & ends
+    below = (window < r0) & (last | (succ >= r0))
+    assert below.sum() <= 1
+    before = int(np.flatnonzero(below)[0]) if below.any() else 0
+    source = np.full(r1 - r0, -1, np.int64)
+    source[window[mark] - r0] = np.flatnonzero(mark)
+    return np.maximum.accumulate(np.maximum(source, before))
+
+
+def _bank_expand(starts, vals, n_out, tiles, head=0):
+    """The bank form: tile x writes rows [r0, r1) = [x·R, …), R =
+    ⌈n_out / tiles⌉ ≤ BANK_MAX_ROWS. It stages starts [0, m)
+    (``_bank_staged``); a tile of at most BANK_THREADS rows searches each
+    row's source in them (a thread a row), a larger one marks and scans
+    (``_bank_sources``). Returns the output and each tile's (r0, r1, m)."""
+    n_in = starts.shape[0]
+    rows_per_tile = -(-n_out // tiles)
+    assert rows_per_tile <= tre.BANK_MAX_ROWS
+    out = np.full((n_out,) + vals.shape[1:], np.nan, vals.dtype)
+    tiles_seen = []
+    for r0 in range(0, n_out, rows_per_tile):
+        r1 = min(r0 + rows_per_tile, n_out)
+        m = _bank_staged(starts, r1, head)
+        window = starts[:m].astype(np.int64)
+        if rows_per_tile <= tre.BANK_THREADS:
+            count = np.searchsorted(window, np.arange(r0, r1), side="right")
+            source = np.maximum(count - 1, 0)
+        else:
+            source = _bank_sources(window, n_in, r0, r1)
+        out[r0:r1] = vals[source]
+        tiles_seen.append((r0, r1, m))
+    return out, tiles_seen
+
+
+def _bank_case(kind, n, window, rng):
+    starts = _kind_starts(kind, n, rng)
+    n_out = n
+    if window == "shifted":
+        n_out = n // 2 + 3
+        starts = np.maximum(starts - n // 5, 0).astype(np.int32)
+    return starts, n_out
+
+
+@pytest.mark.parametrize("head", [0, 3])
+@pytest.mark.parametrize("rows", [100, 256, 513, 2048, None])
+@pytest.mark.parametrize("window", ["full", "shifted"])
+@pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
+@pytest.mark.parametrize("n", [257, 2000, 5001, 16385])
+def test_bank_form_model_matches_plain(n, kind, window, rows, head):
+    """The bank form's staging and its searched (≤ 512 rows) or scanned
+    tiles pick what expand_plain picks, bit for bit: tiles of ``rows``
+    rows (None: one bank of up to 2048 rows, else the wrapper's tiling of
+    a single bank), n_out = n_in and a shifted window n_out < n_in, any
+    alignment of the bank's starts. Each tile stages the starts below its
+    rows' end, rounded up to a phase, and the tiles' rows cover [0, n_out)
+    once, in order."""
+    rng = np.random.default_rng(n + (rows or 0))
+    starts, n_out = _bank_case(kind, n, window, rng)
+    vals = rng.standard_normal((n, 3)).astype(np.float32)
+    if rows is None:
+        tiles = (-(-n_out // tre.BANK_MAX_ROWS) if n_out > tre.BANK_MAX_ROWS
+                 else 1)
+    else:
+        tiles = -(-n_out // rows)
+    out, tiles_seen = _bank_expand(starts, vals, n_out, tiles, head)
+    plain = tre.expand_plain(torch.from_numpy(starts), torch.from_numpy(vals),
+                             n_out).numpy()
+    np.testing.assert_array_equal(out, plain)
+    assert [t[0] for t in tiles_seen[1:]] == [t[1] for t in tiles_seen[:-1]]
+    assert (tiles_seen[0][0], tiles_seen[-1][1]) == (0, n_out)
+    for _, r1, m in tiles_seen:
+        need = int(np.searchsorted(starts, r1 - 1, side="right"))
+        assert need <= m and (m == n or m < need + BANK_PHASE)
+
+
+@pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
+@pytest.mark.parametrize("n", [tre.BANK_CAP, tre.BANK_CAP - 3])
+def test_bank_form_model_at_the_cap(n, kind):
+    """At the cap the bank stages in two phases, and a tile whose rows'
+    starts all lie in the first ends its staging there."""
+    rng = np.random.default_rng(7)
+    staged = []
+    for window in ("full", "shifted"):
+        starts, n_out = _bank_case(kind, n, window, rng)
+        vals = np.arange(n, dtype=np.float32)
+        tiles = tre.bank_tiles(1, n_out)
+        out, tiles_seen = _bank_expand(starts, vals, n_out, tiles, head=1)
+        np.testing.assert_array_equal(out, _oracle(starts, vals, n_out))
+        assert len(tiles_seen) == tiles
+        staged += [m for _, _, m in tiles_seen]
+    if kind == "degenerate":  # every start past particle 17 is at n_in
+        assert max(staged) == 1 + BANK_PHASE < n  # the head, one phase
+
+
+@pytest.mark.parametrize("n_trials,n_in,tiles", [
+    (1, tre.BANK_CAP + 1, None),  # over the cap: no block stages it
+    (3, (1 << 16), 40),
+    (1, 4096, 1),                 # 4096 rows in one tile: over 2048
+    (1, 100, 101),                # more tiles than rows
+])
+def test_bank_form_raises_where_it_does_not_fit(n_trials, n_in, tiles):
+    """A forced bank form that these inputs do not allow raises before any
+    launch; nothing takes another form."""
+    starts = torch.zeros((n_trials, n_in), dtype=torch.int32)
+    vals = torch.zeros((n_trials, n_in, 1))
+    with pytest.raises(ValueError, match="bank form"):
+        tre._expand_cuda_batched(starts, vals, n_in, None, form=tre.BANK,
+                                 tiles=tiles)
+
+
 def test_n_out_bound_raises():
     starts = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="2\\^24"):
