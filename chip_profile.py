@@ -6,7 +6,7 @@
 
 For each path (the flagship, configs 2–4, config 5, two-qubit tomography,
 the PGH loops of config 1 and config 4's known-T2, the three model-zoo
-paths (``chip_smoke.ZOO_PATHS``) and the user model's three
+paths (``chip_smoke.ZOO_PATHS``) and the user model's four
 (``chip_smoke.USER_PATHS``), all at 2^20 particles, the three trial
 ensembles (the user model's too), and the four sharded paths (``SHARDED_NAMES``, on an
 NCCL process group of one rank, after one line of the host µs per

@@ -8,9 +8,11 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Exits 1 when torch sees no CUDA device.
 2. build: compiles both CUDA kernels from ``qinfer_tpu_torch/csrc`` with
-   nvcc for sm_90a (into ``build/qinfer_tpu_torch/``), and at once, with a
-   second nvcc, the user model's library (B1's header with the functor
-   ``LOST_VISIBILITY_SOURCE``, into ``build/qinfer_tpu_torch/user/``).
+   nvcc for sm_90a (into ``build/qinfer_tpu_torch/``), and at once, one
+   nvcc each, the user model's library (B1's header with the functor
+   ``LOST_VISIBILITY_SOURCE``) and the libraries of the functors that
+   ``pr1_trace`` traces from the user model's torch pr1 and from each
+   built-in pr1 (``traced_sources``), into ``build/qinfer_tpu_torch/user/``.
 3. compare: each kernel against its plain PyTorch version on the card —
    B1 (fused Bayes update) within the tolerances of the JAX package's own
    kernel test (atol 1e-4 on log-weights and log_norm, rtol 1e-3 on ESS),
@@ -123,22 +125,30 @@ Phases, in order; any failure exits non-zero before the result line:
    as a user would: precession with lost visibility, Pr(1) = v·(1 −
    cos²(ωt/2)) + (1 − v)/2 over (ω, v), prior U([0, 1] × [0.5, 1]), its
    torch pr1 and that pr1's CUDA functor). First every shipped path above
-   must have taken 0 launches on a user library and 0 on the column route.
-   Then (``phase_compare_user``) the user tile from its own library
-   against its plain version, two-outcome and binomial, at n ∈ {1000,
-   2^20 + 3, 2^20}; the column route (the torch-only twin: its pr1
-   evaluated on the card, B1 on ``GivenPr1``) within ``B1_TOL`` of the user
-   tile; the trial grid (``B1_BATCH_SHAPES``) per trial bit-equal to
-   single-bank launches. Then (``phase_user_tile``, ``USER_PATHS``) three
-   paths at 2^20, a warm-up and three gated windows each (|ω̂ − ω| < 0.05,
-   v̂ within 4 posterior standard deviations): ``user_tile`` (single shots
-   over the flagship record's times, ω = 0.70710678, v = 0.9) and
-   ``user_tile_binomial`` (``BinomialModel`` over it, 24 experiments × 40
-   shots) with B1 once an update on the user library, ``user_tile_column``
-   (the first with the torch-only twin) with B1 once an update on the
-   column route; and ``user_tile_ensemble`` (``perf_test_multiple``, 256 ×
-   2048 × 100, PGH), gated on the median loss falling tenfold, the batched
-   B1 once a step on the user library. One JSON line each.
+   must have taken 0 launches on a user library, the traced route or the
+   column route. Then (``phase_compare_user``) the user tile from its own
+   library against its plain version, two-outcome and binomial, at n ∈
+   {1000, 2^20 + 3, 2^20}; the column route (``LOST_VISIBILITY_COLUMN``, a
+   twin that the tracer refuses: its pr1 evaluated on the card, B1 on
+   ``GivenPr1``) within ``B1_TOL`` of the user tile; the trial grid
+   (``B1_BATCH_SHAPES``) per trial bit-equal to single-bank launches. Then
+   (``phase_compare_traced``) the functor traced from the torch pr1
+   (``LOST_VISIBILITY_TORCH``) bit-equal to the user functor in every B1
+   form and on the trial grid, against the column route of the same pr1
+   (worst ulp printed), and every built-in tile over its traced pr1
+   against its built-in functor. Then (``phase_user_tile``,
+   ``USER_PATHS``) four paths at 2^20, a warm-up and three gated windows
+   each (|ω̂ − ω| < 0.05, v̂ within 4 posterior standard deviations):
+   ``user_tile`` (single shots over the flagship record's times, ω =
+   0.70710678, v = 0.9) and ``user_tile_binomial`` (``BinomialModel`` over
+   it, 24 experiments × 40 shots) with B1 once an update on the user
+   library, ``user_tile_traced`` (the first with the torch pr1 alone) with
+   B1 once an update on the traced route, ``user_tile_column`` (with the
+   refused twin) with B1 once an update on the column route and the
+   tracer's reason on its line; and ``user_tile_ensemble``
+   (``perf_test_multiple``, 256 × 2048 × 100, PGH), gated on the median
+   loss falling tenfold, the batched B1 once a step on the user library.
+   One JSON line each.
 14. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
    Born tiles of the paths; B2 at D = 1, 2, 3, 4 and 16, and beside it
@@ -156,8 +166,9 @@ Phases, in order; any failure exits non-zero before the result line:
    same turns (B1 two passes, B2 rows), printed with the form and grid
    the wrapper took on earlier JSON lines. The user tile's B1 at 2^20
    (two-outcome beside the built-in two-column multicos in the same turns,
-   binomial, the column route beside B1 on ``GivenPr1`` alone) and its
-   trial grid at 256 × 2048.
+   binomial; the traced route, the user functor, the column route and B1
+   on ``GivenPr1`` alone in the same turns) and its trial grid at 256 ×
+   2048.
 
 The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version, bit-equal per trial to single-bank
@@ -199,6 +210,7 @@ from qinfer_tpu_torch import _build
 from qinfer_tpu_torch import parallel as par
 from qinfer_tpu_torch import tomography as tomo
 from qinfer_tpu_torch.ops import fused_update as b1
+from qinfer_tpu_torch.ops import pr1_trace
 from qinfer_tpu_torch.ops import resample_expand as b2
 from qinfer_tpu_torch.parallel import sharded_smc
 from qinfer_tpu_torch.resamplers import systematic_segment_starts
@@ -331,8 +343,9 @@ CONFIG_TILE = {"config2_binomial_precession": "binomial_precession",
 #
 # Written as a user of the library would write it, outside the package: a
 # two-outcome model that defines ``_fused_pr1_parts`` with its own pr1 and,
-# for the card, that pr1's CUDA functor. The JAX package traces the same
-# ``jnp`` pr1 into its Pallas kernel.
+# for the card, either that pr1's CUDA functor or nothing more, in which case
+# B1 runs the functor traced from the torch pr1. The JAX package traces the
+# same ``jnp`` pr1 into its Pallas kernel.
 
 
 def lost_visibility_pr1(scalars, off, omega, v):
@@ -357,15 +370,25 @@ struct UserPr1 {
 };
 """
 
+def lost_visibility_column_pr1(scalars, off, omega, v):
+    """``lost_visibility_pr1`` with its cos taken in place (``Tensor.cos_``):
+    the same ops and values, but the tracer refuses an in-place op (it reads
+    values, not mutations), so B1 takes the column route on it."""
+    c = (0.5 * omega * scalars[off]).cos_()
+    return v * (1.0 - c * c) + 0.5 * (1.0 - v)
+
+
 LOST_VISIBILITY_CUDA = b1.cuda_pr1(lost_visibility_pr1, LOST_VISIBILITY_SOURCE)
-LOST_VISIBILITY_TORCH = lost_visibility_pr1  # torch only: the column route
+LOST_VISIBILITY_TORCH = lost_visibility_pr1  # torch only: the traced route
+LOST_VISIBILITY_COLUMN = lost_visibility_column_pr1  # refused: column route
 
 
 @dataclass(frozen=True, eq=False)
 class LostVisibilityModel(qt.FiniteOutcomeModel):
     """Precession with lost visibility: parameters (ω, v), expparams t,
     Pr(1) = v·(1 − cos²(ωt/2)) + (1 − v)/2. ``pr1``: the pr1 that B1 runs
-    (the CUDA functor, or the torch-only twin)."""
+    (the CUDA functor, the torch pr1 that B1 traces, or its twin that the
+    tracer refuses)."""
 
     pr1: object = LOST_VISIBILITY_CUDA
 
@@ -427,12 +450,16 @@ def user_records():
     return (ts, shots), (tb, counts)
 
 
-# (name, model, record, shots a count): the user model's three windows.
+# (name, model, record, shots a count): the user model's four windows.
 USER_PATHS = (
     ("user_tile", LostVisibilityModel(), 0, None),
     ("user_tile_binomial", qt.BinomialModel(LostVisibilityModel()), 1, 40),
-    ("user_tile_column", LostVisibilityModel(LOST_VISIBILITY_TORCH), 0, None),
+    ("user_tile_traced", LostVisibilityModel(LOST_VISIBILITY_TORCH), 0, None),
+    ("user_tile_column", LostVisibilityModel(LOST_VISIBILITY_COLUMN), 0, None),
 )
+# The B1 route counter each user path must move, once an update.
+USER_ROUTES = {"user_tile_traced": "B1_traced",
+               "user_tile_column": "B1_column"}
 
 
 def user_record(record, n_meas):
@@ -752,19 +779,65 @@ def phase_device():
     return smi
 
 
+def traced_twin(tile, n_cols):
+    """The outcome tile ``tile`` over the functor traced from its pr1's
+    torch function (``pr1_trace.trace_pr1``); raises where the tracer
+    refuses it."""
+    program = pr1_trace.trace_pr1(tile.pr1_fn, n_cols)
+    if isinstance(program, pr1_trace.Refusal):
+        raise AssertionError(f"the tracer refuses {tile.pr1_fn!r}: "
+                             f"{program.reason}")
+    return type(tile)(b1.cuda_pr1(tile.pr1_fn, program.source))
+
+
+# (name, inputs(n, seed, device)) of every built-in tile of ZOO and TOMO,
+# whose pr1 the compare phase also runs traced (``traced_twin``).
+BUILTIN_TILES = tuple(
+    [(c[0], lambda n, seed, device, c=c: zoo_inputs(c, n, seed, device))
+     for c in ZOO]
+    + [(c[0], lambda n, seed, device, c=c: tomo_inputs(c, n, seed, device))
+       for c in TOMO])
+
+
+def traced_sources():
+    """{label: source} of the functors traced from the user model's torch
+    pr1 (``build traced``) and from each built-in pr1 of ``BUILTIN_TILES``
+    (``build traced <name>``)."""
+    user = traced_twin(b1.two_outcome_tile(LOST_VISIBILITY_TORCH), 2)
+    out = {"build traced": user.pr1_fn.source}
+    for name, inputs in BUILTIN_TILES:
+        tile, _, _, cols = inputs(16, 0, "cpu")
+        traced = traced_twin(tile, len(cols))
+        out[f"build traced {name}"] = traced.pr1_fn.source
+    return out
+
+
 def phase_build():
-    """Builds the built-in library and the user model's library
-    (``LOST_VISIBILITY_SOURCE``) at once, one nvcc each; prints each
-    library's build seconds and each kernel's registers and spills from
-    ptxas, labelled Outcome<Pr1> for B1's instantiations (Outcome<UserPr1>
-    for the user functor's)."""
-    with ThreadPoolExecutor(2) as pool:
-        builtin = pool.submit(_build.library)
-        user = pool.submit(_build.user_library, LOST_VISIBILITY_SOURCE)
-        infos = {"build": builtin.result()[1], "build user": user.result()[1]}
+    """Builds, one nvcc each and all at once, the built-in library, the
+    user model's library (``LOST_VISIBILITY_SOURCE``) and the library of
+    each functor that ``traced_sources`` traces; prints each library's
+    build seconds, each kernel's registers and spills from ptxas for the
+    first three (labelled Outcome<Pr1>, Outcome<UserPr1> for a user or
+    traced functor) and the most registers and spills of the others."""
+    jobs = {"build": None, "build user": LOST_VISIBILITY_SOURCE,
+            **traced_sources()}
+    with ThreadPoolExecutor(len(set(jobs.values()))) as pool:
+        futures = {src: pool.submit(_build.library) if src is None
+                   else pool.submit(_build.user_library, src)
+                   for src in dict.fromkeys(jobs.values())}
+        infos = {label: futures[src].result()[1]
+                 for label, src in jobs.items()}
     for label, info in infos.items():
         print(f"{label}: {info['seconds']:.1f} s -> {info['path']}")
-        _print_ptxas(info["report"])
+        if label in ("build", "build user", "build traced"):
+            _print_ptxas(info["report"])
+        else:
+            regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                               info["report"])]
+            spills = [int(m) for m in re.findall(r"(\d+) bytes spill",
+                                                 info["report"])]
+            print(f"  ptxas: at most {max(regs)} registers, "
+                  f"{max(spills, default=0)} bytes of spills")
 
 
 def _print_ptxas(report):
@@ -2449,22 +2522,26 @@ USER_ENSEMBLE = ("user_tile_ensemble", 256, 2048, 100)
 
 def _reset_route_counters():
     for wrapper in (b1.fused_bayes_update, b1.fused_bayes_update_batched):
-        wrapper.user_launches = wrapper.column_launches = 0
+        wrapper.user_launches = wrapper.traced_launches = 0
+        wrapper.column_launches = 0
 
 
 def _route_counters():
-    return {"B1_user": b1.fused_bayes_update.user_launches,
-            "B1_column": b1.fused_bayes_update.column_launches,
-            "B1_batched_user": b1.fused_bayes_update_batched.user_launches,
-            "B1_batched_column":
-                b1.fused_bayes_update_batched.column_launches}
+    single, batched = b1.fused_bayes_update, b1.fused_bayes_update_batched
+    return {"B1_user": single.user_launches,
+            "B1_traced": single.traced_launches,
+            "B1_column": single.column_launches,
+            "B1_batched_user": batched.user_launches,
+            "B1_batched_traced": batched.traced_launches,
+            "B1_batched_column": batched.column_launches}
 
 
 def phase_compare_user(device):
     """The user tile on the card, from the library built of its source:
     two-outcome and binomial against their plain versions (and one launch
     bit-equal to two passes) at n ∈ {1000, 2^20 + 3, 2^20}; the column
-    route (the torch-only twin, B1 on GivenPr1) against the user tile at
+    route (the twin the tracer refuses, B1 on GivenPr1) against the user
+    tile at
     the same inputs within B1_TOL, its GivenPr1 forms bit-equal; the trial
     grid at B1_BATCH_SHAPES within B1_TOL of its plain version and bit-equal
     per trial to single-bank launches, and its column route within B1_TOL
@@ -2477,7 +2554,7 @@ def phase_compare_user(device):
             tile, scal, lw, cols = user_inputs(binomial, n, n, device)
             worst[name] = max(worst[name], _b1_check(
                 f"user {name} n={n}", tile, scal, lw, cols))
-            twin = type(tile)(LOST_VISIBILITY_TORCH)
+            twin = type(tile)(LOST_VISIBILITY_COLUMN)
             given, scal_g, cols_g, _ = b1._route(twin, scal, cols, lw.shape,
                                                  batched=False)
             _forms_check(f"GivenPr1 {name} n={n}", given, scal_g[None],
@@ -2491,11 +2568,106 @@ def phase_compare_user(device):
                           *user_batched_inputs(t, n, t + n, device))
         for t, n in B1_BATCH_SHAPES)
     tile, scal, lw, cols = user_batched_inputs(*B1_BATCH_SHAPES[0], 5, device)
-    twin = type(tile)(LOST_VISIBILITY_TORCH)
+    twin = type(tile)(LOST_VISIBILITY_COLUMN)
     worst["column_batched"] = _agree(
         "column route vs user, trial grid",
         b1.fused_bayes_update_batched(twin, scal, lw, cols),
         b1.fused_bayes_update_batched(tile, scal, lw, cols))
+    return worst
+
+
+def _bits(label, got, want):
+    """Two results of B1 bit-equal, or it raises."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want, strict=True)):
+        raise AssertionError(f"B1 {label}: not bit-equal")
+    print(f"B1 {label}: bit-equal")
+
+
+def max_ulps(a, b):
+    """The most units in the last place between two f32 tensors (their
+    bits as ordered integers)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(torch.max(torch.abs(ordered(a) - ordered(b))))
+
+
+def b1_forms(tile, scal, lw, cols):
+    """B1 on T banks in every form its layout has: {form: (lw − lse, lse,
+    lse2, ess, raw lw)} for the per-column path's one launch and two
+    passes (``both_forms``) and, where the columns are views of one bank,
+    the row span."""
+    out = dict(zip((b1.ONE_LAUNCH, b1.TWO_PASS),
+                   both_forms(tile, scal, lw, cols)))
+    if b1._row_span(cols, 2) is not None:
+        norm = b1._fused_update_cuda(tile, scal, lw, cols, row_span=True,
+                                     normalize=True)
+        out["row span"] = (*norm, b1._fused_update_cuda(
+            tile, scal, lw, cols, row_span=True)[0])
+    return out
+
+
+def phase_compare_traced(device):
+    """The functor traced from the user model's torch pr1
+    (``LOST_VISIBILITY_TORCH``), two-outcome and binomial, at n ∈ {1000,
+    2^20 + 3, 2^20}: against its plain version (its one launch bit-equal to
+    its two passes), bit-equal to the hand-written user functor in every B1
+    form (``b1_forms``) and through the wrapper, and against the column
+    route of the same pr1 (worst error and ulp printed, within B1_TOL). On
+    the trial grid at B1_BATCH_SHAPES: within B1_TOL of its plain version,
+    each trial bit-equal to a single-bank launch, and bit-equal to the
+    user functor's trial grid. Then every built-in tile of
+    ``BUILTIN_TILES`` at the same n over its pr1 traced, against its
+    built-in functor: bit-equal, or its worst ulp printed (within
+    B1_TOL). Returns the worst errors against plain ("traced",
+    "traced_batched") and against the column route ("column")."""
+    worst = {"traced": 0.0, "column": 0.0}
+    for binomial in (False, True):
+        name = "binomial" if binomial else "two_outcome"
+        for n in (1000, N_FLAGSHIP + 3, N_FLAGSHIP):
+            label = f"{name} n={n}"
+            tile, scal, lw, cols = user_inputs(binomial, n, n, device)
+            twin = type(tile)(LOST_VISIBILITY_TORCH)
+            traced, _, _, route = b1._route(twin, scal, cols, lw.shape,
+                                            batched=False)
+            if route != "traced":
+                raise AssertionError(f"{label}: route {route}, not traced")
+            worst["traced"] = max(worst["traced"], _b1_check(
+                f"traced {label}", traced, scal, lw, cols))
+            batch = (scal[None], lw[None], tuple(c[None] for c in cols))
+            got, want = b1_forms(traced, *batch), b1_forms(tile, *batch)
+            for form, result in got.items():
+                _bits(f"traced vs user {label}, {form}", result, want[form])
+            out = b1.fused_bayes_update(twin, scal, lw, cols)
+            _bits(f"traced vs user {label}, wrapper", out,
+                  b1.fused_bayes_update(tile, scal, lw, cols))
+            given, scal_g, cols_g, _ = b1._column(twin, scal, cols, lw.shape,
+                                                  batched=False)
+            column = b1.fused_bayes_update(given, scal_g, lw, cols_g)
+            worst["column"] = max(worst["column"], _agree(
+                f"traced vs column route {label}", out, column,
+                note=f" max ulp lw {max_ulps(out[0], column[0])}"))
+    worst["traced_batched"] = 0.0
+    for t, n in B1_BATCH_SHAPES:
+        tile, scal, lw, cols = user_batched_inputs(t, n, t + n, device)
+        twin = type(tile)(LOST_VISIBILITY_TORCH)
+        traced = b1._route(twin, scal, cols, lw.shape, batched=True)[0]
+        worst["traced_batched"] = max(
+            worst["traced_batched"],
+            _b1_batched_check(f"traced T={t} N={n}", traced, scal, lw, cols))
+        _bits(f"traced vs user, trial grid T={t} N={n}",
+              b1.fused_bayes_update_batched(twin, scal, lw, cols),
+              b1.fused_bayes_update_batched(tile, scal, lw, cols))
+    for name, inputs in BUILTIN_TILES:
+        for n in (1000, N_FLAGSHIP + 3, N_FLAGSHIP):
+            tile, scal, lw, cols = inputs(n, n, device)
+            got = b1.fused_bayes_update(traced_twin(tile, len(cols)), scal,
+                                        lw, cols)
+            want = b1.fused_bayes_update(tile, scal, lw, cols)
+            ulps = max_ulps(got[0], want[0])
+            _agree(f"traced vs built-in {name} n={n}", got, want,
+                   note=f" max ulp lw {ulps}")
     return worst
 
 
@@ -2510,38 +2682,57 @@ def _check_routes(name, counts, expected):
 
 def phase_user_tile(device):
     """The user model's paths at 2^20 (``USER_PATHS``): a warm-up window
-    and three timed ones each, every counter set to 0 just before them and
-    read just after, every window gated (``user_window``); B1 once an
-    update on the user library (``user_tile``, ``user_tile_binomial``) or
-    on the column route (``user_tile_column``), B2 at least once a
-    resample. Then ``USER_ENSEMBLE`` (``perf_test_multiple`` with PGH, three
-    runs, seeds 7–9), gated on the median final loss falling tenfold from
-    the first experiment's (as ``tests/test_torch_ensemble.py``), the
-    batched B1 once a step on the user library. One JSON line each;
+    each, then three timed ones each, the paths in turns, every counter
+    set to 0 just before each window and read just after, every window
+    gated (``user_window``); B1 once an
+    update on the user library (``user_tile``, ``user_tile_binomial``), on
+    the traced route (``user_tile_traced``) or on the column route
+    (``user_tile_column``, whose line prints the tracer's reason), B2 at
+    least once a resample. Then ``USER_ENSEMBLE`` (``perf_test_multiple``
+    with PGH, three runs, seeds 7–9), gated on the median final loss
+    falling tenfold from the first experiment's (as
+    ``tests/test_torch_ensemble.py``), the batched B1 once a step on the
+    user library. One JSON line each;
     returns the launch counts."""
     from qinfer_tpu_torch.perf_testing import _WARMUP_EXPERIMENTS
 
+    # The windows run in turns, the paths' order reversed every other
+    # round, so that the host's drift falls on every path alike (the routes
+    # are compared by their windows); counters are set to 0 before each
+    # window, read after it and summed by path.
+    for _, model, record, n_meas in USER_PATHS:
+        user_window(model, record, n_meas, N_FLAGSHIP, 10_000, device)
+    windows = {name: [] for name, *_ in USER_PATHS}
+    totals = {name: {} for name, *_ in USER_PATHS}
+    for w in range(3):
+        for name, model, record, n_meas in (USER_PATHS if w % 2 == 0
+                                            else USER_PATHS[::-1]):
+            _reset_counters()
+            _reset_route_counters()
+            windows[name].append(user_window(model, record, n_meas,
+                                             N_FLAGSHIP, 1000 * (w + 1),
+                                             device))
+            totals[name] = _sum_counts(totals[name], {
+                **_read_counters()[0], **_route_counters()})
     out = {}
     for name, model, record, n_meas in USER_PATHS:
         n_upd = len(user_records()[record][0])
-        user_window(model, record, n_meas, N_FLAGSHIP, 10_000, device)
-        _reset_counters()
-        _reset_route_counters()
-        windows = [user_window(model, record, n_meas, N_FLAGSHIP,
-                               1000 * (w + 1), device) for w in range(3)]
-        counts = {**_read_counters()[0], **_route_counters()}
-        n_resamples = [w[3] for w in windows]
+        counts = totals[name]
+        n_resamples = [w[3] for w in windows[name]]
         _check_launches(name, counts, 3 * n_upd, sum(n_resamples))
-        route = "B1_column" if name.endswith("_column") else "B1_user"
+        route = USER_ROUTES.get(name, "B1_user")
         _check_routes(name, counts, {route: 3 * n_upd})
-        secs = [w[0] for w in windows]
-        print(json.dumps({"config": name, "n_particles": N_FLAGSHIP,
-                          "n_updates": n_upd,
-                          "particle_updates_per_s":
-                              N_FLAGSHIP * n_upd / statistics.median(secs),
-                          "window_s": secs, "n_resamples": n_resamples,
-                          "est": [w[1] for w in windows],
-                          "sd": [w[2] for w in windows], "launches": counts}))
+        secs = [w[0] for w in windows[name]]
+        line = {"config": name, "n_particles": N_FLAGSHIP,
+                "n_updates": n_upd,
+                "particle_updates_per_s":
+                    N_FLAGSHIP * n_upd / statistics.median(secs),
+                "window_s": secs, "n_resamples": n_resamples,
+                "est": [w[1] for w in windows[name]],
+                "sd": [w[2] for w in windows[name]], "launches": counts}
+        if route == "B1_column":
+            line["refused"] = pr1_trace.trace_pr1(model.pr1, 2).reason
+        print(json.dumps(line))
         out[name] = counts
     name, n_trials, n, n_exp = USER_ENSEMBLE
     steps = n_exp + min(n_exp, _WARMUP_EXPERIMENTS)
@@ -2908,13 +3099,39 @@ def phase_timing_sharded(device):
     return times
 
 
+def _turns(fns, iters=20):
+    """Each of ``fns`` ({name: call}) timed with ``_time_ms`` in order and
+    then in reverse order; the mean of each pair, in ms."""
+    order = list(fns)
+    first = {name: _time_ms(fns[name], iters) for name in order}
+    second = {name: _time_ms(fns[name], iters) for name in reversed(order)}
+    return {name: (first[name] + second[name]) / 2 for name in order}
+
+
+def _host_us(fn, calls=200):
+    """Wall µs a call of ``fn`` called ``calls`` times in a row and then
+    synchronised: the host's cost a call where it exceeds the device's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
 def phase_timing_user(device):
     """B1 on the user model's tile at 2^20: the user functor (two-outcome,
     and beside it the built-in two-column multicos in the same turns;
-    binomial), the column route (the torch pr1 and B1 on GivenPr1, beside
-    it B1 on GivenPr1 alone) and the trial grid at 256 × 2048, each against
-    its plain version. The bound is that of the same function: log_w and
-    two columns read once, lw written once."""
+    binomial); in the same turns (``_turns``) the plain version, the traced
+    route (the functor traced from ``LOST_VISIBILITY_TORCH``), the user
+    functor, the column route (``LOST_VISIBILITY_COLUMN``: the torch pr1,
+    then B1 on GivenPr1) and B1 on GivenPr1 alone; the wall µs a call of
+    the three routes queued back to back (``_host_us``) and the host µs a
+    call of their ``_route`` alone, six rounds in turns; and the trial
+    grid at 256 × 2048, each against its plain version. The bound is that
+    of the same function: log_w and two columns read once, lw written
+    once."""
     times = {}
     multicos = zoo_inputs(ZOO[0], N_FLAGSHIP, 7, device)
     for binomial in (False, True):
@@ -2925,13 +3142,30 @@ def phase_timing_user(device):
             old=None if binomial else lambda: b1.fused_bayes_update(
                 *multicos))
     tile, scal, lw, cols = user_inputs(False, N_FLAGSHIP, 7, device)
-    twin = type(tile)(LOST_VISIBILITY_TORCH)
-    given, scal_g, cols_g, _ = b1._route(twin, scal, cols, lw.shape,
+    traced = type(tile)(LOST_VISIBILITY_TORCH)
+    column = type(tile)(LOST_VISIBILITY_COLUMN)
+    given, scal_g, cols_g, _ = b1._route(column, scal, cols, lw.shape,
                                          batched=False)
-    times["column"] = _alternate(
-        lambda: b1.fused_update_plain(tile, scal, lw, cols),
-        lambda: b1.fused_bayes_update(twin, scal, lw, cols),
-        old=lambda: b1.fused_bayes_update(given, scal_g, lw, cols_g))
+    turns = _turns({
+        "plain": lambda: b1.fused_update_plain(tile, scal, lw, cols),
+        "traced": lambda: b1.fused_bayes_update(traced, scal, lw, cols),
+        "user": lambda: b1.fused_bayes_update(tile, scal, lw, cols),
+        "column": lambda: b1.fused_bayes_update(column, scal, lw, cols),
+        "given": lambda: b1.fused_bayes_update(given, scal_g, lw, cols_g)})
+    for name in ("traced", "column"):
+        times[name] = {"ms": turns[name], "plain_ms": turns["plain"],
+                       "library_ms": None, "old_ms": None}
+    routes = {"traced": traced, "user": tile, "column": column}
+    host = {name: [] for name in routes}
+    route_us = {name: [] for name in routes}
+    for r in range(6):
+        for name in (list(routes) if r % 2 == 0 else list(routes)[::-1]):
+            host[name].append(_host_us(lambda: b1.fused_bayes_update(
+                routes[name], scal, lw, cols)))
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                b1._route(routes[name], scal, cols, lw.shape, batched=False)
+            route_us[name].append(1e6 * (time.perf_counter() - t0) / 2000)
     for t in times.values():
         t["work"] = b1_work(2, N_FLAGSHIP)
     n_trials, n = B1_BATCH_SHAPES[0]
@@ -2943,9 +3177,12 @@ def phase_timing_user(device):
     print(json.dumps({"user_tile_ms": {
         name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound(t["work"])[0],
-               {"two_outcome": "builtin_multicos_ms",
-                "column": "b1_given_pr1_ms"}.get(name, "old_ms"): t["old_ms"]}
+               **({"builtin_multicos_ms": t["old_ms"]}
+                  if name == "two_outcome" else {})}
         for name, t in times.items()}}))
+    print(json.dumps({"user_routes_same_turns_ms": turns,
+                      "user_routes_host_us_a_call": host,
+                      "user_routes_route_us_a_call": route_us}))
     return times
 
 
@@ -2993,6 +3230,7 @@ def main():
     print(json.dumps({"shipped_paths_b1_routes": _route_counters()}))
     _check_routes("the shipped paths", _route_counters(), {})
     user_err = phase_compare_user(device)
+    traced_err = phase_compare_traced(device)
     user_launches = phase_user_tile(device)
     times = phase_timing(device)
     bank_time, _ = phase_timing_bank(device, smi)
@@ -3092,6 +3330,10 @@ def main():
         kernel_row("fused_bayes_update[user pr1, binomial]", user_src,
                    user_b1, user_launches["user_tile_binomial"]["B1_user"],
                    user_err["binomial"], user_times["binomial"]),
+        kernel_row("fused_bayes_update[traced pr1: chip_smoke."
+                   "lost_visibility_pr1]", user_src, user_b1,
+                   user_launches["user_tile_traced"]["B1_traced"],
+                   traced_err["traced"], user_times["traced"]),
         kernel_row("fused_bayes_update[column route: torch pr1 + GivenPr1]",
                    src1, user_b1,
                    user_launches["user_tile_column"]["B1_column"],

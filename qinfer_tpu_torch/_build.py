@@ -7,8 +7,9 @@ interface, loaded with ``ctypes``. The library lands in
 the sources, the header and the flags, so a changed source rebuilds and an
 unchanged one is reused.
 
-A model that brings its own CUDA pr1 functor (``ops.fused_update.cuda_pr1``)
-gets a library of its own, built at first use by ``user_library``: the
+A model that brings its own CUDA pr1 functor (``ops.fused_update.cuda_pr1``),
+or whose torch pr1 ``ops.pr1_trace`` traces into one, gets a library of its
+own, built at first use by ``user_library``: the
 header ``csrc/fused_update.cuh``, the functor's source and the entry points
 of both outcome compositions over it, compiled with the same flags into
 ``build/qinfer_tpu_torch/user/<hash of source, header and flags>/``.

@@ -3,6 +3,7 @@
 Counterpart of ``qinfer_tpu/ops`` (the Pallas TPU kernels):
 
 - ``fused_update`` — kernel B1, the fused Bayes update;
+- ``pr1_trace`` — a model's torch pr1 traced into B1's functor;
 - ``resample_expand`` — kernel B2, the systematic-resampling expand.
 """
 

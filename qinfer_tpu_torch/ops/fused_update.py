@@ -21,7 +21,7 @@ functor's own bound (8 for MultiCos) is checked by the kernel, and a
 launch it refuses raises.
 
 A model's own pr1, as the JAX package traces any ``jnp`` pr1 into its
-Pallas kernel, takes one of two routes on CUDA:
+Pallas kernel, takes one of three routes on CUDA:
 
 - ``cuda_pr1(fn, source, consts)``: ``fn`` is the pr1 in torch (the plain
   version and the CPU route), ``source`` its CUDA functor, a ``struct
@@ -29,15 +29,19 @@ Pallas kernel, takes one of two routes on CUDA:
   (``csrc/fused_update.cuh``). The tile launches the same kernels from a
   library of that functor alone, built at first use
   (``_build.user_library``); a source that does not build raises.
-- a pr1 with no functor (a plain torch function): the column route. The
-  wrapper evaluates the pr1 with torch on the card into one (T, N)
-  column and launches the same outcome composition over ``GivenPr1``,
-  whose Pr(1) is that column: a few more launches and one more round trip
-  of a column through device memory.
+- a pr1 in torch alone: traced once (``pr1_trace.trace_pr1``) into a
+  ``struct UserPr1`` that computes it op by op as torch does on the card,
+  and launched from that source's library as a hand-written functor is:
+  the traced route. A generated source that does not build raises.
+- a torch pr1 that the tracer refuses (``pr1_trace.Refusal`` says why):
+  the column route. The wrapper evaluates the pr1 with torch on the card
+  into one (T, N) column and launches the same outcome composition over
+  ``GivenPr1``, whose Pr(1) is that column: a few more launches and one
+  more round trip of a column through device memory.
 
 Each wrapper counts its launches (``launches``), and of them those on a
-user library (``user_launches``) and on the column route
-(``column_launches``).
+user library (``user_launches``), on the traced route
+(``traced_launches``) and on the column route (``column_launches``).
 
 The kernel reads the parameter columns in place, and no column is copied
 first. When the columns are views of one row-major (N, s) bank with s ≥ 8
@@ -67,6 +71,7 @@ from typing import Any, Callable, ClassVar, NamedTuple
 import torch
 
 from .. import _build
+from . import pr1_trace
 
 __all__ = [
     "fused_bayes_update", "fused_update_plain",
@@ -513,8 +518,8 @@ def _fused_update_cuda(tile_fn, scalars, log_w, param_cols, row_span=None,
     takes the per-column path's form from ``grid_plan``; ``ONE_LAUNCH`` or
     ``TWO_PASS`` forces one (the row span has only the two-pass form).
     Both options are for comparing paths and forms. A tile whose pr1 has
-    no CUDA functor raises here: the wrappers send it to the column route
-    first (``_route``)."""
+    no CUDA functor raises here: the wrappers send it to the traced or the
+    column route first (``_route``)."""
     outcome_id, functor_id, consts, source = _kernel_of(tile_fn)
     if len(param_cols) > MAX_COLS:
         raise ValueError(
@@ -582,11 +587,10 @@ def _route(tile_fn, scalars, param_cols, shape, batched):
     """What a CUDA launch runs for this tile: ``(tile, scalars, cols,
     route)``. A tile with a functor runs as it is, on the built-in library
     (route "builtin") or its user library ("user"). An outcome tile whose
-    pr1 has none takes the column route ("column"): the pr1 evaluated by
-    its torch function, in the wrapper's layout (``batched``: scalars (T,
-    k) and (T, N) columns), is broadcast to ``shape`` and becomes the one
-    column of the same outcome composition over ``GivenPr1``, with the
-    composition's head of the scalars. Any other tile is returned as it is
+    pr1 has none runs over the functor traced from its torch pr1
+    (``pr1_trace.trace_pr1``, cached) from that source's library
+    ("traced") or, where the tracer refuses the pr1, takes the column
+    route ("column", ``_column``). Any other tile is returned as it is
     (route None), for ``_fused_update_cuda`` to refuse."""
     spec = getattr(tile_fn, "kernel_tile", None)
     if spec is not None:
@@ -594,6 +598,31 @@ def _route(tile_fn, scalars, param_cols, shape, batched):
                 "user" if isinstance(spec[1], str) else "builtin")
     if not isinstance(tile_fn, _OutcomeTile):
         return tile_fn, scalars, param_cols, None
+    program = pr1_trace.trace_pr1(tile_fn.pr1_fn, len(param_cols))
+    if isinstance(program, pr1_trace.Refusal):
+        return _column(tile_fn, scalars, param_cols, shape, batched)
+    if scalars.shape[-1] < tile_fn.head + program.n_scalars:
+        raise ValueError(
+            f"the pr1 reads {program.n_scalars} scalars after the outcome's "
+            f"{tile_fn.head}; got {scalars.shape[-1]} scalars in all")
+    return _traced_tile(type(tile_fn), program), scalars, param_cols, "traced"
+
+
+@functools.lru_cache(maxsize=1024)
+def _traced_tile(outcome, program):
+    """The outcome composition ``outcome`` over the functor traced into
+    ``program``, whose plain version runs the program with torch: made
+    once, so that an update pays lookups."""
+    return outcome(CudaPr1(functools.partial(pr1_trace.evaluate, program),
+                           program.source))
+
+
+def _column(tile_fn, scalars, param_cols, shape, batched):
+    """The column route of an outcome tile: its pr1 evaluated by its torch
+    function, in the wrapper's layout (``batched``: scalars (T, k) and
+    (T, N) columns), broadcast to ``shape``, becomes the one column of the
+    same outcome composition over ``GivenPr1``, with the composition's head
+    of the scalars."""
     pr1 = tile_fn.pr1_fn(scalars.T[:, :, None] if batched else scalars,
                          tile_fn.head, *param_cols)
     return (type(tile_fn)(given_pr1), scalars[..., :tile_fn.head],
@@ -604,6 +633,8 @@ def _count(wrapper, route):
     wrapper.launches += 1
     if route == "user":
         wrapper.user_launches += 1
+    elif route == "traced":
+        wrapper.traced_launches += 1
     elif route == "column":
         wrapper.column_launches += 1
 
@@ -640,6 +671,7 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
 
 fused_bayes_update.launches = 0
 fused_bayes_update.user_launches = 0
+fused_bayes_update.traced_launches = 0
 fused_bayes_update.column_launches = 0
 
 
@@ -676,4 +708,5 @@ def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
 
 fused_bayes_update_batched.launches = 0
 fused_bayes_update_batched.user_launches = 0
+fused_bayes_update_batched.traced_launches = 0
 fused_bayes_update_batched.column_launches = 0

@@ -89,7 +89,8 @@ def test_wide_or_unknown_tile_raises_on_cuda(cuda):
     """More columns than a functor takes (8 for MultiCos, which the kernel
     refuses; 16 for any tile) raises on CUDA instead of running the plain
     version; so does a pr1 with no functor handed to the kernel itself,
-    which the wrapper sends to the column route, counted."""
+    which the wrapper traces (or, where the tracer refuses it, sends to the
+    column route), counted."""
     model = qt.MultiCosModel(n_terms=9)
     locs = torch.rand((256, 9), device=cuda)
     lw = torch.full((256,), -float(np.log(256.0)), device=cuda)
@@ -105,12 +106,17 @@ def test_wide_or_unknown_tile_raises_on_cuda(cuda):
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
         b1._fused_update_cuda(tile, torch.ones((1, 1), device=cuda), lw[None],
                               (locs[None, :, 0],))
+    refused = b1.two_outcome_tile(lambda scalars, off, x: x - x.mean())
     counts = (b1.fused_bayes_update.launches,
+              b1.fused_bayes_update.traced_launches,
               b1.fused_bayes_update.column_launches)
     b1.fused_bayes_update(tile, torch.ones(1, device=cuda), lw, (locs[:, 0],))
+    b1.fused_bayes_update(refused, torch.ones(1, device=cuda), lw,
+                          (locs[:, 0],))
     assert (b1.fused_bayes_update.launches,
-            b1.fused_bayes_update.column_launches) == (counts[0] + 1,
-                                                       counts[1] + 1)
+            b1.fused_bayes_update.traced_launches,
+            b1.fused_bayes_update.column_launches) == (
+                counts[0] + 2, counts[1] + 1, counts[2] + 1)
 
 
 @pytest.mark.parametrize("n", [1000, N + 3])
@@ -790,12 +796,13 @@ def test_checkpoint_resumes_a_cuda_updater_bit_for_bit(cuda, tmp_path):
                                                          "binomial"])
 def test_user_functor_matches_plain(cuda, binomial, n):
     """The user library's tile against its plain version, and the column
-    route (the torch-only twin) against the user tile, within B1_TOL."""
+    route (the twin that the tracer refuses) against the user tile, within
+    B1_TOL."""
     tile, scal, lw, cols = chip_smoke.user_inputs(binomial, n, n, cuda)
     counts = (b1.fused_bayes_update.user_launches,
               b1.fused_bayes_update.column_launches)
     lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
-    twin = type(tile)(chip_smoke.LOST_VISIBILITY_TORCH)
+    twin = type(tile)(chip_smoke.LOST_VISIBILITY_COLUMN)
     lw_c, ln_c, ess_c = b1.fused_bayes_update(twin, scal, lw, cols)
     assert (b1.fused_bayes_update.user_launches,
             b1.fused_bayes_update.column_launches) == (counts[0] + 1,
@@ -819,6 +826,58 @@ def test_user_functor_trial_grid_bit_equal_to_single_banks(cuda, shape):
         lw_1, ln_1, _ = b1.fused_bayes_update(tile, scal[i], lw[i],
                                               tuple(c[i] for c in cols))
         assert torch.equal(lw_1, lw_k[i]) and torch.equal(ln_1, ln_k[i])
+
+
+@pytest.mark.parametrize("n", [1000, N + 3, N])
+@pytest.mark.parametrize("binomial", [False, True], ids=["two_outcome",
+                                                         "binomial"])
+def test_traced_route_bit_equal_to_user_functor(cuda, binomial, n):
+    """The functor traced from the user model's torch pr1 gives the
+    hand-written functor's bits, through the wrapper (counted on the traced
+    route) and in each forced form."""
+    tile, scal, lw, cols = chip_smoke.user_inputs(binomial, n, n, cuda)
+    twin = type(tile)(chip_smoke.LOST_VISIBILITY_TORCH)
+    counts = (b1.fused_bayes_update.traced_launches,
+              b1.fused_bayes_update.column_launches)
+    got = b1.fused_bayes_update(twin, scal, lw, cols)
+    assert (b1.fused_bayes_update.traced_launches,
+            b1.fused_bayes_update.column_launches) == (counts[0] + 1,
+                                                       counts[1])
+    want = b1.fused_bayes_update(tile, scal, lw, cols)
+    traced = b1._route(twin, scal, cols, lw.shape, batched=False)[0]
+    batch = (scal[None], lw[None], tuple(c[None] for c in cols))
+    forms = chip_smoke.b1_forms(traced, *batch)
+    assert set(forms) == {b1.ONE_LAUNCH, b1.TWO_PASS, "row span"}
+    for form, result in forms.items():
+        for a, b in zip(result, chip_smoke.b1_forms(tile, *batch)[form]):
+            assert torch.equal(a, b), form
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", chip_smoke.B1_BATCH_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_traced_trial_grid_bit_equal_to_user_functor(cuda, shape):
+    tile, scal, lw, cols = chip_smoke.user_batched_inputs(*shape, 3, cuda)
+    twin = type(tile)(chip_smoke.LOST_VISIBILITY_TORCH)
+    before = b1.fused_bayes_update_batched.traced_launches
+    got = b1.fused_bayes_update_batched(twin, scal, lw, cols)
+    assert b1.fused_bayes_update_batched.traced_launches == before + 1
+    want = b1.fused_bayes_update_batched(tile, scal, lw, cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", chip_smoke.BUILTIN_TILES, ids=lambda c: c[0])
+def test_traced_builtin_pr1_matches_its_functor(cuda, case):
+    """Each built-in tile over its pr1 traced agrees with its built-in
+    functor within B1_TOL (chip_smoke prints how many ulp apart)."""
+    tile, scal, lw, cols = case[1](N + 3, 5, cuda)
+    got = b1.fused_bayes_update(chip_smoke.traced_twin(tile, len(cols)),
+                                scal, lw, cols)
+    want = b1.fused_bayes_update(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    assert abs(float(got[1]) - float(want[1])) <= 1e-4
 
 
 def test_malformed_user_source_raises_with_nvcc_message(cuda):

@@ -20,6 +20,7 @@ import torch
 from qinfer_tpu_torch import _build
 
 from qinfer_tpu_torch.ops import fused_update as b1
+from qinfer_tpu_torch.ops import pr1_trace
 from qinfer_tpu_torch.ops import resample_expand as b2
 
 N = 1000
@@ -360,9 +361,10 @@ def test_row_span_keeps_two_passes(fake_lib):
 
 def test_each_tile_launches_from_its_library(fake_lib, monkeypatch):
     """A built-in functor launches from the built-in library by its id, a
-    user functor from the library built of its source as functor 0, and
-    the column route's GivenPr1 (id 9) from the built-in library, with the
-    composition's head of the scalars and the pr1 as its one column."""
+    user functor from the library built of its source as functor 0, a
+    torch pr1 from the library built of its traced source as functor 0,
+    and the column route's GivenPr1 (id 9) from the built-in library, with
+    the composition's head of the scalars and the pr1 as its one column."""
     user_lib, sources = _FakeLib(528), []
 
     def user_library(source):
@@ -385,8 +387,19 @@ def test_each_tile_launches_from_its_library(fake_lib, monkeypatch):
     assert set(sources) == {src}
     b1._fused_update_cuda(b1.binomial_tile(b1.precession_pr1),
                           torch.zeros((1, 4)), lw, cols[:1])
-    twin = b1.two_outcome_tile(pr1)
-    tile, scal_g, cols_g, route = b1._route(twin, scal, cols, lw.shape,
+    tile, _, _, route = b1._route(b1.two_outcome_tile(pr1), scal, cols,
+                                  lw.shape, batched=True)
+    assert route == "traced"
+    b1._fused_update_cuda(tile, scal, lw, cols)
+    traced = user_lib.calls[1]
+    assert (traced["outcome"], traced["pr1"], traced["n_cols"]) == (0, 0, 2)
+    assert sources[-1] == pr1_trace.trace_pr1(pr1, 2).source
+
+    def refused(scalars, off, w, v):  # in place: the tracer refuses it
+        return (v * w).mul_(scalars[off])
+
+    tile, scal_g, cols_g, route = b1._route(b1.two_outcome_tile(refused),
+                                            scal, cols, lw.shape,
                                             batched=True)
     assert route == "column"
     b1._fused_update_cuda(tile, scal_g, lw, cols_g)

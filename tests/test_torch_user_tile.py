@@ -20,7 +20,8 @@ subclasses.
   from the same initial cloud, compared by moments (five joint posterior
   standard deviations, as ``test_torch_configs.py``).
 - The column route's plain version (the pr1 evaluated into one column, the
-  same composition over ``GivenPr1``) bit-equal to the user tile's.
+  same composition over ``GivenPr1``; on the twin that the tracer
+  refuses) bit-equal to the user tile's.
 - The user library's translation unit and cache key, and its build
   raising without ``nvcc``, with no fallback.
 - A census: every fused model the port ships has a built-in functor.
@@ -213,13 +214,13 @@ def test_batch_update_matches_jax_by_moments(path):
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_column_route_plain_bit_equal_to_user_tile(case):
-    """The column route on the torch-only twin: ``GivenPr1`` under the same
-    composition, the pr1 evaluated into its one column. Its plain version
-    gives the user tile's bits, single bank and batched."""
+    """The column route on the twin that the tracer refuses: ``GivenPr1``
+    under the same composition, the pr1 evaluated into its one column. Its
+    plain version gives the user tile's bits, single bank and batched."""
     name, model_t, _, outcome, ep = case
     locs, lw = _bank(N, 11)
     tile, scal, cols = _port_spec(model_t, outcome, locs, ep)
-    twin = type(tile)(chip_smoke.LOST_VISIBILITY_TORCH)
+    twin = type(tile)(chip_smoke.LOST_VISIBILITY_COLUMN)
     assert twin.kernel_tile is None
     lw = torch.from_numpy(lw)
     given, scal_g, cols_g, route = tfu._route(twin, scal, cols, lw.shape,
@@ -244,9 +245,9 @@ def test_column_route_plain_bit_equal_to_user_tile(case):
 
 def test_routes_of_the_tiles():
     """Built-in functors keep the built-in library, a user functor names
-    its library by its source's hash, a pr1 with neither takes the column
-    route, and any other tile is left for ``_fused_update_cuda`` to
-    refuse."""
+    its library by its source's hash, a pr1 with neither is traced (the
+    column route where the tracer refuses it), and any other tile is left
+    for ``_fused_update_cuda`` to refuse."""
     x = torch.rand(16)
     scal = torch.tensor([1.0, 2.0])
     pre = tfu.two_outcome_tile(tfu.precession_pr1)
@@ -255,7 +256,9 @@ def test_routes_of_the_tiles():
     assert user.kernel_tile[1] == chip_smoke.LOST_VISIBILITY_CUDA.library_key
     assert tfu._route(user, scal, (x, x), x.shape, False)[3] == "user"
     bare = tfu.two_outcome_tile(lambda s, off, p: p)
-    assert tfu._route(bare, scal, (x,), x.shape, False)[3] == "column"
+    assert tfu._route(bare, scal, (x,), x.shape, False)[3] == "traced"
+    refused = tfu.two_outcome_tile(lambda s, off, p: p - p.mean())
+    assert tfu._route(refused, scal, (x,), x.shape, False)[3] == "column"
     assert tfu._route(lambda s, p: p, scal, (x,), x.shape, False)[3] is None
     assert (tfu.cuda_pr1(len, "struct UserPr1 {};", (2,))
             == tfu.cuda_pr1(len, "struct UserPr1 {};", (2.0,)))
