@@ -20,7 +20,12 @@ particles (2^20 by default) made from a seed:
 3. ``sharded_flagship`` (``chip_smoke.sharded_flagship_window``) with the
    all-gather migration (a warm-up and three gated windows) and the ring
    (one window): B1 once an update; B2 at least once a resample on the
-   all-gather, never on the ring.
+   all-gather, never on the ring;
+4. dryrun: ``qinfer_tpu_torch.entry.dryrun_multichip`` on the rank's
+   particle mesh, every sharded path on tiny shapes (the step, both
+   migrations, sharded design, the adaptive episodes with both proposes,
+   a time-dependent model, the trials axis of ``host_local_mesh``), each
+   checked as ``__graft_entry__.dryrun_multichip`` checks it.
 
 It prints the card line, then one JSON line a rank with every phase, and
 exits 0 only when every rank passed every phase. It needs two cards or
@@ -43,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 import chip_smoke as cs
+from qinfer_tpu_torch.entry import dryrun_multichip
 
 WALL_S = 900  # the ranks' whole run
 GROUP_TIMEOUT_S = 300  # each collective
@@ -113,6 +119,12 @@ def phase_flagship(mesh, migration, n_windows, device):
             "est": [w["est"] for w in windows]}
 
 
+def phase_dryrun(mesh):
+    """``dryrun_multichip`` on ``mesh``: it raises on a failed check, so
+    a rank that returns passed every one."""
+    return {"ok": True, **dryrun_multichip(mesh)}
+
+
 def rank_main(args):
     cpu = args.cpu > 0
     device = (torch.device("cpu") if cpu
@@ -137,7 +149,8 @@ def rank_main(args):
                   "sharded_flagship": phase_flagship(mesh, "all_gather", 3,
                                                      device),
                   "sharded_flagship_ring": phase_flagship(mesh, "ring", 1,
-                                                          device)}
+                                                          device),
+                  "dryrun": phase_dryrun(mesh)}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(args.dir, f"rank{args.rank}.json"), "w") as f:
@@ -189,7 +202,7 @@ def main(args):
             print(json.dumps(result))
             ok &= all(result[phase]["ok"] for phase in (
                 "pick", "update", "sharded_flagship",
-                "sharded_flagship_ring"))
+                "sharded_flagship_ring", "dryrun"))
     if late:
         print(f"chip_sharded: {len(late)} ranks still ran after {WALL_S} s",
               file=sys.stderr)

@@ -33,6 +33,12 @@ Phases, in order; any failure exits non-zero before the result line:
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
    every window must pass the bench's accuracy gate, and both kernels'
    launch counters must have moved during the timed windows.
+4b. bench (``phase_bench``): ``bench_torch.flagship`` at 2^20 with two
+   windows and one repeat after its warm-up (its gate, B1 once an update,
+   B2 at least once a resample) and ``bench_torch.phase_costs``
+   (``update_ms``, ``resample_ms``); then ``qinfer_tpu_torch.entry.entry``
+   on the card, ``fn(*args)`` once: B1 launched exactly once, the state
+   finite. One JSON line.
 5. config paths: BASELINE configs 2–4 (``CONFIGS``) the same way at 2^20,
    each window gated by its example's accuracy check; B1 must launch
    exactly once per update and B2 at least once per resample. One JSON
@@ -1273,6 +1279,34 @@ def phase_main_path(device):
     }
     print(json.dumps({"main_path": summary}))
     return launches
+
+
+def phase_bench(device):
+    """The port's bench entry points, briefly: ``bench_torch``'s flagship
+    (K = 2 windows, one repeat; its counters set to 0 just before the
+    repeat and read just after) and per-op costs, then ``entry()``'s step
+    with every counter set to 0 just before it and read just after."""
+    import bench_torch
+    from qinfer_tpu_torch.entry import entry
+
+    line = bench_torch.flagship(N_FLAGSHIP, 2, 1, 0, device)
+    line.update(bench_torch.phase_costs(N_FLAGSHIP, 0, device))
+    fn, args = entry(device=device)
+    _reset_counters()
+    state, log_norm = fn(*args)
+    counts = _read_counters()[0]
+    finite = bool(torch.isfinite(state.particle_locations).all()
+                  and torch.isfinite(state.particle_log_weights).all()
+                  and torch.isfinite(log_norm))
+    if counts["B1"] != 1 or not finite:
+        raise AssertionError(f"entry(): B1 launched {counts['B1']} times "
+                             f"(expected 1), state finite: {finite}")
+    print(json.dumps({"bench": {
+        k: line[k] for k in ("metric", "value", "n_windows", "window_ms",
+                             "n_resamples", "launches", "update_ms",
+                             "resample_ms")},
+        "entry": {"log_norm": float(log_norm), "launches": counts,
+                  "n_resamples": int(state.n_resamples)}}))
 
 
 def _config_window(cfg, seed, device, n=N_FLAGSHIP):
@@ -3213,6 +3247,7 @@ def main():
     batched_err = {"B1": phase_compare_b1_batched(device),
                    "B2": phase_compare_b2_batched(device)}
     launches = phase_main_path(device)
+    phase_bench(device)
     config_launches = phase_configs(device)
     config_launches["config5_adaptive_tomography"] = phase_config5(device)
     config_launches["tomography_2q_binomial"] = phase_tomography_2q(device)

@@ -32,6 +32,7 @@ import qinfer_tpu as qi
 import qinfer_tpu_torch as qt
 from qinfer_tpu.ops import fused_update as jfu
 from qinfer_tpu.ops.resample_expand import expand_sorted_segments as j_expand
+from qinfer_tpu_torch.entry import entry
 from qinfer_tpu_torch.interop import from_reference, state_from_numpy
 from qinfer_tpu_torch.ops import fused_update as tfu
 from qinfer_tpu_torch.ops import resample_expand as tre
@@ -567,6 +568,8 @@ def test_entry_points_default_to_the_card():
         qt.perf_test_multiple(2, MODEL, 16, PRIOR, 2, qt.PGH)
     with pytest.raises(RuntimeError, match="CUDA"):
         qt.perf_test(MODEL, 16, PRIOR, 2, qt.PGH, timing_mode="per_update")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
     u = qt.SMCUpdater(MODEL, 16, PRIOR, device="cpu")
     assert u.particle_locations.device.type == "cpu"
 

@@ -894,3 +894,26 @@ def test_malformed_user_source_raises_with_nvcc_message(cuda):
     assert "error" in str(err.value)
     assert (b1.fused_bayes_update.launches,
             b1.fused_bayes_update.column_launches) == counts
+
+
+def test_bench_flagship_on_the_card(cuda):
+    """bench_torch's flagship at 2^20, two windows and one repeat: every
+    window passes bench.py's gate and B1 launches once an update (200)."""
+    import bench_torch
+
+    line = bench_torch.flagship(N, 2, 1, 0, cuda)
+    assert line["launches"]["B1"] == 2 * bench_torch.N_EXP == 200
+    assert line["launches"]["B2"] >= line["n_resamples"] > 0
+    assert line["value"] > 0
+
+
+def test_entry_runs_on_the_card(cuda):
+    from qinfer_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert args[0].particle_locations.is_cuda
+    launches = b1.fused_bayes_update.launches
+    state, log_norm = fn(*args)
+    assert b1.fused_bayes_update.launches == launches + 1
+    assert bool(torch.isfinite(log_norm))
+    assert bool(torch.isfinite(state.particle_log_weights).all())

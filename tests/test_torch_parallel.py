@@ -463,7 +463,7 @@ def test_parallel_names_match_the_jax_package():
 def test_chip_sharded_script_on_two_gloo_ranks():
     """``chip_sharded.py``, the check of the sharded layer across cards,
     on two gloo ranks of the CPU at N = 4096: every phase passes on every
-    rank. Its ranks share the script's process group, which is killed
+    rank, its dry run of every sharded path too. Its ranks share the script's process group, which is killed
     whole if the run outlives its limit."""
     proc = subprocess.Popen(
         [sys.executable, str(REPO / "chip_sharded.py"), "--cpu", "2", "--n",
@@ -480,4 +480,11 @@ def test_chip_sharded_script_on_two_gloo_ranks():
     ranks = [json.loads(line) for line in out.splitlines()[:-1]]
     assert [r["rank"] for r in ranks] == [0, 1]
     assert all(r["pick"]["ring_rows_differing"] == 0 for r in ranks)
+    # entry.dryrun_multichip on every rank: every sharded path, the trials
+    # axis's episodes gathered to (2·world, 4) losses.
+    for r in ranks:
+        assert r["dryrun"]["ok"] and r["dryrun"]["world_size"] == 2
+        assert r["dryrun"]["trials_loss_shape"] == [4, 4]
+        assert r["dryrun"]["all_gather"] == r["dryrun"]["ring"] == 1
+    assert ranks[0]["dryrun"] == ranks[1]["dryrun"]
     assert json.loads(out.splitlines()[-1]) == {"ok": True, "world_size": 2}
