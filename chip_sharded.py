@@ -25,33 +25,47 @@ particles (2^20 by default) made from a seed:
    particle mesh, every sharded path on tiny shapes (the step, both
    migrations, sharded design, the adaptive episodes with both proposes,
    a time-dependent model, the trials axis of ``host_local_mesh``), each
-   checked as ``__graft_entry__.dryrun_multichip`` checks it.
+   checked as ``__graft_entry__.dryrun_multichip`` checks it;
+5. config5_sharded: ``examples_torch`` config 5's ``main_sharded`` (512
+   particles a rank, 160 EIG-designed steps through
+   ``make_sharded_adaptive_episode`` and ``make_sharded_greedy_propose``),
+   gated by the example's own assert.
 
-It prints the card line, then one JSON line a rank with every phase, and
-exits 0 only when every rank passed every phase. It needs two cards or
-more (``chip_smoke.py`` runs the sharded paths on one). Imports nothing
-of JAX.
+Then, after that world has ended, the scaling phase
+(``bench_torch.scaling``, ``bench_scaling.py``'s twin): a fresh world of
+k ranks for k = 1, 2, 4 … up to the cards, one after another, each
+printing the collective inventory of one resampling step per migration
+(``collective_bytes_per_step``) and the particle-updates/s at 2^15 and
+2^18 particles a rank (``--per-shard``) with the weak-scaling efficiency
+(``sharded_particle_updates_per_s@{k}dev``).
+
+Every world starts through ``qinfer_tpu_torch.parallel.launch``. The
+script prints the card line, one JSON line a rank with every phase, the
+scaling rows, and exits 0 only when every rank passed every phase and
+every scaling world ran. It needs two cards or more (``chip_smoke.py``
+runs the sharded paths on one). Imports nothing of JAX.
 """
 
 import argparse
-import datetime
 import json
 import os
 import statistics
-import subprocess
 import sys
-import tempfile
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+import bench_torch
 import chip_smoke as cs
+from examples_torch.config5_adaptive_tomography import (
+    main_sharded as config5_sharded,
+)
 from qinfer_tpu_torch.entry import dryrun_multichip
+from qinfer_tpu_torch.parallel import launch
 
-WALL_S = 900  # the ranks' whole run
-GROUP_TIMEOUT_S = 300  # each collective
+WALL_S = launch.WALL_S  # each world's whole run
+GROUP_TIMEOUT_S = launch.GROUP_TIMEOUT_S  # each collective
 
 
 def phase_pick(group, rank, n_local, device):
@@ -125,6 +139,18 @@ def phase_dryrun(mesh):
     return {"ok": True, **dryrun_multichip(mesh)}
 
 
+def phase_config5_sharded(device):
+    """``examples_torch`` config 5's ``main_sharded`` on this rank (512
+    particles a rank, 160 steps): it asserts the example's own gate."""
+    state, err0, err = config5_sharded(seed=0, device=device)
+    return {"ok": True, "err0": err0, "err": err,
+            "resamples": int(state.n_resamples)}
+
+
+PHASES = ("pick", "update", "sharded_flagship", "sharded_flagship_ring",
+          "dryrun", "config5_sharded")
+
+
 def rank_main(args):
     cpu = args.cpu > 0
     device = (torch.device("cpu") if cpu
@@ -133,12 +159,9 @@ def rank_main(args):
         torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.N_FLAGSHIP = args.n
-    dist.init_process_group(
-        "gloo" if cpu else "nccl",
-        init_method=f"file://{os.path.join(args.dir, 'store')}",
-        rank=args.rank, world_size=args.world,
-        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-    try:
+    with launch.process_group(args.dir, args.rank, args.world,
+                              "gloo" if cpu else "nccl",
+                              timeout_s=GROUP_TIMEOUT_S):
         mesh = cs.par.make_particle_mesh(device_type=device.type)
         group = mesh.get_group(cs.par.PARTICLE_AXIS)
         n_local = args.n // args.world
@@ -150,11 +173,28 @@ def rank_main(args):
                                                      device),
                   "sharded_flagship_ring": phase_flagship(mesh, "ring", 1,
                                                           device),
-                  "dryrun": phase_dryrun(mesh)}
-    finally:
-        dist.destroy_process_group()
-    with open(os.path.join(args.dir, f"rank{args.rank}.json"), "w") as f:
-        json.dump(result, f)
+                  "dryrun": phase_dryrun(mesh),
+                  "config5_sharded": phase_config5_sharded(device)}
+    launch.write_result(args.dir, args.rank, result)
+
+
+def phase_scaling(world, cpu, per_shards):
+    """bench_torch.py's scaling rows (``bench_scaling.py``'s) at k = 1, 2,
+    4 … up to ``world`` ranks, a fresh world each, one after another:
+    the collective inventory of a resampling step per migration and the
+    particle-updates/s with the weak-scaling efficiency at each of
+    ``per_shards`` particles a rank. Prints each row; True when every
+    world ran and every row is finite."""
+    ks = [k for k in bench_torch.SCALING_KS if k <= world]
+    rows = bench_torch.scaling(ks, per_shards, cpu=cpu, wall_s=WALL_S)
+    card = bench_torch.cpu_info() if cpu else bench_torch.device_info()
+    for row in rows:
+        row["device"] = card
+        print(json.dumps(row))
+    pps = [r for r in rows if r["metric"] != "collective_bytes_per_step"]
+    return (len(pps) == len(ks) * len(per_shards)
+            and all(np.isfinite(r["value"]) and r["weak_scaling_efficiency"]
+                    is not None for r in pps))
 
 
 def main(args):
@@ -166,46 +206,17 @@ def main(args):
     if args.cpu == 0:
         cs.phase_device()
         cs.phase_build()
-    with tempfile.TemporaryDirectory() as tmp:
-        logs = [open(os.path.join(tmp, f"log{r}.txt"), "w")
-                for r in range(world)]
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-             "--world", str(world), "--dir", tmp, "--n", str(args.n),
-             "--cpu", str(args.cpu)],
-            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-        deadline = time.monotonic() + WALL_S
-        try:
-            for p in procs:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            late = [p for p in procs if p.poll() is None]
-            for p in late:
-                p.kill()
-            for p in procs:
-                p.wait()
-            for f in logs:
-                f.close()
-        ok = not late and all(p.returncode == 0 for p in procs)
-        for r in range(world):
-            path = os.path.join(tmp, f"rank{r}.json")
-            if not os.path.exists(path):
-                with open(os.path.join(tmp, f"log{r}.txt")) as f:
-                    print(f"rank {r} wrote no result:\n{f.read()[-3000:]}",
-                          file=sys.stderr)
-                ok = False
-                continue
-            with open(path) as f:
-                result = json.load(f)
+    run = launch.run_ranks(
+        [os.path.abspath(__file__), "--n", str(args.n), "--cpu",
+         str(args.cpu)], world, WALL_S)
+    ok = run.ok
+    for result in run.results:
+        if result is not None:
             print(json.dumps(result))
-            ok &= all(result[phase]["ok"] for phase in (
-                "pick", "update", "sharded_flagship",
-                "sharded_flagship_ring", "dryrun"))
-    if late:
-        print(f"chip_sharded: {len(late)} ranks still ran after {WALL_S} s",
-              file=sys.stderr)
+            ok &= all(result[phase]["ok"] for phase in PHASES)
+    if not run.ok:
+        print(run.failure(), file=sys.stderr)
+    ok &= phase_scaling(world, args.cpu, args.per_shard)
     print(json.dumps({"ok": bool(ok), "world_size": world}))
     return 0 if ok else 1
 
@@ -216,9 +227,10 @@ if __name__ == "__main__":
                     help="run this many gloo ranks on the CPU")
     ap.add_argument("--n", type=int, default=cs.N_FLAGSHIP,
                     help="particles in the whole bank")
-    ap.add_argument("--rank", type=int, default=None)
-    ap.add_argument("--world", type=int, default=None)
-    ap.add_argument("--dir", default=None)
+    ap.add_argument("--per-shard", type=int, nargs="+",
+                    default=bench_torch.PER_SHARDS,
+                    help="scaling: particles a rank, one set each")
+    launch.add_rank_arguments(ap)
     args = ap.parse_args()
     if args.rank is not None:
         rank_main(args)

@@ -155,13 +155,28 @@ Phases, in order; any failure exits non-zero before the result line:
    (``perf_test_multiple``, 256 × 2048 × 100, PGH), gated on the median
    loss falling tenfold, the batched B1 once a step on the user library.
    One JSON line each.
+13b. the twins of the last JAX-side entry points (``phase_twins``), each
+   with every counter set to 0 just before it and read just after, one
+   JSON line each: the soak (``bench_torch.soak``: ``perf_test_multiple``
+   at 1024 × 2048 × 200 with PGH, gated on the median final loss < 1e-3,
+   the batched B1 once a step, every batched B2 launch on the bank form),
+   then one more soak run under ``B2Capture`` for its median resample;
+   the four lines of ``bench_torch.breakdown`` that reach a kernel at
+   2^20 (``systematic_pick_D1``, ``liu_west_resample_D1``,
+   ``bayes_update_step``, ``update_plus_forced_resample``: B1 or B2
+   exactly once an iteration); the scaling twin at k = 1 on an NCCL group
+   of one rank (``bench_torch.scaling_rows``: the collective inventory of
+   a resampling step per migration, the throughput at 2^15 and 2^18 a
+   rank); the five examples of ``examples_torch`` at their own sizes,
+   each passing its own assert with B1 and B2 launched. Then batched B1
+   at 1024 × 2048 against its plain version (``_b1_batched_check``).
 14. timing: each kernel against its plain version at 2^20, with CUDA
    events: B1 with the flagship tile, every tile of ``ZOO`` and the two
    Born tiles of the paths; B2 at D = 1, 2, 3, 4 and 16, and beside it
    ``torch.repeat_interleave`` (the pick without the affine); the batched
-   B1 in both ensemble regimes; the batched B2 on the inputs of each
-   regime's median resample (``B2Capture``), checked bit-equal to its plain
-   version there too; B2 on rank 1's window of a bank over 4 ranks
+   B1 in both ensemble regimes and at the soak's 1024 × 2048; the batched
+   B2 on the inputs of each regime's and the soak's median resample
+   (``B2Capture``), checked bit-equal to its plain version there too; B2 on rank 1's window of a bank over 4 ranks
    (n_in = 2^20, n_out = 2^18, D = 1) beside ``repeat_interleave`` over
    the window's counts, and B1 with ``return_stats`` (precession, born4);
    the floor of one queued launch (a one-element add, ``launch_floor_ms``)
@@ -2811,6 +2826,114 @@ def phase_user_tile(device):
     return out
 
 
+# -- the twins of the last JAX-side entry points ----------------------------------
+
+SOAK_B1_SHAPE = (1024, 2048)  # bench_soak.py's trials × particles
+BREAKDOWN_KERNEL_OPS = ("systematic_pick_D1", "liu_west_resample_D1",
+                        "bayes_update_step", "update_plus_forced_resample")
+
+
+def _example_run(name, fn, device):
+    """One example twin on ``device``, every counter set to 0 just before
+    it and read just after; it asserts its own gate, and on the card B1
+    and B2 must have launched. Returns its line."""
+    _reset_counters()
+    t0 = time.perf_counter()
+    fn()
+    seconds = time.perf_counter() - t0
+    counts, rounds = _read_counters()
+    counts["B1_batched"] = b1.fused_bayes_update_batched.launches
+    if device.type == "cuda" and (counts["B1"] == 0 or counts["B2"] == 0):
+        raise AssertionError(f"example {name}: launches {counts}")
+    return {"example": name, "seconds": seconds, "launches": counts,
+            "redraw_rounds": rounds}
+
+
+def phase_twins(device, smi):
+    """The twins of bench_soak.py, bench_breakdown.py, bench_scaling.py and
+    the five examples (``bench_torch.py --which soak|breakdown|scaling``,
+    ``examples_torch/``), each with every counter set to 0 just before it
+    and read just after, one JSON line each:
+
+    - the soak, ``perf_test_multiple`` at 1024 × 2048 × 200 with PGH, once,
+      gated on the median final loss (< 1e-3); the batched B1 once a step,
+      the batched B2 at least once a step that resampled, every launch in
+      the bank form (``bench_torch.soak`` raises otherwise); then one more
+      run under ``B2Capture`` for its median resample;
+    - the breakdown's four lines that reach a kernel, at 2^20, each
+      launching B1 or B2 exactly once an iteration;
+    - the scaling twin at k = 1 on an NCCL group of one rank: the
+      collective inventory per migration at 2^15 and the throughput at
+      2^15 and 2^18 a rank (B1 once an update, B2 at least once a
+      resample on the all-gather, never on the ring);
+    - the five examples at their own sizes (config 4: known-T2 and
+      multicos), each passing its own assert, B1 and B2 launched.
+
+    Then batched B1 at 1024 × 2048 against its plain version (within
+    ``B1_TOL``, per trial bit-equal to single-bank launches, its two forms
+    bit-equal). Returns the launches by path, the batched B1 error and
+    the soak's median resample (the timing phase holds it bit-equal)."""
+    import bench_torch
+    from examples_torch import (
+        config1_precession_quickstart as ex1,
+        config2_binomial_estimation as ex2,
+        config3_randomized_benchmarking as ex3,
+        config4_multiparameter_hamiltonian as ex4,
+        config5_adaptive_tomography as ex5,
+    )
+
+    soak = bench_torch.soak(device=device)
+    soak["card"] = smi
+    print(json.dumps({"soak": soak}))
+    launches = {"soak": soak["launches"]}
+    with B2Capture() as capture:
+        ensemble_run(*bench_torch.SOAK, bench_torch.SOAK_SEED, device)
+    soak_resample = capture.median_call()
+
+    lines = list(bench_torch.breakdown(N_FLAGSHIP, device,
+                                       names=set(BREAKDOWN_KERNEL_OPS)))
+    if [line["op"] for line in lines] != list(BREAKDOWN_KERNEL_OPS):
+        raise AssertionError(f"breakdown ran {[x['op'] for x in lines]}")
+    for line in lines:
+        line["card"] = smi
+        print(json.dumps({"breakdown": line}))
+    launches["breakdown"] = {
+        k: sum(line["launches"][k] for line in lines) for k in ("B1", "B2")}
+
+    with nccl_world_one(device) as mesh:
+        rows = bench_torch.with_efficiency(bench_torch.scaling_rows(
+            mesh, bench_torch.PER_SHARDS, device))
+    for row in rows:
+        row["card"] = smi
+        print(json.dumps({"scaling": row}))
+    launches["scaling"] = {k: sum(
+        x[k] for r in rows for x in (r["launches"] if isinstance(
+            r["launches"], list) else [r["launches"]]))
+        for k in ("B1", "B2")}
+
+    examples = [("config1_precession_quickstart",
+                 lambda: ex1.main(device=device)),
+                ("config2_binomial_estimation",
+                 lambda: ex2.main(device=device)),
+                ("config3_randomized_benchmarking",
+                 lambda: ex3.main(device=device)),
+                ("config4_known_t2", lambda: ex4.known_t2(device=device)),
+                ("config4_multicos", lambda: ex4.multicos(device=device)),
+                ("config5_adaptive_tomography",
+                 lambda: ex5.main(device=device))]
+    ex_lines = [_example_run(name, fn, device) for name, fn in examples]
+    for line in ex_lines:
+        print(json.dumps(line))
+    launches["examples"] = {k: sum(x["launches"][k] for x in ex_lines)
+                            for k in ("B1", "B2")}
+
+    n_trials, n = SOAK_B1_SHAPE
+    b1_err = _b1_batched_check(
+        f"precession T={n_trials} N={n}",
+        *batched_b1_inputs("precession", n_trials, n, n_trials + n, device))
+    return launches, b1_err, soak_resample
+
+
 def _time_ms(fn, iters):
     """Device time per call. A device-side sleep queued first lets the host
     enqueue every call before the device starts them, so the events time
@@ -3033,15 +3156,16 @@ def phase_timing_zoo(device):
     return times
 
 
-def phase_timing_batched(device, b2_inputs):
-    """Batched B1 (the ensembles' precession tile) in both ensemble
-    regimes, and batched B2 on ``b2_inputs`` (per regime, the inputs of a
-    resample that the path made, from ``phase_ensembles``; in the
-    wrapper's form and every ``b2_forced`` form bit-equal to its plain
-    version or it raises): kernel, plain, the rows form in the same turns,
-    and for B2 the library call."""
+def phase_timing_batched(device, b2_inputs, b1_shapes=B1_BATCH_SHAPES[:2]):
+    """Batched B1 (the ensembles' precession tile) at each (T, N) of
+    ``b1_shapes`` (both ensemble regimes and the soak's), and batched B2 on
+    ``b2_inputs`` (per path, the inputs of a resample that the path made,
+    from ``phase_ensembles`` and ``phase_twins``; in the wrapper's form and
+    every ``b2_forced`` form bit-equal to its plain version or it raises):
+    kernel, plain, the rows form in the same turns, and for B2 the library
+    call."""
     times = {}
-    for n_trials, n in B1_BATCH_SHAPES[:2]:
+    for n_trials, n in b1_shapes:
         tile, scal, lw, cols = batched_b1_inputs("precession", n_trials, n, 7,
                                                  device)
 
@@ -3267,10 +3391,12 @@ def main():
     user_err = phase_compare_user(device)
     traced_err = phase_compare_traced(device)
     user_launches = phase_user_tile(device)
+    twin_launches, soak_b1_err, b2_inputs["soak"] = phase_twins(device, smi)
     times = phase_timing(device)
     bank_time, _ = phase_timing_bank(device, smi)
     zoo_times = phase_timing_zoo(device)
-    batched_times = phase_timing_batched(device, b2_inputs)
+    batched_times = phase_timing_batched(
+        device, b2_inputs, B1_BATCH_SHAPES[:2] + (SOAK_B1_SHAPE,))
     sharded_times = phase_timing_sharded(device)
     user_times = phase_timing_user(device)
     src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
@@ -3377,6 +3503,24 @@ def main():
                        *B1_BATCH_SHAPES[0]), user_src, b1_line(197),
                    user_launches["user_tile_ensemble"]["B1_batched_user"],
                    user_err["batched"], user_times["batched"]),
+    ]
+    soak_t = batched_times["B2_batched[soak]"]
+    kernels += [
+        kernel_row("fused_bayes_update_batched[{}x{}, soak]".format(
+                       *SOAK_B1_SHAPE), src1, b1_line(197),
+                   twin_launches["soak"]["B1_batched"], soak_b1_err,
+                   batched_times["B1_batched[{}x{}]".format(
+                       *SOAK_B1_SHAPE)]),
+        kernel_row("expand_sorted_segments_batched[{}x{} of soak]".format(
+                       *soak_t["shape"][:2]), src2,
+                   "qinfer_tpu/ops/resample_expand.py:359",
+                   twin_launches["soak"]["B2_batched"], batched_err["B2"],
+                   soak_t),
+        kernel_row("fused_bayes_update[precession, breakdown]", src1,
+                   b1_line(36), twin_launches["breakdown"]["B1"], err["B1"],
+                   times["B1"]),
+        kernel_row("expand_sorted_segments[breakdown]", src2, b2_kernel,
+                   twin_launches["breakdown"]["B2"], err["B2"], times["B2"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ the reference's ipyparallel fan-out, ``src/qinfer/parallel.py``): a mesh
 of ranks (``mesh``), the sharded SMC step, distributed systematic
 resampling, sharded design and the adaptive episode
 (``sharded_smc``), and ``DirectViewParallelizedModel``. The caller starts
-the process group (``torchrun`` or ``init_process_group``); NCCL on CUDA,
-gloo on the CPU.
+the process group (``torchrun``, ``init_process_group``, or a rank a
+process through ``launch``); NCCL on CUDA, gloo on the CPU.
 """
 
 from .direct_view import DirectViewParallelizedModel

@@ -917,3 +917,57 @@ def test_entry_runs_on_the_card(cuda):
     assert b1.fused_bayes_update.launches == launches + 1
     assert bool(torch.isfinite(log_norm))
     assert bool(torch.isfinite(state.particle_log_weights).all())
+
+
+def test_bench_soak_on_the_card(cuda):
+    """bench_torch's soak at 256 × 2048 × 40: its gate, the batched B1 once
+    a step, every batched B2 launch on the bank form (``soak`` raises
+    otherwise)."""
+    import bench_torch
+
+    line = bench_torch.soak(256, 2048, 40, device=cuda)
+    assert line["launches"]["B1_batched"] == 42
+    assert (line["launches"]["B2_batched_forms"]["bank"]
+            == line["launches"]["B2_batched"] >= line["steps_resampled"] > 0)
+
+
+@pytest.mark.parametrize("name", ["systematic_pick_D1", "liu_west_resample_D1",
+                                  "bayes_update_step",
+                                  "update_plus_forced_resample"])
+def test_bench_breakdown_kernel_lines_on_the_card(cuda, name):
+    """The breakdown's lines that reach a kernel, at 2^20: B1 or B2
+    exactly once an iteration (``timed_op`` raises otherwise)."""
+    import bench_torch
+
+    (line,) = bench_torch.breakdown(N, cuda, names={name})
+    assert line["ms"] > 0 and line["gbps"] > 0
+    assert sum(line["launches"].values()) > 0
+
+
+def test_bench_scaling_rows_on_one_rank(cuda):
+    """The scaling twin's rows at k = 1 on a one-rank NCCL group: both
+    migrations' inventories and the throughput at 2^15 a rank."""
+    import bench_torch
+
+    with chip_smoke.nccl_world_one(cuda) as mesh:
+        rows = bench_torch.with_efficiency(bench_torch.scaling_rows(
+            mesh, (1 << 15,), cuda, n_exp=10, repeats=1))
+    inv = {r["migration"]: r for r in rows
+           if r["metric"] == "collective_bytes_per_step"}
+    assert inv["all_gather"]["launches"] == {"B1": 1, "B2": 1}
+    assert inv["ring"]["launches"] == {"B1": 1, "B2": 0}
+    assert inv["all_gather"]["collectives"]["all-gather"]["bytes"] == 8 << 15
+    assert rows[-1]["weak_scaling_efficiency"] == 1.0
+
+
+@pytest.mark.parametrize("which", ["config1_precession_quickstart",
+                                   "config2_binomial_estimation",
+                                   "config3_randomized_benchmarking",
+                                   "config5_adaptive_tomography"])
+def test_example_twin_on_the_card(cuda, which):
+    import importlib
+
+    module = importlib.import_module(f"examples_torch.{which}")
+    launches = b1.fused_bayes_update.launches
+    module.main(device=cuda)
+    assert b1.fused_bayes_update.launches > launches

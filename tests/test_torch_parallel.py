@@ -463,11 +463,15 @@ def test_parallel_names_match_the_jax_package():
 def test_chip_sharded_script_on_two_gloo_ranks():
     """``chip_sharded.py``, the check of the sharded layer across cards,
     on two gloo ranks of the CPU at N = 4096: every phase passes on every
-    rank, its dry run of every sharded path too. Its ranks share the script's process group, which is killed
-    whole if the run outlives its limit."""
+    rank, its dry run of every sharded path and config 5's
+    ``main_sharded`` too; then its scaling phase, a world of one rank and
+    one of two at 1024 particles a rank, prints the inventory and
+    throughput rows. Its ranks share the script's process group, which is
+    killed whole if the run outlives its limit."""
     proc = subprocess.Popen(
         [sys.executable, str(REPO / "chip_sharded.py"), "--cpu", "2", "--n",
-         str(N)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+         str(N), "--per-shard", "1024"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
         cwd=str(REPO), env=dict(os.environ, OMP_NUM_THREADS="1"),
         start_new_session=True)
     try:
@@ -477,7 +481,8 @@ def test_chip_sharded_script_on_two_gloo_ranks():
         proc.communicate()
         pytest.fail(f"chip_sharded.py still ran after {WALL_S} s")
     assert proc.returncode == 0, err[-3000:]
-    ranks = [json.loads(line) for line in out.splitlines()[:-1]]
+    lines = [json.loads(line) for line in out.splitlines()[:-1]]
+    ranks = [r for r in lines if "rank" in r]
     assert [r["rank"] for r in ranks] == [0, 1]
     assert all(r["pick"]["ring_rows_differing"] == 0 for r in ranks)
     # entry.dryrun_multichip on every rank: every sharded path, the trials
@@ -486,5 +491,13 @@ def test_chip_sharded_script_on_two_gloo_ranks():
         assert r["dryrun"]["ok"] and r["dryrun"]["world_size"] == 2
         assert r["dryrun"]["trials_loss_shape"] == [4, 4]
         assert r["dryrun"]["all_gather"] == r["dryrun"]["ring"] == 1
+        assert r["config5_sharded"]["ok"]
     assert ranks[0]["dryrun"] == ranks[1]["dryrun"]
+    assert ranks[0]["config5_sharded"] == ranks[1]["config5_sharded"]
+    scaling = [r["metric"] for r in lines if "metric" in r]
+    assert scaling == [
+        "collective_bytes_per_step", "collective_bytes_per_step",
+        "sharded_particle_updates_per_s@1dev",
+        "collective_bytes_per_step", "collective_bytes_per_step",
+        "sharded_particle_updates_per_s@2dev"]
     assert json.loads(out.splitlines()[-1]) == {"ok": True, "world_size": 2}
