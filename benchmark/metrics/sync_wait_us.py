@@ -1,0 +1,32 @@
+"""sync_wait_us (us/step): the host's time a step in the blocking reads the
+program makes on purpose (the ESS and the resample mask, postselection's
+checks, the records' copy, the device's synchronizations): the time of
+the program's spans ``qinfer.sync.*`` in the traced stretch
+(``qinfer_tpu_torch.profiling.recorded()``) over its steps (the program's
+counter ``smc.steps``). Nothing to read where the program has no such
+spans or made no step in the stretch."""
+
+PREFIX = "qinfer.sync."
+
+
+def matches(name):
+    """Whether this metric reads the span ``name``."""
+    return name.startswith(PREFIX)
+
+
+def value(rec):
+    """The metric of one recorded stretch (``profiling.recorded()``)."""
+    steps = rec["counters"].get("smc.steps", 0)
+    spans = [a for name, a in rec["spans"].items() if matches(name)]
+    if steps <= 0 or not spans:
+        return None
+    return sum(a["total_ns"] for a in spans) / 1e3 / steps
+
+
+def read(summaries):
+    del summaries  # the program keeps its own record of the stretch
+    try:
+        from qinfer_tpu_torch.profiling import recorded
+    except ImportError:  # a program without spans
+        return None
+    return value(recorded())

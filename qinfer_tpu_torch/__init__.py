@@ -34,7 +34,8 @@ layer (``parallel``: the sharded SMC step over the ranks of a
 ``torch.distributed`` process group, distributed systematic resampling,
 sharded design and adaptive episodes, ``DirectViewParallelizedModel``);
 and the auxiliary modules: ``checkpointing``, ``profiling``
-(``ThroughputMeter``, ``trace``, ``annotate``), ``clustering`` and
+(``ThroughputMeter``, ``trace``, and the program's spans and counters:
+``span``, ``annotate``, ``recorded``, ``counters``), ``clustering`` and
 ``metrics`` with ``ClusteringResampler`` and the cluster estimators (on
 the host, with scikit-learn), ``ipy`` and ``version``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
@@ -124,7 +125,14 @@ from .smc import (
 from .clustering import NOISE, particle_clusters
 from .ipy import IPythonProgressBar
 from .metrics import rescaled_distance_mtx, weighted_pairwise_distances
-from .profiling import ThroughputMeter, annotate, trace
+from .profiling import (
+    ThroughputMeter,
+    annotate,
+    counters,
+    recorded,
+    span,
+    trace,
+)
 from .parallel import DirectViewParallelizedModel
 from . import checkpointing, parallel, tomography, utils
 
@@ -163,7 +171,7 @@ __all__ = [
     "particle_clusters", "NOISE",
     "rescaled_distance_mtx", "weighted_pairwise_distances",
     "IPythonProgressBar", "checkpointing", "ThroughputMeter", "trace",
-    "annotate",
+    "annotate", "span", "recorded", "counters",
     "DirectViewParallelizedModel", "parallel",
     "tomography", "utils",
 ]

@@ -71,6 +71,7 @@ from typing import Any, Callable, ClassVar, NamedTuple
 import torch
 
 from .. import _build
+from ..profiling import count, span
 from . import pr1_trace
 
 __all__ = [
@@ -637,6 +638,10 @@ def _count(wrapper, route):
         wrapper.traced_launches += 1
     elif route == "column":
         wrapper.column_launches += 1
+    if torch.autograd._profiler_enabled():  # the counters count only then
+        count(f"ops.{wrapper.__name__}.launches")
+        if route != "builtin":
+            count(f"ops.{wrapper.__name__}.{route}_launches")
 
 
 def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
@@ -651,22 +656,23 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
     returns the raw (log_w_unnormalized, lse, lse2) instead, with
     lse = logsumexp(lw) and lse2 = logsumexp(2·lw).
     """
-    if log_w.is_cuda:
-        tile, scal, cols, route = _route(tile_fn, scalars, param_cols,
-                                         log_w.shape, batched=False)
-        lw, lse, lse2, ess = _fused_update_cuda(
-            tile, scal.reshape(1, -1), log_w[None],
-            tuple(c[None] for c in cols), normalize=not return_stats)
-        lw, lse, lse2, ess = lw[0], lse[0], lse2[0], ess[0]
-        _count(fused_bayes_update, route)
-    else:
-        lw, lse, lse2, ess = fused_update_plain(tile_fn, scalars, log_w,
-                                                param_cols)
-        if not return_stats:
-            lw = lw - lse
-    if return_stats:
-        return lw, lse, lse2
-    return lw, lse, ess
+    with span("qinfer.ops.b1"):
+        if log_w.is_cuda:
+            tile, scal, cols, route = _route(tile_fn, scalars, param_cols,
+                                             log_w.shape, batched=False)
+            lw, lse, lse2, ess = _fused_update_cuda(
+                tile, scal.reshape(1, -1), log_w[None],
+                tuple(c[None] for c in cols), normalize=not return_stats)
+            lw, lse, lse2, ess = lw[0], lse[0], lse2[0], ess[0]
+            _count(fused_bayes_update, route)
+        else:
+            lw, lse, lse2, ess = fused_update_plain(tile_fn, scalars, log_w,
+                                                    param_cols)
+            if not return_stats:
+                lw = lw - lse
+        if return_stats:
+            return lw, lse, lse2
+        return lw, lse, ess
 
 
 fused_bayes_update.launches = 0
@@ -690,20 +696,21 @@ def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
     if log_w.shape[0] > MAX_TRIALS:
         raise ValueError(f"the fused update kernel takes at most {MAX_TRIALS} "
                          f"trials; got {log_w.shape[0]}")
-    if log_w.is_cuda:
-        tile, scal, cols, route = _route(tile_fn, scalars, param_cols,
-                                         log_w.shape, batched=True)
-        lw, lse, lse2, ess = _fused_update_cuda(tile, scal, log_w, cols,
-                                                normalize=not return_stats)
-        _count(fused_bayes_update_batched, route)
-    else:
-        lw, lse, lse2, ess = fused_update_plain_batched(tile_fn, scalars,
-                                                        log_w, param_cols)
-        if not return_stats:
-            lw = lw - lse[:, None]
-    if return_stats:
-        return lw, lse, lse2
-    return lw, lse, ess
+    with span("qinfer.ops.b1"):
+        if log_w.is_cuda:
+            tile, scal, cols, route = _route(tile_fn, scalars, param_cols,
+                                             log_w.shape, batched=True)
+            lw, lse, lse2, ess = _fused_update_cuda(tile, scal, log_w, cols,
+                                                    normalize=not return_stats)
+            _count(fused_bayes_update_batched, route)
+        else:
+            lw, lse, lse2, ess = fused_update_plain_batched(tile_fn, scalars,
+                                                            log_w, param_cols)
+            if not return_stats:
+                lw = lw - lse[:, None]
+        if return_stats:
+            return lw, lse, lse2
+        return lw, lse, ess
 
 
 fused_bayes_update_batched.launches = 0

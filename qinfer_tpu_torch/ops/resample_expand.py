@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..profiling import count, span
 
 __all__ = ["expand_sorted_segments", "expand_plain", "systematic_expand",
            "expand_sorted_segments_batched", "expand_plain_batched"]
@@ -164,6 +165,9 @@ def _launch(wrapper, starts, values, n_out, affine):
     out = _expand_cuda_batched(starts, values, n_out, affine, form=form)
     wrapper.launches += 1
     wrapper.form_launches[FORM_NAMES[form]] += 1
+    if torch.autograd._profiler_enabled():  # the counters count only then
+        count(f"ops.{wrapper.__name__}.launches")
+        count(f"ops.{wrapper.__name__}.form_launches.{FORM_NAMES[form]}")
     return out
 
 
@@ -189,19 +193,20 @@ def expand_sorted_segments(starts, values, n_out=None, scale=None,
     optional per-column affine applied at the write (the fused Liu–West
     shrinkage). Requires n_out < 2^24, as the JAX package does.
     """
-    n_in = starts.shape[0]
-    n_out = n_in if n_out is None else int(n_out)
-    _check_n_out(n_out)
-    starts = starts.to(torch.int32).contiguous()
-    values = values.to(torch.float32)
-    squeeze = values.ndim == 1
-    vals2d = (values[:, None] if squeeze else values).contiguous()
-    affine = _affine(scale, shift, vals2d.shape[1], vals2d.device)
-    if vals2d.is_cuda:
-        out = _expand_cuda(starts, vals2d, n_out, affine)
-    else:
-        out = expand_plain(starts, vals2d, n_out, affine)
-    return out[:, 0] if squeeze else out
+    with span("qinfer.ops.b2"):
+        n_in = starts.shape[0]
+        n_out = n_in if n_out is None else int(n_out)
+        _check_n_out(n_out)
+        starts = starts.to(torch.int32).contiguous()
+        values = values.to(torch.float32)
+        squeeze = values.ndim == 1
+        vals2d = (values[:, None] if squeeze else values).contiguous()
+        affine = _affine(scale, shift, vals2d.shape[1], vals2d.device)
+        if vals2d.is_cuda:
+            out = _expand_cuda(starts, vals2d, n_out, affine)
+        else:
+            out = expand_plain(starts, vals2d, n_out, affine)
+        return out[:, 0] if squeeze else out
 
 
 expand_sorted_segments.launches = 0
@@ -235,24 +240,25 @@ def expand_sorted_segments_batched(starts, values, n_out=None, scale=None,
     trial). Returns (T, n_out[, D]); each trial's rows are bit-equal to
     ``expand_sorted_segments`` on that trial. At most 65535 trials.
     """
-    n_trials, n_in = starts.shape
-    if n_trials > MAX_TRIALS:
-        raise ValueError(f"the expand kernel takes at most {MAX_TRIALS} "
-                         f"trials; got {n_trials}")
-    n_out = n_in if n_out is None else int(n_out)
-    _check_n_out(n_out)
-    starts = starts.to(torch.int32).contiguous()
-    values = values.to(torch.float32)
-    squeeze = values.ndim == 2
-    vals3d = (values[:, :, None] if squeeze else values).contiguous()
-    affine = _affine_batched(scale, shift, n_trials, vals3d.shape[2],
-                             vals3d.device)
-    if vals3d.is_cuda:
-        out = _launch(expand_sorted_segments_batched, starts, vals3d, n_out,
-                      affine)
-    else:
-        out = expand_plain_batched(starts, vals3d, n_out, affine)
-    return out[:, :, 0] if squeeze else out
+    with span("qinfer.ops.b2"):
+        n_trials, n_in = starts.shape
+        if n_trials > MAX_TRIALS:
+            raise ValueError(f"the expand kernel takes at most {MAX_TRIALS} "
+                             f"trials; got {n_trials}")
+        n_out = n_in if n_out is None else int(n_out)
+        _check_n_out(n_out)
+        starts = starts.to(torch.int32).contiguous()
+        values = values.to(torch.float32)
+        squeeze = values.ndim == 2
+        vals3d = (values[:, :, None] if squeeze else values).contiguous()
+        affine = _affine_batched(scale, shift, n_trials, vals3d.shape[2],
+                                 vals3d.device)
+        if vals3d.is_cuda:
+            out = _launch(expand_sorted_segments_batched, starts, vals3d,
+                          n_out, affine)
+        else:
+            out = expand_plain_batched(starts, vals3d, n_out, affine)
+        return out[:, :, 0] if squeeze else out
 
 
 expand_sorted_segments_batched.launches = 0
@@ -270,6 +276,8 @@ def systematic_expand(log_w, values, scale=None, shift=None, u0=None,
     from ..resamplers import systematic_segment_starts
 
     n = log_w.shape[0]
-    starts = systematic_segment_starts(log_w, n, u0=u0, generator=generator)
-    return expand_sorted_segments(starts, values, n_out=n, scale=scale,
-                                  shift=shift)
+    with span("qinfer.ops.b2"):
+        starts = systematic_segment_starts(log_w, n, u0=u0,
+                                           generator=generator)
+        return expand_sorted_segments(starts, values, n_out=n, scale=scale,
+                                      shift=shift)

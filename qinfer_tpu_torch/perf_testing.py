@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .profiling import span
 from .resamplers import LiuWestResampler
 from .smc import (
     SMCConfig,
@@ -81,37 +82,43 @@ def _resolve_heuristic_core(heuristic_class, updater=None):
 
 def _sync(device):
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        with span("qinfer.sync.device"):
+            torch.cuda.synchronize(device)
 
 
 def _episode_step(model, heuristic_core, resampler, config, model_sim, q,
                   state, true_mps, step_idx):
     """All trials advance one experiment. Returns (state, true_mps, record
     of (T, …) device tensors)."""
-    ep = heuristic_core.propose(state.generator, state, step_idx)
-    outcomes = model_sim.simulate_trials(state.generator, true_mps, ep)
-    state, log_norm = smc_update_step_batched(model, resampler, config, state,
-                                              outcomes, ep)
-    true_next = true_mps
-    if _is_time_dependent(model_sim):
-        true_next = torch.stack([
-            model_sim.update_timestep(true_mps[i:i + 1],
-                                      _expparams_row(ep, i),
-                                      generator=state.generator)[0, :, 0]
-            for i in range(true_mps.shape[0])
-        ])
-    w = torch.exp(state.particle_log_weights)
-    est = torch.einsum("tn,tnd->td", w, state.particle_locations)
-    delta = est - true_mps[:, :est.shape[1]]
-    rec = {
-        "loss": torch.sum(q * delta * delta, dim=1),
-        "resample_count": state.n_resamples,
-        "outcome": outcomes.to(torch.float32),
-        "est": est,
-        "true": true_mps,
-        "log_norm": log_norm,
-    }
-    return state, true_next, rec
+    with span("qinfer.perf_testing.step"):
+        with span("qinfer.design.propose"):
+            ep = heuristic_core.propose(state.generator, state, step_idx)
+        with span("qinfer.perf_testing.simulate"):
+            outcomes = model_sim.simulate_trials(state.generator, true_mps,
+                                                 ep)
+        state, log_norm = smc_update_step_batched(model, resampler, config,
+                                                  state, outcomes, ep)
+        true_next = true_mps
+        if _is_time_dependent(model_sim):
+            true_next = torch.stack([
+                model_sim.update_timestep(true_mps[i:i + 1],
+                                          _expparams_row(ep, i),
+                                          generator=state.generator)[0, :, 0]
+                for i in range(true_mps.shape[0])
+            ])
+        with span("qinfer.perf_testing.record"):
+            w = torch.exp(state.particle_log_weights)
+            est = torch.einsum("tn,tnd->td", w, state.particle_locations)
+            delta = est - true_mps[:, :est.shape[1]]
+            rec = {
+                "loss": torch.sum(q * delta * delta, dim=1),
+                "resample_count": state.n_resamples,
+                "outcome": outcomes.to(torch.float32),
+                "est": est,
+                "true": true_mps,
+                "log_norm": log_norm,
+            }
+        return state, true_next, rec
 
 
 def _episodes_init(model, prior, true_prior, n_trials, n_particles,
@@ -124,8 +131,9 @@ def _episodes_init(model, prior, true_prior, n_trials, n_particles,
 
 def _stack_records(rec_list):
     """Per-step records → numpy arrays of (T, n_exp, …)."""
-    return {k: torch.stack([r[k] for r in rec_list], dim=1).cpu().numpy()
-            for k in rec_list[0]}
+    with span("qinfer.sync.records"):
+        return {k: torch.stack([r[k] for r in rec_list], dim=1).cpu().numpy()
+                for k in rec_list[0]}
 
 
 def run_episodes(model, heuristic_core, resampler, config, prior,

@@ -27,6 +27,7 @@ from .ops.resample_expand import (
     expand_sorted_segments_batched,
     systematic_expand,
 )
+from .profiling import count, span
 from .utils import (
     cumsum_rows,
     normalize_log_weights,
@@ -169,42 +170,51 @@ class LiuWestResampler(Resampler):
 
     def __call__(self, generator, model, particle_locations,
                  particle_log_weights, u0=None):
-        locs = particle_locations
-        log_w = particle_log_weights
-        n, d = locs.shape
+        with span("qinfer.resamplers.resample"):
+            locs = particle_locations
+            log_w = particle_log_weights
+            n, d = locs.shape
+            mu, S = self._moments(log_w, locs, weighted_moments)
 
-        mu, cov = weighted_moments(log_w, locs)
-        cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
-                                                   device=cov.device)
-        h = self._h
-        S = sqrtm_psd((h * h) * cov)
-
-        use_expand = (locs.is_cuda if self.use_expand_kernel is None
-                      else bool(self.use_expand_kernel))
-        if use_expand:
-            # Kernel B2 on CUDA: the pick and the shrinkage affine in one
-            # pass over the bank.
-            centers = systematic_expand(
-                log_w, locs, scale=self.a, shift=(1.0 - self.a) * mu,
-                u0=u0, generator=generator,
-            )
-        else:
-            if self.use_systematic:
-                idx = systematic_resample_indices(log_w, u0=u0,
-                                                  generator=generator)
+            use_expand = (locs.is_cuda if self.use_expand_kernel is None
+                          else bool(self.use_expand_kernel))
+            if use_expand:
+                # Kernel B2 on CUDA: the pick and the shrinkage affine in one
+                # pass over the bank.
+                centers = systematic_expand(
+                    log_w, locs, scale=self.a, shift=(1.0 - self.a) * mu,
+                    u0=u0, generator=generator,
+                )
             else:
-                idx = multinomial_resample_indices(log_w, generator=generator)
-            centers = self.a * locs[idx] + (1.0 - self.a) * mu[None, :]
+                # The pick in plain torch, under B2's span all the same.
+                with span("qinfer.ops.b2"):
+                    if self.use_systematic:
+                        idx = systematic_resample_indices(log_w, u0=u0,
+                                                          generator=generator)
+                    else:
+                        idx = multinomial_resample_indices(log_w,
+                                                           generator=generator)
+                    centers = self.a * locs[idx] + (1.0 - self.a) * mu[None, :]
 
-        def draw():
-            if self.kernel is not None:
-                noise = self.kernel(generator, (n, d))
-            else:
-                noise = torch.randn((n, d), generator=generator,
-                                    device=locs.device)
-            return centers + noise @ S.T
+            def draw():
+                if self.kernel is not None:
+                    noise = self.kernel(generator, (n, d))
+                else:
+                    noise = torch.randn((n, d), generator=generator,
+                                        device=locs.device)
+                return centers + noise @ S.T
 
-        return self._postselect(model, draw)
+            return self._postselect(model, draw)
+
+    def _moments(self, log_w, locs, moments):
+        """The weighted mean and h·Σ^{1/2} (one bank or T banks)."""
+        with span("qinfer.resamplers.moments"):
+            mu, cov = moments(log_w, locs)
+            d = locs.shape[-1]
+            cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
+                                                       device=cov.device)
+            h = self._h
+            return mu, sqrtm_psd((h * h) * cov)
 
     def batched(self, generator, model, particle_locations,
                 particle_log_weights, u0=None):
@@ -217,68 +227,71 @@ class LiuWestResampler(Resampler):
         from ``kernel`` when given, and postselection tests the flattened
         (T·N, D) bank.
         Returns the new (T, N, D) locations."""
-        locs = particle_locations
-        log_w = particle_log_weights
-        n_trials, n, d = locs.shape
+        with span("qinfer.resamplers.resample"):
+            locs = particle_locations
+            log_w = particle_log_weights
+            n_trials, n, d = locs.shape
+            if not self.use_systematic:
+                raise NotImplementedError(
+                    "the batched resample draws systematic strata only")
+            mu, S = self._moments(log_w, locs, weighted_moments_batched)
 
-        mu, cov = weighted_moments_batched(log_w, locs)
-        cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
-                                                   device=cov.device)
-        h = self._h
-        S = sqrtm_psd((h * h) * cov)  # (T, D, D)
+            with span("qinfer.ops.b2"):
+                starts = systematic_segment_starts_batched(
+                    log_w, n, u0=u0, generator=generator)
+                shift = (1.0 - self.a) * mu
+                if self.use_expand_kernel is False:
+                    affine = _affine_batched(self.a, shift, n_trials, d,
+                                             locs.device)
+                    centers = expand_plain_batched(starts, locs, n, affine)
+                else:
+                    centers = expand_sorted_segments_batched(
+                        starts, locs, scale=self.a, shift=shift)
 
-        if not self.use_systematic:
-            raise NotImplementedError(
-                "the batched resample draws systematic strata only")
-        starts = systematic_segment_starts_batched(
-            log_w, n, u0=u0, generator=generator)
-        shift = (1.0 - self.a) * mu
-        if self.use_expand_kernel is False:
-            centers = expand_plain_batched(
-                starts, locs, n,
-                _affine_batched(self.a, shift, n_trials, d, locs.device))
-        else:
-            centers = expand_sorted_segments_batched(starts, locs,
-                                                     scale=self.a, shift=shift)
+            def draw():
+                if self.kernel is not None:
+                    noise = self.kernel(generator, (n_trials, n, d))
+                else:
+                    noise = torch.randn((n_trials, n, d), generator=generator,
+                                        device=locs.device)
+                return (centers + noise @ S.transpose(1, 2)).reshape(-1, d)
 
-        def draw():
-            if self.kernel is not None:
-                noise = self.kernel(generator, (n_trials, n, d))
-            else:
-                noise = torch.randn((n_trials, n, d), generator=generator,
-                                    device=locs.device)
-            return (centers + noise @ S.transpose(1, 2)).reshape(-1, d)
-
-        return self._postselect(model, draw).reshape(n_trials, n, d)
+            return self._postselect(model, draw).reshape(n_trials, n, d)
 
     def _postselect(self, model, draw):
         """``draw()``'s rows, each redrawn while invalid (bounded) and
         clamped by ``model.canonicalize`` if still invalid."""
-        new_locs = draw()
-        if not self.postselect:
-            return new_locs
+        with span("qinfer.resamplers.postselect"):
+            new_locs = draw()
+            if not self.postselect:
+                return new_locs
 
-        # Bounded redraw, stopping as soon as every particle is valid (one
-        # host sync per check: the common case costs one).
-        ok = model.are_models_valid(new_locs)
-        all_ok = bool(ok.all())
-        for _ in range(self.maxiter):
+            # Bounded redraw, stopping as soon as every particle is valid (one
+            # host sync per check: the common case costs one).
+            ok = model.are_models_valid(new_locs)
+            with span("qinfer.sync.postselect"):
+                all_ok = bool(ok.all())
+            for _ in range(self.maxiter):
+                if all_ok:
+                    break
+                LiuWestResampler.redraw_rounds += 1
+                count("resamplers.LiuWestResampler.redraw_rounds")
+                fresh = draw()
+                fresh_ok = model.are_models_valid(fresh)
+                take = ~ok & fresh_ok
+                new_locs = torch.where(take[:, None], fresh, new_locs)
+                ok = ok | fresh_ok
+                with span("qinfer.sync.postselect"):
+                    all_ok = bool(ok.all())
             if all_ok:
-                break
-            LiuWestResampler.redraw_rounds += 1
-            fresh = draw()
-            fresh_ok = model.are_models_valid(fresh)
-            take = ~ok & fresh_ok
-            new_locs = torch.where(take[:, None], fresh, new_locs)
-            ok = ok | fresh_ok
-            all_ok = bool(ok.all())
-        if all_ok:
-            return new_locs
-        # Clamp the stragglers to the valid region. canonicalize is
-        # row-wise, so it runs on the invalid rows only (for two-qubit
-        # tomography it is a batched eigh per row).
-        bad = torch.nonzero(~ok).squeeze(1)
-        return new_locs.index_copy(0, bad, model.canonicalize(new_locs[bad]))
+                return new_locs
+            # Clamp the stragglers to the valid region. canonicalize is
+            # row-wise, so it runs on the invalid rows only (for two-qubit
+            # tomography it is a batched eigh per row).
+            with span("qinfer.sync.postselect"):
+                bad = torch.nonzero(~ok).squeeze(1)
+            return new_locs.index_copy(0, bad,
+                                       model.canonicalize(new_locs[bad]))
 
 
 class ClusteringResampler(Resampler):

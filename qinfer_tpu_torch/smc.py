@@ -54,6 +54,7 @@ from .models.base import (
     _n_exps,
 )
 from .models.derived import DerivedModel
+from .profiling import count, span
 from .resamplers import LiuWestResampler
 from .utils import (
     effective_sample_size,
@@ -174,17 +175,19 @@ def init_batched_smc_state(generator, model, n_trials: int, n_particles: int,
 
 def resample_state(model, resampler, state: SMCState) -> SMCState:
     """The state after one resample: new locations, uniform weights."""
-    new_locs = resampler(state.generator, model, state.particle_locations,
-                         state.particle_log_weights)
-    n = new_locs.shape[0]
-    return dataclasses.replace(
-        state,
-        particle_locations=new_locs,
-        particle_log_weights=_uniform_log_weights(n, new_locs.device),
-        n_resamples=state.n_resamples + 1,
-        just_resampled=torch.ones((), dtype=torch.bool,
-                                  device=new_locs.device),
-    )
+    with span("qinfer.resamplers.resample"):
+        new_locs = resampler(state.generator, model,
+                             state.particle_locations,
+                             state.particle_log_weights)
+        n = new_locs.shape[0]
+        return dataclasses.replace(
+            state,
+            particle_locations=new_locs,
+            particle_log_weights=_uniform_log_weights(n, new_locs.device),
+            n_resamples=state.n_resamples + 1,
+            just_resampled=torch.ones((), dtype=torch.bool,
+                                      device=new_locs.device),
+        )
 
 
 def _psum(x, group, op=None):
@@ -243,6 +246,38 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
     Returns (new_state, log_norm) with log_norm the single-update evidence
     log Pr(outcome | expparam) as a 0-d tensor.
     """
+    with span("qinfer.smc.step"):
+        with span("qinfer.smc.update"):
+            state, log_norm, ess = _bayes_update(model, config, state,
+                                                 outcome, expparams)
+        device = state.particle_log_weights.device
+        n = state.particle_log_weights.shape[0]
+        count("smc.steps")
+
+        # The one host sync of the step (lax.cond in the JAX package).
+        with span("qinfer.sync.ess"):
+            resample = bool(ess < config.resample_thresh * n)
+        if resample:
+            state = resample_state(model, resampler, state)
+        else:
+            state = dataclasses.replace(
+                state, just_resampled=torch.zeros((), dtype=torch.bool,
+                                                  device=device))
+
+        # Time-dependent models diffuse the cloud after the update; skipped
+        # for static models.
+        if _is_time_dependent(model):
+            new_locs = model.update_timestep(
+                state.particle_locations, expparams, generator=state.generator
+            )[:, :, 0]
+            state = dataclasses.replace(state, particle_locations=new_locs)
+
+        return state, log_norm
+
+
+def _bayes_update(model, config, state, outcome, expparams):
+    """The Bayes update of one bank through the zero-weight reset: (state
+    with the new weights and records, log_norm, ess)."""
     log_w = state.particle_log_weights
     locs = state.particle_locations
     device = log_w.device
@@ -284,24 +319,7 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
         n_zero_weight_events=state.n_zero_weight_events + is_zero.to(
             torch.int32),
     )
-
-    # The one host sync of the step (lax.cond in the JAX package).
-    if bool(ess < config.resample_thresh * n):
-        state = resample_state(model, resampler, state)
-    else:
-        state = dataclasses.replace(
-            state, just_resampled=torch.zeros((), dtype=torch.bool,
-                                              device=device))
-
-    # Time-dependent models diffuse the cloud after the update; skipped
-    # for static models.
-    if _is_time_dependent(model):
-        new_locs = model.update_timestep(
-            state.particle_locations, expparams, generator=state.generator
-        )[:, :, 0]
-        state = dataclasses.replace(state, particle_locations=new_locs)
-
-    return state, log_norm
+    return state, log_norm, ess
 
 
 def _batched_log_likelihood(model, outcomes, locs, expparams):
@@ -329,6 +347,47 @@ def smc_update_step_batched(model, resampler, config: SMCConfig,
     stratum offsets). ``zero_weight_policy="reset"`` acts per trial.
     Returns (new_state, log_norm (T,)).
     """
+    with span("qinfer.smc.step"):
+        with span("qinfer.smc.update"):
+            state, log_norm, need = _bayes_update_batched(
+                model, config, state, outcomes, expparams)
+        device = state.particle_log_weights.device
+        n_trials, n = state.particle_log_weights.shape
+        count("smc.steps")
+
+        # The one host sync of the step: which trials resample.
+        with span("qinfer.sync.mask"):
+            idx = torch.nonzero(need).squeeze(1)
+        if idx.numel() > 0:
+            with span("qinfer.resamplers.resample"):
+                new_locs = resampler.batched(
+                    state.generator, model, state.particle_locations[idx],
+                    state.particle_log_weights[idx],
+                    u0=None if u0 is None
+                    else torch.as_tensor(u0, device=device)[idx])
+                locs = state.particle_locations.index_copy(0, idx, new_locs)
+                log_w = state.particle_log_weights.index_fill(
+                    0, idx, -math.log(n))
+                state = dataclasses.replace(state, particle_locations=locs,
+                                            particle_log_weights=log_w)
+
+        if _is_time_dependent(model):
+            walked = [
+                model.update_timestep(state.particle_locations[i],
+                                      _expparams_row(expparams, i),
+                                      generator=state.generator)[:, :, 0]
+                for i in range(n_trials)
+            ]
+            state = dataclasses.replace(
+                state, particle_locations=torch.stack(walked))
+
+        return state, log_norm
+
+
+def _bayes_update_batched(model, config, state, outcomes, expparams):
+    """The Bayes update of T banks through the zero-weight reset: (state
+    with the new weights, records and resample mask, log_norm (T,), the
+    mask (T,))."""
     log_w = state.particle_log_weights  # (T, N)
     locs = state.particle_locations  # (T, N, D)
     device = log_w.device
@@ -376,33 +435,7 @@ def smc_update_step_batched(model, resampler, config: SMCConfig,
         n_resamples=state.n_resamples + need.to(torch.int32),
         just_resampled=need,
     )
-
-    # The one host sync of the step: which trials resample.
-    idx = torch.nonzero(need).squeeze(1)
-    if idx.numel() > 0:
-        new_locs = resampler.batched(
-            state.generator, model, state.particle_locations[idx],
-            state.particle_log_weights[idx],
-            u0=None if u0 is None else torch.as_tensor(u0, device=device)[idx])
-        state = dataclasses.replace(
-            state,
-            particle_locations=state.particle_locations.index_copy(
-                0, idx, new_locs),
-            particle_log_weights=state.particle_log_weights.index_fill(
-                0, idx, -math.log(n)),
-        )
-
-    if _is_time_dependent(model):
-        walked = [
-            model.update_timestep(state.particle_locations[i],
-                                  _expparams_row(expparams, i),
-                                  generator=state.generator)[:, :, 0]
-            for i in range(n_trials)
-        ]
-        state = dataclasses.replace(state,
-                                    particle_locations=torch.stack(walked))
-
-    return state, log_norm
+    return state, log_norm, need
 
 
 def _is_time_dependent(model) -> bool:
@@ -547,27 +580,29 @@ def expected_information_gain_fn(model, state: SMCState, expparams,
     general route, with xlogy's 0·log 0 = 0. ``group``: as in
     ``bayes_risk_fn``.
     """
-    if outcomes is None:
-        outcomes = model.all_outcomes(expparams)
-    w = torch.exp(state.particle_log_weights)  # (N,)
+    with span("qinfer.design.eig"):
+        if outcomes is None:
+            outcomes = model.all_outcomes(expparams)
+        w = torch.exp(state.particle_log_weights)  # (N,)
 
-    pr1 = _streaming_pr1(model, state, expparams, outcomes)
-    if pr1 is not None:
-        marg1 = _psum(w @ pr1, group)  # (E,)
-        marg0 = torch.clamp(1.0 - marg1, 0.0, 1.0)
-        h_marg = -(torch.xlogy(marg1, marg1) + torch.xlogy(marg0, marg0))
-        pr0 = 1.0 - pr1
-        h_bin = -(torch.xlogy(pr1, pr1) + torch.xlogy(pr0, pr0))  # (N, E)
-        return h_marg - _psum(w @ h_bin, group)
+        pr1 = _streaming_pr1(model, state, expparams, outcomes)
+        if pr1 is not None:
+            marg1 = _psum(w @ pr1, group)  # (E,)
+            marg0 = torch.clamp(1.0 - marg1, 0.0, 1.0)
+            h_marg = -(torch.xlogy(marg1, marg1) + torch.xlogy(marg0, marg0))
+            pr0 = 1.0 - pr1
+            # (N, E)
+            h_bin = -(torch.xlogy(pr1, pr1) + torch.xlogy(pr0, pr0))
+            return h_marg - _psum(w @ h_bin, group)
 
-    log_L = torch.clamp(
-        model.log_likelihood(outcomes, state.particle_locations, expparams),
-        _LOG_TINY, 0.0)  # (O, N, E)
-    L = torch.exp(log_L)
-    marg = _psum(torch.einsum("n,one->oe", w, L), group)  # Pr(o | e)
-    h_marg = -torch.sum(torch.xlogy(marg, marg), dim=0)
-    h_cond = -_psum(torch.einsum("n,one->e", w, L * log_L), group)
-    return h_marg - h_cond
+        log_L = torch.clamp(
+            model.log_likelihood(outcomes, state.particle_locations, expparams),
+            _LOG_TINY, 0.0)  # (O, N, E)
+        L = torch.exp(log_L)
+        marg = _psum(torch.einsum("n,one->oe", w, L), group)  # Pr(o | e)
+        h_marg = -torch.sum(torch.xlogy(marg, marg), dim=0)
+        h_cond = -_psum(torch.einsum("n,one->e", w, L * log_L), group)
+        return h_marg - h_cond
 
 
 # ---------------------------------------------------------------------------

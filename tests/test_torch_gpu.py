@@ -971,3 +971,51 @@ def test_example_twin_on_the_card(cuda, which):
     launches = b1.fused_bayes_update.launches
     module.main(device=cuda)
     assert b1.fused_bayes_update.launches > launches
+
+
+@pytest.mark.parametrize("run", ["b1_launch", "batch_update", "ensemble"])
+def test_program_spans_are_not_mirrored_on_the_card(cuda, run):
+    """The program's spans are host ranges of the profiler's trace that it
+    does not mirror on the device: no CUDA-typed event carries a
+    ``qinfer.`` name, while B1's span and kernel are both in the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qinfer_tpu_torch import profiling
+
+    model = qt.SimplePrecessionModel()
+    prior = qt.UniformDistribution([[0, 1]])
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n_exp = 20
+    ts = torch.tensor([1.3 ** k for k in range(n_exp)], device=cuda)
+    outcomes = (torch.rand(n_exp, generator=g, device=cuda) < 0.5).to(
+        torch.int32)
+    state = qt.init_smc_state(g, model, 1 << 16, prior)
+    tile = b1.two_outcome_tile(b1.precession_pr1)
+    scal = torch.tensor([0.0, 2.0], device=cuda)
+
+    def block():
+        if run == "b1_launch":
+            b1.fused_bayes_update(tile, scal, state.particle_log_weights,
+                                  (state.particle_locations[:, 0],))
+        elif run == "batch_update":
+            qt.smc_batch_update(model, qt.LiuWestResampler(),
+                                qt.SMCConfig(zero_weight_policy="reset"),
+                                state, outcomes, {"t": ts})
+        else:
+            qt.perf_test_multiple(16, model, 512, prior, 5, qt.PGH, seed=5,
+                                  device=cuda)
+        torch.cuda.synchronize()
+
+    block()  # builds the kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        block()
+    events = prof.profiler.kineto_results.events()
+    on_card = torch.autograd.DeviceType.CUDA
+    assert [e.name() for e in events if e.device_type() == on_card
+            and e.name().startswith("qinfer.")] == []
+    assert any(e.device_type() == on_card and "fused_update" in e.name()
+               for e in events)
+    host = {e.name() for e in events if e.device_type() != on_card}
+    assert "qinfer.ops.b1" in host
+    assert set(profiling.recorded()["spans"]) <= host
