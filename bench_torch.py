@@ -162,23 +162,26 @@ def launch_counts():
     return {"B1": b1.fused_bayes_update.launches,
             "B1_batched": b1.fused_bayes_update_batched.launches,
             "B2": b2.expand_sorted_segments.launches,
-            "B2_batched": b2.expand_sorted_segments_batched.launches}
+            "B2_batched": b2.expand_sorted_segments_batched.launches,
+            "B2_fused": b2.liu_west_expand_batched.launches}
 
 
 def check_launches(name, counts, device, b1_single=0, b1_batched=0,
                    b2_single=0, b2_batched=0):
     """On the card: B1 exactly ``b1_single`` and ``b1_batched`` times, B2
-    at least ``b2_single`` and ``b2_batched`` times (a resample a launch)
-    and at least once in all. On the CPU the wrappers take their plain
-    versions, so every count must be 0."""
+    at least ``b2_single`` and ``b2_batched`` times (a resample a launch;
+    a batched resample is batched B2 or the fused Liu–West launch) and at
+    least once in all. On the CPU the wrappers take their plain versions,
+    so every count must be 0."""
     if torch.device(device).type != "cuda":
         if any(counts.values()):
             raise AssertionError(f"{name}: a kernel launched on the CPU: "
                                  f"{counts}")
         return
+    batched = counts["B2_batched"] + counts["B2_fused"]
     if (counts["B1"] != b1_single or counts["B1_batched"] != b1_batched
-            or counts["B2"] < b2_single or counts["B2_batched"] < b2_batched
-            or counts["B2"] + counts["B2_batched"] == 0):
+            or counts["B2"] < b2_single or batched < b2_batched
+            or counts["B2"] + batched == 0):
         raise AssertionError(
             f"{name}: launches {counts}, expected B1 {b1_single}, batched "
             f"B1 {b1_batched}, B2 ≥ {b2_single}, batched B2 ≥ {b2_batched}")
@@ -734,7 +737,8 @@ def soak(n_trials=SOAK[0], n=SOAK[1], n_exp=SOAK[2], seed=SOAK_SEED,
     step (the timed run's and the warm-up's), never the single-bank one;
     the batched B2 at least once a step that resampled, every launch in
     the bank form (``kernel_form(1, T, N, N)``), never the single-bank
-    one. Returns the line."""
+    one (the fused Liu–West launch is the bank form too). Returns the
+    line."""
     cs._reset_counters()
     t0 = time.perf_counter()
     seconds, perf, steps_resampled = cs.ensemble_run(n_trials, n, n_exp, seed,
@@ -749,9 +753,10 @@ def soak(n_trials=SOAK[0], n=SOAK[1], n_exp=SOAK[2], seed=SOAK_SEED,
     steps = n_exp + min(n_exp, _WARMUP_EXPERIMENTS)
     check_launches("soak", launch_counts(), device, b1_batched=steps,
                    b2_batched=steps_resampled)
-    bank = counts["B2_batched_forms"]["bank"]
+    bank = counts["B2_batched_forms"]["bank"] + counts["B2_fused"]
     if torch.device(device).type == "cuda" and (
-            bank != counts["B2_batched"] or counts["B2"] != 0):
+            bank != counts["B2_batched"] + counts["B2_fused"]
+            or counts["B2"] != 0):
         raise AssertionError(f"soak: B2 left the bank form: {counts}")
     return {"op": f"soak_{n_trials}x{n}x{n_exp}", "n_trials": n_trials,
             "wall_s": elapsed, "device_s": seconds,

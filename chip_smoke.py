@@ -176,7 +176,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``torch.repeat_interleave`` (the pick without the affine); the batched
    B1 in both ensemble regimes and at the soak's 1024 × 2048; the batched
    B2 on the inputs of each regime's and the soak's median resample
-   (``B2Capture``), checked bit-equal to its plain version there too; B2 on rank 1's window of a bank over 4 ranks
+   (``B2Capture``), checked bit-equal to its plain version there too, and
+   where that resample was fused, the fused Liu–West launch beside the
+   eager chain it replaces (``_time_fused``); B2 on rank 1's window of a bank over 4 ranks
    (n_in = 2^20, n_out = 2^18, D = 1) beside ``repeat_interleave`` over
    the window's counts, and B1 with ``return_stats`` (precession, born4);
    the floor of one queued launch (a one-element add, ``launch_floor_ms``)
@@ -199,9 +201,14 @@ version and to single-bank launches, and its forced forms to both
 (``B2_BATCH_SHAPES``).
 
 Every path's JSON line carries B2's launches by form (``B2_forms``,
-``B2_batched_forms``: rows, span, merge, bank). The bank form must launch
-on ensemble_small, user_tile_ensemble and config1_quickstart_pgh_native,
-and on no 2^20 path nor ensemble_big (``_check_bank``).
+``B2_batched_forms``: rows, span, merge, bank), the fused Liu–West
+launches (``B2_fused``, the bank form with the resample's prologue) and
+the batched resamples that took the eager chain (``B2_unfused_batched``).
+The bank form must launch on ensemble_small, user_tile_ensemble and
+config1_quickstart_pgh_native, and on no 2^20 path nor ensemble_big
+(``_check_bank``); the batched resamples of ensemble_small and
+user_tile_ensemble all fused, those of ensemble_big none
+(``_check_batched_b2``).
 
 The last two lines are the kernel table (each kernel with its launches on
 its path, its worst error, its time, its plain version's, the bound from
@@ -212,6 +219,7 @@ its bytes and operations, and the library call's time or null) and
 import contextlib
 import datetime
 import json
+import math
 import os
 import re
 import statistics
@@ -1389,13 +1397,18 @@ def _reset_counters():
     b1.fused_bayes_update_batched.launches = 0
     b2.reset_form_launches()
     qt.LiuWestResampler.redraw_rounds = 0
+    qt.LiuWestResampler.unfused_batched = 0
 
 
 def _b2_forms():
-    """B2's launches by form, of the single-bank and the batched wrapper."""
+    """B2's launches by form, of the single-bank and the batched wrapper;
+    the fused Liu–West launches (the bank form with its prologue) and the
+    batched resamples that took the eager chain instead."""
     return {"B2_forms": dict(b2.expand_sorted_segments.form_launches),
             "B2_batched_forms":
-                dict(b2.expand_sorted_segments_batched.form_launches)}
+                dict(b2.expand_sorted_segments_batched.form_launches),
+            "B2_fused": b2.liu_west_expand_batched.launches,
+            "B2_unfused_batched": qt.LiuWestResampler.unfused_batched}
 
 
 def _read_counters():
@@ -1409,11 +1422,29 @@ def _check_bank(name, counts, taken):
     the 2^20 paths and ensemble_big) or on some (True), in ``counts`` as
     ``_read_counters`` gives them."""
     bank = (counts["B2_forms"]["bank"]
-            + counts["B2_batched_forms"]["bank"])
+            + counts["B2_batched_forms"]["bank"] + counts["B2_fused"])
     if (bank > 0) != taken:
         raise AssertionError(f"{name}: B2's bank form launched {bank} times"
                              f" ({counts['B2_forms']}, batched "
-                             f"{counts['B2_batched_forms']})")
+                             f"{counts['B2_batched_forms']}, fused "
+                             f"{counts['B2_fused']})")
+
+
+def _check_batched_b2(name, counts, steps_resampled, fused):
+    """B2 on T banks at least once a step that resampled: every batched
+    resample through the fused Liu–West launch (``fused``: banks of at
+    most 2048 rows on the card), or none of them."""
+    launched = counts["B2_batched"] + counts["B2_fused"]
+    if steps_resampled == 0 or launched < steps_resampled:
+        raise AssertionError(f"{name}: B2 batched and fused launched "
+                             f"{launched} times for {steps_resampled} "
+                             f"resampling steps")
+    if fused != (counts["B2_batched"] == 0
+                 and counts["B2_unfused_batched"] == 0):
+        raise AssertionError(f"{name}: fused Liu–West launches "
+                             f"{counts['B2_fused']}, batched B2 "
+                             f"{counts['B2_batched']}, eager resamples "
+                             f"{counts['B2_unfused_batched']}")
 
 
 def _check_launches(name, counts, n_updates, n_resamples, bank=False):
@@ -1620,30 +1651,50 @@ def ensemble_run(n_trials, n, n_exp, seed, device, model=None, prior=None,
 
 class B2Capture:
     """Within ``with``: keeps a copy of the inputs of every batched B2
-    call that ``LiuWestResampler.batched`` makes (its launch count is the
-    wrapper's own, untouched)."""
+    call and of every fused Liu–West call that ``LiuWestResampler.batched``
+    makes (their launch counts are the wrappers' own, untouched). A fused
+    call's B2 inputs are those of the eager chain it replaces: the starts
+    from its log-weights and u0, the shift (1 − a)·μ with the launch's own
+    μ."""
 
     def __enter__(self):
         self.calls = []
-        self._wrapped = qt.resamplers.expand_sorted_segments_batched
+        self._wrapped = (qt.resamplers.expand_sorted_segments_batched,
+                         qt.resamplers.liu_west_expand_batched)
+        expand, fused = self._wrapped
+        dense = torch.contiguous_format
 
         def spy(starts, values, n_out=None, scale=None, shift=None):
-            dense = torch.contiguous_format
             self.calls.append((starts.clone(memory_format=dense),
                                values.clone(memory_format=dense), scale,
-                               shift.clone()))
-            return self._wrapped(starts, values, n_out=n_out, scale=scale,
-                                 shift=shift)
+                               shift.clone(), None))
+            return expand(starts, values, n_out=n_out, scale=scale,
+                          shift=shift)
+
+        def spy_fused(log_w, values, u0, a, h, zero_cov_comp=0.0):
+            inputs = (log_w.clone(memory_format=dense),
+                      values.clone(memory_format=dense), u0.clone(), a, h,
+                      zero_cov_comp)
+            result = fused(log_w, values, u0, a, h, zero_cov_comp)
+            starts = qt.resamplers.systematic_segment_starts_batched(
+                log_w, values.shape[1], u0=u0)
+            self.calls.append((starts, inputs[1], a, (1.0 - a) * result[1],
+                               inputs))
+            return result
 
         qt.resamplers.expand_sorted_segments_batched = spy
+        qt.resamplers.liu_west_expand_batched = spy_fused
         return self
 
     def __exit__(self, *exc):
-        qt.resamplers.expand_sorted_segments_batched = self._wrapped
+        (qt.resamplers.expand_sorted_segments_batched,
+         qt.resamplers.liu_west_expand_batched) = self._wrapped
 
     def median_call(self):
-        """(starts, values, scale, shift) of the call with the median
-        number of resampled trials."""
+        """(starts, values, scale, shift, fused) of the call with the
+        median number of resampled trials; ``fused`` is the fused call's
+        (log_w, values, u0, a, h, zero_cov_comp), or None for a batched B2
+        call."""
         calls = sorted(self.calls, key=lambda c: c[0].shape[0])
         return calls[len(calls) // 2]
 
@@ -1679,11 +1730,8 @@ def phase_ensembles(device):
             if run_counts["B1_batched"] != steps or run_counts["B1"] != 0:
                 raise AssertionError(f"{name}: B1 launches {run_counts}, "
                                      f"expected {steps} batched, 0 single")
-            if (steps_resampled == 0
-                    or run_counts["B2_batched"] < steps_resampled):
-                raise AssertionError(f"{name}: B2 batched launched "
-                                     f"{run_counts['B2_batched']} times for "
-                                     f"{steps_resampled} resampling steps")
+            _check_batched_b2(name, run_counts, steps_resampled,
+                              fused=n <= b2.BANK_MAX_ROWS)
             runs.append({"seconds": seconds, "loss": loss,
                          "steps_resampled": steps_resampled,
                          "resamples": int(perf["resample_count"][:, -1].sum()),
@@ -2805,10 +2853,7 @@ def phase_user_tile(device):
             raise AssertionError(f"{name}: B1 launches {counts}, expected "
                                  f"{steps} batched, 0 single")
         _check_routes(name, counts, {"B1_batched_user": steps})
-        if steps_resampled == 0 or counts["B2_batched"] < steps_resampled:
-            raise AssertionError(f"{name}: B2 batched launched "
-                                 f"{counts['B2_batched']} times for "
-                                 f"{steps_resampled} resampling steps")
+        _check_batched_b2(name, counts, steps_resampled, fused=True)
         runs.append({"seconds": seconds, "first": first, "loss": loss,
                      "steps_resampled": steps_resampled})
         total = _sum_counts(total, counts)
@@ -3180,8 +3225,10 @@ def phase_timing_batched(device, b2_inputs, b1_shapes=B1_BATCH_SHAPES[:2]):
         t["shape"] = [n_trials, n, 1]
         t["form"] = b1_plan(tile, lw, cols)
         times[f"B1_batched[{n_trials}x{n}]"] = t
-    for name, (starts, vals, scale, shift) in b2_inputs.items():
+    for name, (starts, vals, scale, shift, fused) in b2_inputs.items():
         n_trials, n, d = vals.shape
+        if fused is not None:
+            times[f"B2_fused[{name}]"] = _time_fused(fused, starts)
         affine = b2._affine_batched(scale, shift, n_trials, d, device)
         outs = [b2._expand_cuda_batched(starts, vals, n, affine)] + [
             b2._expand_cuda_batched(starts, vals, n, affine, form=form)
@@ -3207,9 +3254,57 @@ def phase_timing_batched(device, b2_inputs, b1_shapes=B1_BATCH_SHAPES[:2]):
     print(json.dumps({"batched_ms": {
         name: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                "library_ms": t["library_ms"], "bound_ms": bound(t["work"])[0],
-               "shape": t["shape"]}
+               "shape": t["shape"], "err": t.get("err")}
         for name, t in times.items()}}))
     return times
+
+
+def _time_fused(inputs, starts):
+    """The fused Liu–West launch on one resample's ``inputs`` (log_w,
+    values, u0, a, h, zero_cov_comp) against the eager chain it replaces
+    (``LiuWestResampler._unfused_centers``: the moments, h·Σ^{1/2}, the
+    starts and batched B2), 10 calls a turn: the chain's ``eigh`` reads
+    its error flag on the host, so its time is the host's. First it holds
+    the launch to the chain with the expand kernel off, as the card tests
+    do, and raises where it differs: μ beyond rtol 1e-5, Σ and (D = 1)
+    h·Σ^{1/2} beyond rtol 1e-4, or more than 1 row in 10^4 (rounded up)
+    with a source other than the chain's ``starts`` (a quantised weight
+    on a rounding edge can move one). ``err``: the largest gap of μ, Σ,
+    the root and the rows that kept the chain's source, and the count of
+    rows that did not."""
+    log_w, vals, u0, a, h, zero_cov = inputs
+    n_trials, n, d = vals.shape
+    resampler = qt.LiuWestResampler(a=a, h=h, zero_cov_comp=zero_cov)
+    plain = qt.LiuWestResampler(a=a, h=h, zero_cov_comp=zero_cov,
+                                use_expand_kernel=False)
+    out, mu, cov, root = b2.liu_west_expand_batched(*inputs)
+    out_p, mu_p, cov_p, root_p = plain._unfused_centers(log_w, vals, u0,
+                                                        None)
+    ref = b2.expand_plain_batched(starts, vals, n, b2._affine_batched(
+        a, (1.0 - a) * mu, n_trials, d, vals.device))
+    torch.cuda.synchronize()
+    same = (out == ref).all(dim=2)
+    close = {"mean": (mu, mu_p, 1e-5, 1e-6), "cov": (cov, cov_p, 1e-4, 1e-6),
+             "rows": (out[same], out_p[same], 1e-5, 1e-6)}
+    if root is not None:
+        close["root"] = (root, root_p, 1e-4, 1e-5)
+    err = {k: float((x - y).abs().max()) if x.numel() else 0.0
+           for k, (x, y, _, _) in close.items()}
+    err["rows_differing"] = int((~same).sum())
+    bad = [k for k, (x, y, rtol, atol) in close.items()
+           if not torch.allclose(x, y, rtol=rtol, atol=atol)]
+    if err["rows_differing"] > math.ceil(n_trials * n * 1e-4):
+        bad.append("rows_differing")
+    if bad:
+        raise AssertionError(f"the fused Liu–West launch differs from the "
+                             f"eager chain in {bad}: {err}")
+    t = _alternate(lambda: resampler._unfused_centers(log_w, vals, u0, None),
+                   lambda: b2.liu_west_expand_batched(*inputs), iters=10)
+    t["err"] = err
+    t["work"] = b2_work(starts, d, n)
+    t["shape"] = [n_trials, n, d]
+    t["form"] = "bank with the Liu–West prologue"
+    return t
 
 
 def phase_timing_sharded(device):
@@ -3354,6 +3449,19 @@ def kernel_row(name, source, replaces, launches, max_abs_err, t):
             "bound_by": bound_by, "library_ms": t["library_ms"]}
 
 
+def _fused_row(batched_times, name, launches):
+    """The kernel row of the fused Liu–West launch on ``name``'s median
+    resample (its plain time is the eager chain's), or none where that
+    resample took the eager chain."""
+    t = batched_times.get(f"B2_fused[{name}]")
+    if t is None:
+        return []
+    return [kernel_row("liu_west_expand_batched[{}x{} of {}]".format(
+        *t["shape"][:2], name), "qinfer_tpu_torch/csrc/resample_expand.cu",
+        "qinfer_tpu/ops/resample_expand.py:359", launches,
+        max(v for k, v in t["err"].items() if k != "rows_differing"), t)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3443,6 +3551,8 @@ def main():
                 *t["shape"][:2], name), src2,
             "qinfer_tpu/ops/resample_expand.py:359",
             ens_launches[name]["B2_batched"], batched_err["B2"], t))
+        kernels += _fused_row(batched_times, name,
+                              ens_launches[name]["B2_fused"])
     flagship_api = ("flagship_bcrb", "flagship_track_rsd", "mixed_ale")
     kernels += [
         kernel_row("fused_bayes_update[precession, engine API paths]", src1,
@@ -3516,6 +3626,8 @@ def main():
                    "qinfer_tpu/ops/resample_expand.py:359",
                    twin_launches["soak"]["B2_batched"], batched_err["B2"],
                    soak_t),
+        *_fused_row(batched_times, "soak",
+                    twin_launches["soak"]["B2_fused"]),
         kernel_row("fused_bayes_update[precession, breakdown]", src1,
                    b1_line(36), twin_launches["breakdown"]["B1"], err["B1"],
                    times["B1"]),

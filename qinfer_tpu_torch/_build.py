@@ -47,6 +47,7 @@ _FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # name -> argtypes; every entry point returns its cudaGetLastError().
 _SIGNATURES = {
     # (outcome, pr1, scalars, scalar_stride, consts (host floats), n_consts,
@@ -62,6 +63,10 @@ _SIGNATURES = {
     # (starts, n_in, values, n_cols, affine or NULL, out, n_out, n_trials,
     #  form, tiles (the bank form's blocks a trial), stream)
     "qt_expand": (_P, _I64, _P, _I32, _P, _P, _I64, _I32, _I32, _I32, _P),
+    # (log_w, n, values, n_cols, u0, a, 1 − a, h², zero_cov, out, mean,
+    #  cov, root or NULL, n_trials, stream)
+    "qt_liu_west_expand": (_P, _I32, _P, _I32, _P, _F32, _F32, _F32, _F32,
+                           _P, _P, _P, _P, _I32, _P),
 }
 
 

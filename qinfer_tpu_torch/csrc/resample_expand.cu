@@ -57,6 +57,16 @@
 //    weights, and copy_rows writes the tile. Its latency is one staged
 //    load, the search or scan, and the copy, against the rows form's ~11
 //    dependent probes a row in global memory at 2048;
+//  - the bank form with the Liu–West prologue (expand_bank_liu_west,
+//    qt_liu_west_expand; D ≤ 8, banks of ≤ 2048 rows): what
+//    LiuWestResampler.batched built with about fifty small eager launches
+//    (the log-sum-exp, μ and Σ, Σ^{1/2} at D = 1, the integer CDF and the
+//    systematic starts) a block computes itself from the bank's
+//    log-weights, rows and stratum offset, then expands as the scanned bank
+//    form does. A bank of 2048 rows at D = 1 is 24 KB, so the block reads
+//    it once into registers and keeps the starts in shared memory; the
+//    launch is one block a bank, and its cost a few block reductions and
+//    barriers against the chain's launches and host time;
 //  - span (form 1, D > 8): a warp writes its 32 consecutive rows, one
 //    contiguous span of 32·D floats. The warp finds the bounds of its rows'
 //    sources together (32 probes a round, four rounds for 2^20 starts) and
@@ -85,6 +95,7 @@
 // 65535.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -288,28 +299,48 @@ template <> struct Vec<1> { using T = float; };
 template <> struct Vec<2> { using T = float2; };
 template <> struct Vec<4> { using T = float4; };
 
-// v·scale + shift for columns c…c + kW − 1 of a row, each rounded as
-// affine_at rounds it.
-__device__ __forceinline__ float affine_lanes(float v, const float* a, int n, int c) {
-  return affine_at(v, a, n, c);
+// The affine of copy_rows, column d of a row: the trial's (2, kD) [scale;
+// shift] rows in global memory, or none (NULL).
+template <int kD>
+struct GlobalAffine {
+  const float* rows;
+  __device__ __forceinline__ float operator()(float v, int d) const {
+    return rows != nullptr ? affine_at(v, rows, kD, d) : v;
+  }
+};
+
+// The Liu–West shrinkage a·v + shift_d with the shifts in shared memory,
+// rounded as affine_at rounds it.
+struct Shrink {
+  float a;
+  const float* shift;
+  __device__ __forceinline__ float operator()(float v, int d) const {
+    return __fadd_rn(__fmul_rn(v, a), shift[d]);
+  }
+};
+
+// The affine of columns c…c + kW − 1 of a row.
+template <class F>
+__device__ __forceinline__ float affine_lanes(float v, const F& f, int c) {
+  return f(v, c);
 }
-__device__ __forceinline__ float2 affine_lanes(float2 v, const float* a, int n, int c) {
-  return make_float2(affine_at(v.x, a, n, c), affine_at(v.y, a, n, c + 1));
+template <class F>
+__device__ __forceinline__ float2 affine_lanes(float2 v, const F& f, int c) {
+  return make_float2(f(v.x, c), f(v.y, c + 1));
 }
-__device__ __forceinline__ float4 affine_lanes(float4 v, const float* a, int n, int c) {
-  return make_float4(affine_at(v.x, a, n, c), affine_at(v.y, a, n, c + 1),
-                     affine_at(v.z, a, n, c + 2), affine_at(v.w, a, n, c + 3));
+template <class F>
+__device__ __forceinline__ float4 affine_lanes(float4 v, const F& f, int c) {
+  return make_float4(f(v.x, c), f(v.y, c + 1), f(v.z, c + 2), f(v.w, c + 3));
 }
 
 // Writes a block's `rows` consecutive output rows from their sources in
 // shared memory: rows·kD contiguous floats in element order, kW =
 // merge_width<kD, kVec>() at a time, neighbouring threads on neighbouring
-// elements. `values` and `affine` are the trial's, `dst_rows` its first
-// row; the block has kBlock threads.
-template <int kBlock, int kD, bool kVec>
+// elements, each through `affine` (GlobalAffine or Shrink). `values` is
+// the trial's, `dst_rows` its first row; the block has kBlock threads.
+template <int kBlock, int kD, bool kVec, class F>
 __device__ __forceinline__ void copy_rows(const int32_t* source, int rows,
-                                          const float* __restrict__ values,
-                                          const float* __restrict__ affine,
+                                          const float* __restrict__ values, const F& affine,
                                           float* __restrict__ dst_rows) {
   constexpr int kW = merge_width<kD, kVec>();
   constexpr int kPerRow = kD / kW;
@@ -320,7 +351,7 @@ __device__ __forceinline__ void copy_rows(const int32_t* source, int rows,
     const int r = e / kPerRow;
     const int c = e - r * kPerRow;
     const T v = __ldg(src + static_cast<int64_t>(source[r]) * kPerRow + c);
-    dst[e] = affine != nullptr ? affine_lanes(v, affine, kD, c * kW) : v;
+    dst[e] = affine_lanes(v, affine, c * kW);
   }
 }
 
@@ -400,7 +431,8 @@ expand_merge(const int32_t* __restrict__ starts, int64_t n_in,
     }
   }
   __syncthreads();
-  copy_rows<kThreads, kD, kVec>(source, rows, values, affine, out + b0 * kD);
+  copy_rows<kThreads, kD, kVec>(source, rows, values, GlobalAffine<kD>{affine},
+                                out + b0 * kD);
 }
 
 template <int kD, bool kVec>
@@ -462,6 +494,45 @@ __device__ __forceinline__ int stage_starts(const int32_t* __restrict__ starts, 
     if (q1 == n4) return n_in;
     const int m = head + 4 * q1;  // staged: [0, m) and the tail
     if (window[m - 1] >= r1) return m;
+  }
+}
+
+// The scanned tile's fill: thread t owns rows [4t, 4t + 4) of `source`
+// (each −1 or the mark of a run that ends there; rows ≥ `rows` are not
+// touched) and gives each row the last mark at or before it, at least
+// `least`: its own rows scanned, a warp scan of the threads' maxima, then
+// the maxima of the warps before (`warp_max`, a slot a warp). Called after
+// a barrier; ends without one.
+__device__ __forceinline__ void fill_marks(int32_t* source, int rows, int32_t least,
+                                           int32_t* warp_max) {
+  const int base = threadIdx.x * kBankRowsPerThread;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int4* own = reinterpret_cast<int4*>(source) + threadIdx.x;
+  int4 q = base < rows ? *own : make_int4(-1, -1, -1, -1);
+  q.y = q.x > q.y ? q.x : q.y;
+  q.z = q.y > q.z ? q.y : q.z;
+  q.w = q.z > q.w ? q.z : q.w;
+  int32_t incl = q.w;  // the max over the lane's rows and those before in the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off && o > incl) incl = o;
+  }
+  int32_t floor = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) floor = -1;
+  if (lane == 31) warp_max[warp] = incl;
+  __syncthreads();
+  int32_t w = lane < warp ? warp_max[lane] : -1;  // the warps before, a lane each
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int32_t o = __shfl_xor_sync(0xffffffffu, w, off);
+    w = o > w ? o : w;
+  }
+  floor = w > floor ? w : floor;
+  floor = least > floor ? least : floor;
+  if (base < rows) {
+    *own = make_int4(q.x > floor ? q.x : floor, q.y > floor ? q.y : floor,
+                     q.z > floor ? q.z : floor, q.w > floor ? q.w : floor);
   }
 }
 
@@ -533,36 +604,11 @@ expand_bank(const int32_t* __restrict__ starts, int n_in,
       }
     }
     __syncthreads();
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int4 q = base < rows ? *own : make_int4(-1, -1, -1, -1);
-    q.y = q.x > q.y ? q.x : q.y;
-    q.z = q.y > q.z ? q.y : q.z;
-    q.w = q.z > q.w ? q.z : q.w;
-    int32_t incl = q.w;  // the max over the lane's rows and those before in the warp
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int32_t o = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off && o > incl) incl = o;
-    }
-    int32_t floor = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) floor = -1;
-    if (lane == 31) warp_max[warp] = incl;
-    __syncthreads();
-    int32_t w = lane < warp ? warp_max[lane] : -1;  // the warps before, a lane each
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int32_t o = __shfl_xor_sync(0xffffffffu, w, off);
-      w = o > w ? o : w;
-    }
-    floor = w > floor ? w : floor;
-    floor = *before > floor ? *before : floor;
-    if (base < rows) {
-      *own = make_int4(q.x > floor ? q.x : floor, q.y > floor ? q.y : floor,
-                       q.z > floor ? q.z : floor, q.w > floor ? q.w : floor);
-    }
+    fill_marks(source, rows, *before, warp_max);
   }
   __syncthreads();
-  copy_rows<kBankThreads, kD, kVec>(source, rows, values, affine, out + r0 * kD);
+  copy_rows<kBankThreads, kD, kVec>(source, rows, values, GlobalAffine<kD>{affine},
+                                    out + r0 * kD);
 }
 
 // Dynamic shared memory of a bank-form block: 32 warp maxima and `before`
@@ -608,6 +654,209 @@ static int launch_bank(const int32_t* s, int n_in, const float* v, const float* 
                                                rows_per_tile, st)
                 : launch_bank<kD, false, false>(s, n_in, v, a, o, n_out, n_trials, tiles,
                                                 rows_per_tile, st);
+}
+
+constexpr int kBankWarps = kBankThreads / 32;
+constexpr float kCdfQuant = 1073741824.0f;  // 2^30, the integer CDF's weight scale
+
+// Reduces each of kK per-thread values over the block, sums or (kMax)
+// maxima, in a fixed order: a butterfly in each warp, then the warps' in
+// turn. Every thread gets the results in `v`. `partial` holds kBankWarps·kK
+// floats and `total` kK, in a region of its own: a thread that returns
+// may enter the next call, and write its partials, while another still
+// reads this call's totals. The call starts with the block in step.
+template <int kK, bool kMax>
+__device__ __forceinline__ void block_reduce(float (&v)[kK], float* partial, float* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[k], off);
+      v[k] = kMax ? fmaxf(v[k], o) : v[k] + o;
+    }
+    if (lane == 0) partial[warp * kK + k] = v[k];
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < kK) {
+    float r = partial[threadIdx.x];
+    for (int w = 1; w < kBankWarps; ++w) {
+      const float o = partial[w * kK + threadIdx.x];
+      r = kMax ? fmaxf(r, o) : r + o;
+    }
+    total[threadIdx.x] = r;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kK; ++k) v[k] = total[k];
+}
+
+// The bank form with the Liu–West resample's prologue (kD ≤ 8, n ≤
+// kBankMaxRows): block y resamples bank y whole, from its log-weights,
+// its rows and its stratum offset u0[y], as LiuWestResampler.batched's
+// eager chain does. Thread t owns rows [4t, 4t + 4) throughout.
+//  1. The log-sum-exp as torch.logsumexp takes it (the maximum, 0 where
+//     it is infinite, plus log Σ exp(lw − max)), then w = exp(lw − lse).
+//  2. μ = Σ w·x, then Σ = Σ (w·(x − μ))(x − μ)ᵀ over the centred rows
+//     (weighted_moments_batched's two passes), zero_cov on its diagonal;
+//     written to mean and cov, and at kD = 1 root = √max(h²·Σ, 0) (what
+//     sqrtm_psd gives for a 1 × 1 matrix).
+//  3. The segment starts with _starts_from_weights' arithmetic: q =
+//     rint(w·2^30) as int64, an exact inclusive scan (the thread's rows,
+//     a warp scan, the warps before), total = max(Σ q, 1), scale = f32(n) /
+//     f32(total), t = ceil(f32(icdf)·scale − u0), starts = [0, t[:−1]]
+//     clamped at 0: written straight into shared memory, not to global.
+//  4. The scanned bank form's marks and fill, and copy_rows with a·x +
+//     (1 − a)·μ.
+// A bank is one block, so its prologue is computed once, in one order.
+template <int kD, bool kVec>
+__global__ void __launch_bounds__(kBankThreads)
+expand_bank_liu_west(const float* __restrict__ log_w, int n, const float* __restrict__ values,
+                     const float* __restrict__ u0, float a, float one_minus_a, float h2,
+                     float zero_cov, float* __restrict__ out, float* __restrict__ mean,
+                     float* __restrict__ cov, float* __restrict__ root) {
+  constexpr int kPairs = kD * (kD + 1) / 2;  // Σ's entries on and above the diagonal
+  constexpr int kR = kBankRowsPerThread;
+  __shared__ __align__(16) int32_t source[kBankMaxRows];
+  __shared__ int32_t window[kBankMaxRows];
+  __shared__ float partial[kBankWarps * kPairs];
+  __shared__ float total_of[kPairs];
+  __shared__ float shift[kD];
+  __shared__ long long warp_sum[kBankWarps];
+  __shared__ int32_t warp_max[kBankWarps];
+  const int64_t y = blockIdx.x;
+  log_w += y * n;
+  values += y * n * kD;
+  out += y * n * kD;
+  const int base = threadIdx.x * kR;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  float lw[kR], x[kR][kD];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const bool in = base + r < n;
+    lw[r] = in ? __ldg(log_w + base + r) : -INFINITY;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) x[r][d] = in ? __ldg(values + (base + r) * kD + d) : 0.0f;
+  }
+
+  // 1. The normalised weights.
+  float mx[1] = {lw[0]};
+#pragma unroll
+  for (int r = 1; r < kR; ++r) mx[0] = fmaxf(mx[0], lw[r]);
+  block_reduce<1, true>(mx, partial, total_of);
+  const float m = fabsf(mx[0]) == INFINITY ? 0.0f : mx[0];
+  float sum[1] = {0.0f};
+#pragma unroll
+  for (int r = 0; r < kR; ++r) sum[0] += expf(lw[r] - m);
+  block_reduce<1, false>(sum, partial, total_of);
+  const float lse = logf(sum[0]) + m;
+  float w[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) w[r] = base + r < n ? expf(lw[r] - lse) : 0.0f;
+
+  // 2. The moments.
+  float mu[kD];
+#pragma unroll
+  for (int d = 0; d < kD; ++d) {
+    mu[d] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) mu[d] += w[r] * x[r][d];
+  }
+  block_reduce<kD, false>(mu, partial, total_of);
+  float sigma[kPairs];
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) sigma[k] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    float c[kD];
+#pragma unroll
+    for (int d = 0; d < kD; ++d) c[d] = x[r][d] - mu[d];
+    int k = 0;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      const float wc = w[r] * c[d];
+#pragma unroll
+      for (int e = d; e < kD; ++e) sigma[k++] += wc * c[e];
+    }
+  }
+  block_reduce<kPairs, false>(sigma, partial, total_of);
+  if (threadIdx.x == 0) {
+    float* cov_y = cov + y * kD * kD;
+    int k = 0;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      shift[d] = __fmul_rn(one_minus_a, mu[d]);
+      mean[y * kD + d] = mu[d];
+#pragma unroll
+      for (int e = d; e < kD; ++e, ++k) {
+        const float v = d == e ? __fadd_rn(sigma[k], zero_cov) : sigma[k];
+        cov_y[d * kD + e] = v;
+        cov_y[e * kD + d] = v;
+      }
+    }
+    if (root != nullptr) root[y] = sqrtf(fmaxf(__fmul_rn(h2, __fadd_rn(sigma[0], zero_cov)), 0.0f));
+  }
+
+  // 3. The segment starts.
+  long long icdf[kR], run = 0;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    run += base + r < n ? __float2ll_rn(__fmul_rn(w[r], kCdfQuant)) : 0;
+    icdf[r] = run;  // within the thread's rows
+  }
+  long long incl = run;  // over the warp's threads up to this one
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  int4* own = reinterpret_cast<int4*>(source) + threadIdx.x;
+  if (base < n) *own = make_int4(-1, -1, -1, -1);
+  __syncthreads();
+  long long before = incl - run, total = 0;
+  for (int k = 0; k < kBankWarps; ++k) {
+    before += k < warp ? warp_sum[k] : 0;
+    total += warp_sum[k];
+  }
+  total = total > 1 ? total : 1;
+  const float scale = __fdiv_rn(static_cast<float>(n), __ll2float_rn(total));
+  const float u = __ldg(u0 + y);
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (base + r + 1 < n) {
+      const float t = ceilf(__fsub_rn(__fmul_rn(__ll2float_rn(before + icdf[r]), scale), u));
+      window[base + r + 1] = static_cast<int32_t>(t > 0.0f ? t : 0.0f);
+    }
+  }
+  if (threadIdx.x == 0) window[0] = 0;
+  __syncthreads();
+
+  // 4. The expand: each start that ends its run of equal starts marks its row.
+  for (int k = threadIdx.x; k < n; k += kBankThreads) {
+    const int32_t v = window[k];
+    if (v < n && (k + 1 == n || window[k + 1] != v)) source[v] = k;
+  }
+  __syncthreads();
+  fill_marks(source, n, 0, warp_max);
+  __syncthreads();
+  copy_rows<kBankThreads, kD, kVec>(source, n, values, Shrink{a, shift}, out);
+}
+
+template <int kD>
+static void launch_liu_west(const float* lw, int n, const float* v, const float* u0, float a,
+                            float one_minus_a, float h2, float zero_cov, float* o, float* mean,
+                            float* cov, float* root, int n_trials, cudaStream_t st) {
+  constexpr int kW = merge_width<kD, true>();
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (kW > 1 && bits % (4 * kW) == 0) {
+    expand_bank_liu_west<kD, true><<<n_trials, kBankThreads, 0, st>>>(
+        lw, n, v, u0, a, one_minus_a, h2, zero_cov, o, mean, cov, root);
+  } else {
+    expand_bank_liu_west<kD, false><<<n_trials, kBankThreads, 0, st>>>(
+        lw, n, v, u0, a, one_minus_a, h2, zero_cov, o, mean, cov, root);
+  }
 }
 
 }  // namespace
@@ -669,6 +918,41 @@ extern "C" int qt_expand(const void* starts, int64_t n_in, const void* values,
     expand_span<true><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
   } else {
     expand_span<false><<<grid, kThreads, 0, st>>>(s, n_in, v, n_cols, a, o, n_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Liu–West resample of n_trials banks (expand_bank_liu_west), each:
+// log_w f32 (n,), values f32 (n, n_cols) row-major, u0 f32 (one a bank);
+// out f32 (n, n_cols), mean f32 (n_cols,), cov f32 (n_cols, n_cols), root
+// f32 (one a bank, h·Σ^{1/2} at n_cols = 1) or NULL. The banks lie back to
+// back. scale a, shift one_minus_a·μ, h2 = h², zero_cov added to Σ's
+// diagonal. 1 ≤ n ≤ 2048, n_cols ≤ 8. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int qt_liu_west_expand(const void* log_w, int n, const void* values, int n_cols,
+                                  const void* u0, float a, float one_minus_a, float h2,
+                                  float zero_cov, void* out, void* mean, void* cov, void* root,
+                                  int n_trials, void* stream) {
+  if (n <= 0 || n > kBankMaxRows || n_cols <= 0 || n_cols > 8 || n_trials <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* lw = static_cast<const float*>(log_w);
+  const auto* v = static_cast<const float*>(values);
+  const auto* u = static_cast<const float*>(u0);
+  auto* o = static_cast<float*>(out);
+  auto* mu = static_cast<float*>(mean);
+  auto* c = static_cast<float*>(cov);
+  auto* r = static_cast<float*>(root);
+  switch (n_cols) {
+    case 1: launch_liu_west<1>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    case 2: launch_liu_west<2>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    case 3: launch_liu_west<3>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    case 4: launch_liu_west<4>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    case 5: launch_liu_west<5>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    case 6: launch_liu_west<6>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    case 7: launch_liu_west<7>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
+    default: launch_liu_west<8>(lw, n, v, u, a, one_minus_a, h2, zero_cov, o, mu, c, r, n_trials, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

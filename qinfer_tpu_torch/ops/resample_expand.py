@@ -12,6 +12,12 @@ wrapper counts its launches in all (``launches``) and by form
 (``form_launches``). A failed build or launch raises: nothing falls back.
 ``expand_sorted_segments_batched`` does the same for T independent banks
 in one launch (its plain version is ``expand_plain_batched``).
+``liu_west_expand_batched`` is the bank form with the Liu–West resample's
+prologue: from T banks' log-weights, rows and stratum offsets it computes
+the moments, Σ^{1/2} at D = 1, the systematic starts and the shrunk rows in
+one launch (its plain version is the eager chain it replaces,
+``LiuWestResampler._unfused_centers`` with the expand kernel off);
+``fused_liu_west_route`` says which banks it takes.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from .. import _build
 from ..profiling import count, span
 
 __all__ = ["expand_sorted_segments", "expand_plain", "systematic_expand",
-           "expand_sorted_segments_batched", "expand_plain_batched"]
+           "expand_sorted_segments_batched", "expand_plain_batched",
+           "fused_liu_west_route", "liu_west_expand_batched"]
 
 MAX_TRIALS = 65535  # gridDim.y of the kernel
 ROWS, SPAN, MERGE, BANK = 0, 1, 2, 3  # the kernel's forms (csrc/resample_expand.cu)
@@ -172,10 +179,11 @@ def _launch(wrapper, starts, values, n_out, affine):
 
 
 def reset_form_launches():
-    """Sets both wrappers' launch counters, in all and by form, to 0."""
+    """Sets the B2 wrappers' launch counters, in all and by form, to 0."""
     for wrapper in (expand_sorted_segments, expand_sorted_segments_batched):
         wrapper.launches = 0
         wrapper.form_launches = dict.fromkeys(FORM_NAMES.values(), 0)
+    liu_west_expand_batched.launches = 0
 
 
 def _check_n_out(n_out):
@@ -281,3 +289,79 @@ def systematic_expand(log_w, values, scale=None, shift=None, u0=None,
                                            generator=generator)
         return expand_sorted_segments(starts, values, n_out=n, scale=scale,
                                       shift=shift)
+
+
+def fused_liu_west_route(device_type, n_rows, n_cols, use_expand_kernel):
+    """Whether ``LiuWestResampler.batched`` resamples T banks of ``n_rows``
+    × ``n_cols`` through ``liu_west_expand_batched``: on CUDA, unless
+    ``use_expand_kernel`` is False, for banks of 1 to BANK_MAX_ROWS rows
+    (a block a bank) and at most 8 columns. Every other bank takes the
+    eager chain."""
+    return (device_type == "cuda" and use_expand_kernel is not False
+            and 1 <= n_rows <= BANK_MAX_ROWS and 1 <= n_cols <= 8)
+
+
+def _liu_west_cuda(log_w, values, u0, a, h, zero_cov_comp):
+    """The kernel on T banks: ``log_w`` f32 (T, N), ``values`` f32 (T, N,
+    D), ``u0`` f32 (T,), all contiguous. Raises ValueError on what it does
+    not take."""
+    n_trials, n, n_cols = values.shape
+    if not (1 <= n <= BANK_MAX_ROWS and 1 <= n_cols <= 8):
+        raise ValueError(f"the fused Liu–West expand takes banks of 1 to "
+                         f"{BANK_MAX_ROWS} rows and 1 to 8 columns; got "
+                         f"({n}, {n_cols})")
+    if log_w.shape != (n_trials, n) or u0.shape != (n_trials,):
+        raise ValueError("log_w must be (T, N) and u0 (T,) for values (T, N, "
+                         "D)")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != values.device for t in (log_w, values, u0)):
+        raise ValueError("the fused Liu–West expand takes contiguous f32 "
+                         "tensors on one device")
+    device = values.device
+    out = torch.empty_like(values)
+    mean = torch.empty((n_trials, n_cols), dtype=torch.float32, device=device)
+    cov = torch.empty((n_trials, n_cols, n_cols), dtype=torch.float32,
+                      device=device)
+    root = (torch.empty((n_trials, 1, 1), dtype=torch.float32, device=device)
+            if n_cols == 1 else None)
+    lib, _ = _build.library()
+    with torch.cuda.device(device):
+        err = lib.qt_liu_west_expand(
+            log_w.data_ptr(), n, values.data_ptr(), n_cols, u0.data_ptr(),
+            float(a), float(1.0 - a), float(h * h), float(zero_cov_comp),
+            out.data_ptr(), mean.data_ptr(), cov.data_ptr(),
+            None if root is None else root.data_ptr(), n_trials,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "qt_liu_west_expand")
+    return out, mean, cov, root
+
+
+def liu_west_expand_batched(log_w, values, u0, a, h, zero_cov_comp=0.0):
+    """The Liu–West resample's centres of T banks in one launch of kernel
+    B2's bank form, which computes its own inputs: per bank the weighted
+    mean μ and covariance Σ (+ ``zero_cov_comp``·I) from ``log_w`` (T, N),
+    the systematic starts from the same weights and ``u0`` (T,), and the
+    rows a·x[j(i)] + (1 − a)·μ of ``values`` (T, N, D). Banks of at most
+    2048 rows and 8 columns (``fused_liu_west_route``). Returns (centres
+    (T, N, D), μ (T, D), Σ (T, D, D), h·Σ^{1/2} (T, 1, 1) at D = 1, else
+    None). On a CPU tensor it runs its plain version, the eager chain
+    (``LiuWestResampler._unfused_centers`` with the expand kernel off),
+    which gives h·Σ^{1/2} at every D."""
+    with span("qinfer.ops.b2"):
+        if not values.is_cuda:
+            from ..resamplers import LiuWestResampler
+
+            plain = LiuWestResampler(a=a, h=h, zero_cov_comp=zero_cov_comp,
+                                     use_expand_kernel=False)
+            return plain._unfused_centers(log_w, values, u0, None)
+        out = _liu_west_cuda(
+            log_w.to(torch.float32).contiguous(),
+            values.to(torch.float32).contiguous(),
+            u0.to(torch.float32).contiguous(), a, h, zero_cov_comp)
+        liu_west_expand_batched.launches += 1
+        count("ops.liu_west_expand_batched.launches")
+        return out
+
+
+liu_west_expand_batched.launches = 0

@@ -22,9 +22,11 @@ Counterpart of ``qinfer_tpu/profiling.py``.
   them under dotted names: ``smc.steps`` (one a step call), the kernel
   wrappers' launches (``ops.<wrapper>.launches``, by route
   ``ops.<wrapper>.<route>_launches``, by form
-  ``ops.<wrapper>.form_launches.<form>``) and
-  ``resamplers.LiuWestResampler.redraw_rounds``. The wrappers' and the
-  resampler's attributes of the same names count always.
+  ``ops.<wrapper>.form_launches.<form>``),
+  ``resamplers.LiuWestResampler.redraw_rounds`` and
+  ``resamplers.LiuWestResampler.unfused_batched`` (the batched resamples
+  that did not take ``ops.liu_west_expand_batched``). The wrappers' and
+  the resampler's attributes of the same names count always.
 - ``recorded()``: the aggregates of the last stretch in which a profiler
   recorded, and each counter's increase over it. A stretch starts at the
   first span that sees a profiler recording after one that saw none, and

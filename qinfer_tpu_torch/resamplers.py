@@ -25,6 +25,8 @@ from .ops.resample_expand import (
     _affine_batched,
     expand_plain_batched,
     expand_sorted_segments_batched,
+    fused_liu_west_route,
+    liu_west_expand_batched,
     systematic_expand,
 )
 from .profiling import count, span
@@ -148,10 +150,13 @@ class LiuWestResampler(Resampler):
     on/off.
 
     ``LiuWestResampler.redraw_rounds`` counts the postselection redraw
-    rounds of every resample in the process (each costs a host sync).
+    rounds of every resample in the process (each costs a host sync);
+    ``LiuWestResampler.unfused_batched`` the batched resamples that took
+    the eager chain and not ``liu_west_expand_batched``.
     """
 
     redraw_rounds: ClassVar[int] = 0
+    unfused_batched: ClassVar[int] = 0
 
     a: float = 0.98
     h: Optional[float] = None
@@ -174,7 +179,7 @@ class LiuWestResampler(Resampler):
             locs = particle_locations
             log_w = particle_log_weights
             n, d = locs.shape
-            mu, S = self._moments(log_w, locs, weighted_moments)
+            mu, _, S = self._moments(log_w, locs, weighted_moments)
 
             use_expand = (locs.is_cuda if self.use_expand_kernel is None
                           else bool(self.use_expand_kernel))
@@ -207,25 +212,33 @@ class LiuWestResampler(Resampler):
             return self._postselect(model, draw)
 
     def _moments(self, log_w, locs, moments):
-        """The weighted mean and h·Σ^{1/2} (one bank or T banks)."""
+        """The weighted mean, Σ + ``zero_cov_comp``·I and h·Σ^{1/2} (one bank
+        or T banks)."""
         with span("qinfer.resamplers.moments"):
             mu, cov = moments(log_w, locs)
             d = locs.shape[-1]
             cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
                                                        device=cov.device)
-            h = self._h
-            return mu, sqrtm_psd((h * h) * cov)
+            return mu, cov, self._root(cov)
+
+    def _root(self, cov):
+        """h·Σ^{1/2} of one Σ or of T."""
+        h = self._h
+        return sqrtm_psd((h * h) * cov)
 
     def batched(self, generator, model, particle_locations,
                 particle_log_weights, u0=None):
         """The resample of T banks at once: ``particle_locations`` (T, N,
         D), ``particle_log_weights`` (T, N), ``u0`` (T,) or None. Per trial
         the same steps as ``__call__`` (its own moments, its own
-        Σ^{1/2}, its own stratum offset; kernel B2 for all trials in one
-        launch on CUDA, its plain version on the CPU or when
-        ``use_expand_kernel`` is False); the smear noise (T, N, D) comes
-        from ``kernel`` when given, and postselection tests the flattened
-        (T·N, D) bank.
+        Σ^{1/2}, its own stratum offset). On CUDA, banks of at most 2048
+        rows and 8 columns take one launch of ``liu_west_expand_batched``,
+        which computes the moments, Σ^{1/2} at D = 1 and the starts itself
+        (``fused_liu_west_route``); other banks take the eager chain, with
+        kernel B2 for all trials in one launch on CUDA, its plain version on
+        the CPU or when ``use_expand_kernel`` is False. Either way ``u0`` is
+        drawn first, then the smear noise (T, N, D), from ``kernel`` when
+        given; postselection tests the flattened (T·N, D) bank.
         Returns the new (T, N, D) locations."""
         with span("qinfer.resamplers.resample"):
             locs = particle_locations
@@ -234,19 +247,19 @@ class LiuWestResampler(Resampler):
             if not self.use_systematic:
                 raise NotImplementedError(
                     "the batched resample draws systematic strata only")
-            mu, S = self._moments(log_w, locs, weighted_moments_batched)
-
-            with span("qinfer.ops.b2"):
-                starts = systematic_segment_starts_batched(
-                    log_w, n, u0=u0, generator=generator)
-                shift = (1.0 - self.a) * mu
-                if self.use_expand_kernel is False:
-                    affine = _affine_batched(self.a, shift, n_trials, d,
-                                             locs.device)
-                    centers = expand_plain_batched(starts, locs, n, affine)
-                else:
-                    centers = expand_sorted_segments_batched(
-                        starts, locs, scale=self.a, shift=shift)
+            if fused_liu_west_route(locs.device.type, n, d,
+                                    self.use_expand_kernel):
+                u0 = _as_u0(u0, (n_trials,), generator, locs.device)
+                centers, _, cov, S = liu_west_expand_batched(
+                    log_w, locs, u0, self.a, self._h, self.zero_cov_comp)
+                if S is None:
+                    with span("qinfer.resamplers.moments"):
+                        S = self._root(cov)
+            else:
+                LiuWestResampler.unfused_batched += 1
+                count("resamplers.LiuWestResampler.unfused_batched")
+                centers, _, _, S = self._unfused_centers(log_w, locs, u0,
+                                                         generator)
 
             def draw():
                 if self.kernel is not None:
@@ -257,6 +270,26 @@ class LiuWestResampler(Resampler):
                 return (centers + noise @ S.transpose(1, 2)).reshape(-1, d)
 
             return self._postselect(model, draw).reshape(n_trials, n, d)
+
+    def _unfused_centers(self, log_w, locs, u0, generator):
+        """The eager chain of ``batched``: (the shrunk picks (T, N, D), μ
+        (T, D), Σ + ``zero_cov_comp``·I (T, D, D), h·Σ^{1/2} (T, D, D)).
+        With ``use_expand_kernel`` False it is all plain torch: the plain
+        version of ``liu_west_expand_batched``."""
+        n_trials, n, d = locs.shape
+        mu, cov, S = self._moments(log_w, locs, weighted_moments_batched)
+        with span("qinfer.ops.b2"):
+            starts = systematic_segment_starts_batched(
+                log_w, n, u0=u0, generator=generator)
+            shift = (1.0 - self.a) * mu
+            if self.use_expand_kernel is False:
+                affine = _affine_batched(self.a, shift, n_trials, d,
+                                         locs.device)
+                centers = expand_plain_batched(starts, locs, n, affine)
+            else:
+                centers = expand_sorted_segments_batched(
+                    starts, locs, scale=self.a, shift=shift)
+        return centers, mu, cov, S
 
     def _postselect(self, model, draw):
         """``draw()``'s rows, each redrawn while invalid (bounded) and

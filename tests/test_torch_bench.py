@@ -135,7 +135,7 @@ def test_flagship_windows_pass_the_gate():
     assert line["n_windows"] == 2 and line["n_exp"] == 100
     assert line["n_resamples"] >= 1
     assert line["launches"] == dict.fromkeys(
-        ("B1", "B1_batched", "B2", "B2_batched"), 0)
+        ("B1", "B1_batched", "B2", "B2_batched", "B2_fused"), 0)
     assert line["value_min"] <= line["value"] <= line["value_max"]
 
 

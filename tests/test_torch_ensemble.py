@@ -19,6 +19,7 @@ B2, the simulator, the batched SMC step and ``perf_test`` /
   timing modes and the progress bar.
 """
 
+import math
 import sys
 
 import jax
@@ -379,6 +380,40 @@ def test_batched_resample_goes_through_the_b2_wrapper(monkeypatch):
         out[use] = rs.batched(None, model, locs, lw, u0=u0)
     assert calls == [(3, 1024)]
     assert torch.equal(out[None], out[False])
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_fused_route_draws_as_the_eager_chain(monkeypatch, d):
+    """With the fused route forced on a CPU bank (the wrapper then runs its
+    plain version), ``batched`` draws u0 first and the noise after, as the
+    eager chain does, so one generator state gives the same cloud bit for
+    bit; the wrapper gets the resampler's a, h and covariance floor, and
+    only the eager chain counts as unfused."""
+    import qinfer_tpu_torch.resamplers as trs
+
+    rng = np.random.default_rng(9)
+    locs = torch.from_numpy(rng.random((3, 512, d)).astype(np.float32))
+    lw = torch.from_numpy(rng.standard_normal((3, 512)).astype(np.float32))
+    calls = []
+
+    def spy(*args):
+        calls.append(args[3:])
+        return tre.liu_west_expand_batched(*args)
+
+    monkeypatch.setattr(trs, "liu_west_expand_batched", spy)
+    out, unfused = {}, {}
+    for fused in (False, True):
+        monkeypatch.setattr(trs, "fused_liu_west_route",
+                            lambda *args, fused=fused: fused)
+        before = qt.LiuWestResampler.unfused_batched
+        rs = qt.LiuWestResampler(a=0.95, postselect=False,
+                                 zero_cov_comp=1e-4)
+        out[fused] = rs.batched(torch.Generator().manual_seed(11), None, locs,
+                                lw)
+        unfused[fused] = qt.LiuWestResampler.unfused_batched - before
+    assert torch.equal(out[True], out[False])
+    assert unfused == {False: 1, True: 0}
+    assert calls == [(0.95, math.sqrt(1.0 - 0.95 ** 2), 1e-4)]
 
 
 # -- simulator ------------------------------------------------------------------

@@ -255,6 +255,13 @@ class _FakeLib:
                                    + args[6:10])))
         return 0
 
+    def qt_liu_west_expand(self, *args):
+        names = ("n", "n_cols", "a", "one_minus_a", "h2", "zero_cov")
+        call = dict(zip(names, args[1:2] + args[3:4] + args[5:9]))
+        call.update(root=args[12] is not None, n_trials=args[13])
+        self.calls.append(call)
+        return 0
+
     def qt_fused_update(self, *args):
         names = ("out", "n_blocks", "stats", "n", "n_trials", "grid_blocks",
                  "normalize")
@@ -344,6 +351,56 @@ def test_expand_wrappers_launch_their_form(fake_lib, n_trials, n, d, form,
             name: int(name == b2.FORM_NAMES[form])
             for name in b2.FORM_NAMES.values()}
     b2.reset_form_launches()
+
+
+@pytest.mark.parametrize("device_type,n,d,use,fused", [
+    ("cuda", 2048, 1, None, True),     # the ensembles' banks
+    ("cuda", 1, 1, None, True),
+    ("cuda", 37, 4, True, True),       # tomography at D = 4
+    ("cuda", 2048, 8, None, True),
+    ("cuda", 2049, 1, None, False),    # over a block's rows
+    ("cuda", 5000, 1, None, False),    # the quickstart's bank
+    ("cuda", 1 << 18, 1, None, False),  # ensemble_big
+    ("cuda", 2048, 9, None, False),    # over the bank form's columns
+    ("cuda", 2048, 1, False, False),   # the expand kernel off
+    ("cuda", 0, 1, None, False),
+    ("cpu", 2048, 1, None, False),
+    ("cpu", 2048, 1, True, False),
+])
+def test_fused_liu_west_route(device_type, n, d, use, fused):
+    """The batched resample's route is a function of the device type, the
+    bank's rows and columns and ``use_expand_kernel`` alone."""
+    assert b2.fused_liu_west_route(device_type, n, d, use) is fused
+
+
+@pytest.mark.parametrize("n_trials,n,d", [(74, 2048, 1), (3, 37, 4),
+                                          (1, 1, 8)])
+def test_fused_liu_west_passes_its_arguments(fake_lib, n_trials, n, d):
+    """The wrapper hands the kernel the bank's shape, a, 1 − a, h² and the
+    covariance's floor, and asks for h·Σ^{1/2} at D = 1 only."""
+    out, mean, cov, root = b2._liu_west_cuda(
+        torch.zeros((n_trials, n)), torch.zeros((n_trials, n, d)),
+        torch.zeros(n_trials), 0.98, 0.25, 1e-3)
+    assert fake_lib.calls == [{
+        "n": n, "n_cols": d, "a": 0.98, "one_minus_a": 1.0 - 0.98,
+        "h2": 0.25 * 0.25, "zero_cov": 1e-3, "root": d == 1,
+        "n_trials": n_trials}]
+    assert out.shape == (n_trials, n, d) and mean.shape == (n_trials, d)
+    assert cov.shape == (n_trials, d, d)
+    assert (root is None) == (d > 1)
+    assert root is None or root.shape == (n_trials, 1, 1)
+
+
+@pytest.mark.parametrize("n,d,dtype", [(2049, 1, torch.float32),
+                                       (2048, 9, torch.float32),
+                                       (0, 1, torch.float32),
+                                       (64, 1, torch.float64)])
+def test_fused_liu_west_refuses_what_it_cannot_take(fake_lib, n, d, dtype):
+    with pytest.raises(ValueError):
+        b2._liu_west_cuda(torch.zeros((2, n), dtype=dtype),
+                          torch.zeros((2, n, d), dtype=dtype),
+                          torch.zeros(2, dtype=dtype), 0.98, 0.2, 0.0)
+    assert fake_lib.calls == []
 
 
 def test_row_span_keeps_two_passes(fake_lib):
