@@ -23,22 +23,29 @@ Counterpart of ``qinfer_tpu/profiling.py``.
   wrappers' launches (``ops.<wrapper>.launches``, by route
   ``ops.<wrapper>.<route>_launches``, by form
   ``ops.<wrapper>.form_launches.<form>``),
-  ``resamplers.LiuWestResampler.redraw_rounds`` and
+  ``resamplers.LiuWestResampler.redraw_rounds``,
   ``resamplers.LiuWestResampler.unfused_batched`` (the batched resamples
-  that did not take ``ops.liu_west_expand_batched``). The wrappers' and
-  the resampler's attributes of the same names count always.
+  that did not take ``ops.liu_west_expand_batched``),
+  ``resamplers.LiuWestResampler.tested_rows`` (the rows put through a
+  validity test, from their shapes) and
+  ``resamplers.LiuWestResampler.clamped_rows`` (the rows that
+  postselection projected with ``canonicalize``). The wrappers' and the
+  resampler's attributes of the same names count always.
 - ``recorded()``: the aggregates of the last stretch in which a profiler
-  recorded, and each counter's increase over it. A stretch starts at the
-  first span that sees a profiler recording after one that saw none, and
-  ends at the first span (or call of ``recorded``) that sees none; so two
-  profilers with no call of the program between them make one stretch.
+  recorded, and the increase of each counter that grew over it. A
+  stretch starts at the first span that sees a profiler recording after
+  one that saw none, and ends at the first span (or call of
+  ``recorded``) that sees none; so two profilers with no call of the
+  program between them make one stretch.
 
 The program's spans are named ``qinfer.<layer>.<block>``: the SMC step
 and its Bayes update (``qinfer.smc.*``), kernel B1's and B2's wrappers
 (``qinfer.ops.b1``, ``qinfer.ops.b2``), the Liu–West resample
-(``qinfer.resamplers.*``), each blocking read that the program makes on
-purpose (``qinfer.sync.*``), and the trial loop of ``perf_testing`` with
-the design heuristics (``qinfer.perf_testing.*``, ``qinfer.design.*``).
+(``qinfer.resamplers.*``, with its validity tests
+``qinfer.resamplers.valid`` and its clamp ``qinfer.resamplers.clamp``),
+each blocking read that the program makes on purpose (``qinfer.sync.*``),
+and the trial loop of ``perf_testing`` with the design heuristics
+(``qinfer.perf_testing.*``, ``qinfer.design.*``).
 
 The spans are kept for one thread: the program steps from one.
 """
@@ -228,7 +235,8 @@ def recorded():
     """The last stretch in which a torch profiler recorded (module
     docstring): ``{"spans": {name: {"count", "total_ns", "self_ns",
     "parents": {parent name or None: calls}}}, "counters": {name:
-    increase}}``; empty before any stretch."""
+    increase}}`` with the counters that increased in the stretch; empty
+    before any stretch."""
     if _live and not _profiling():
         _end()
     if _last is None:
@@ -238,5 +246,6 @@ def recorded():
         "spans": {name: {"count": a.count, "total_ns": a.total_ns,
                          "self_ns": a.self_ns, "parents": dict(a.parents)}
                   for name, a in _last.spans.items()},
-        "counters": {k: v - _last.start.get(k, 0) for k, v in now.items()},
+        "counters": {k: v - _last.start.get(k, 0) for k, v in now.items()
+                     if v > _last.start.get(k, 0)},
     }

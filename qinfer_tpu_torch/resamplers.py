@@ -152,7 +152,12 @@ class LiuWestResampler(Resampler):
     ``LiuWestResampler.redraw_rounds`` counts the postselection redraw
     rounds of every resample in the process (each costs a host sync);
     ``LiuWestResampler.unfused_batched`` the batched resamples that took
-    the eager chain and not ``liu_west_expand_batched``.
+    the eager chain and not ``liu_west_expand_batched``. While a profiler
+    records, the program's counters ``resamplers.LiuWestResampler.*``
+    count these and the rows put through the validity test
+    (``tested_rows``) and clamped (``clamped_rows``), and the spans
+    ``qinfer.resamplers.valid`` and ``qinfer.resamplers.clamp`` time those
+    two (``profiling``).
     """
 
     redraw_rounds: ClassVar[int] = 0
@@ -301,7 +306,7 @@ class LiuWestResampler(Resampler):
 
             # Bounded redraw, stopping as soon as every particle is valid (one
             # host sync per check: the common case costs one).
-            ok = model.are_models_valid(new_locs)
+            ok = self._valid(model, new_locs)
             with span("qinfer.sync.postselect"):
                 all_ok = bool(ok.all())
             for _ in range(self.maxiter):
@@ -310,7 +315,7 @@ class LiuWestResampler(Resampler):
                 LiuWestResampler.redraw_rounds += 1
                 count("resamplers.LiuWestResampler.redraw_rounds")
                 fresh = draw()
-                fresh_ok = model.are_models_valid(fresh)
+                fresh_ok = self._valid(model, fresh)
                 take = ~ok & fresh_ok
                 new_locs = torch.where(take[:, None], fresh, new_locs)
                 ok = ok | fresh_ok
@@ -323,8 +328,17 @@ class LiuWestResampler(Resampler):
             # tomography it is a batched eigh per row).
             with span("qinfer.sync.postselect"):
                 bad = torch.nonzero(~ok).squeeze(1)
-            return new_locs.index_copy(0, bad,
-                                       model.canonicalize(new_locs[bad]))
+            count("resamplers.LiuWestResampler.clamped_rows", bad.shape[0])
+            with span("qinfer.resamplers.clamp"):
+                return new_locs.index_copy(0, bad,
+                                           model.canonicalize(new_locs[bad]))
+
+    @staticmethod
+    def _valid(model, locs):
+        """``model.are_models_valid(locs)``, counted by its rows."""
+        count("resamplers.LiuWestResampler.tested_rows", locs.shape[0])
+        with span("qinfer.resamplers.valid"):
+            return model.are_models_valid(locs)
 
 
 class ClusteringResampler(Resampler):

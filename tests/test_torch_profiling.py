@@ -91,6 +91,19 @@ def test_no_profiler_records_nothing_and_counters_count():
     assert wrapper.user_launches == user + 2
 
 
+def test_counters_that_did_not_grow_are_left_out():
+    """After a stretch whose step counted, the next stretch reports only
+    what it counted itself; then the test above holds in the same process
+    (the order in which another test file can leave it)."""
+    _profiled(lambda: _batch_update(_record()))
+    assert profiling.counters()["smc.steps"] > 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("user.block"):
+            profiling.count("user.counter", 2)
+    assert profiling.recorded()["counters"] == {"user.counter": 2}
+    test_no_profiler_records_nothing_and_counters_count()
+
+
 def test_batch_update_span_tree():
     record = _record()
     (state, _), rec, _ = _profiled(lambda: _batch_update(record))
@@ -117,7 +130,15 @@ def test_batch_update_span_tree():
     assert checks["parents"] == {"qinfer.resamplers.postselect":
                                  checks["count"]}
     assert checks["count"] >= resampled
-    assert set(spans) == set(parents) | {"qinfer.sync.postselect"}
+    # Each validity test is followed by its check; no row was clamped.
+    valid = spans["qinfer.resamplers.valid"]
+    assert valid["parents"] == {"qinfer.resamplers.postselect":
+                                checks["count"]}
+    assert rec["counters"]["resamplers.LiuWestResampler.tested_rows"] == (
+        valid["count"] * state.particle_locations.shape[0])
+    assert "resamplers.LiuWestResampler.clamped_rows" not in rec["counters"]
+    assert set(spans) == set(parents) | {"qinfer.sync.postselect",
+                                         "qinfer.resamplers.valid"}
     # Self time is the duration less the children's (each child here has
     # one parent).
     for name, a in spans.items():

@@ -9,8 +9,9 @@ its port. Tolerances:
   (XLA's CPU dot and einsum contract into FMAs, torch's matmul does not);
 - ``log_likelihood``: the same, divided by the likelihood (log turns an
   absolute error δ in pr into δ/pr);
-- the characteristic-polynomial PSD test: equal to the JAX test and to
-  eigvalsh on the decisive cases of ``tests/test_tomography.py``;
+- the PSD test (the port's LDLᴴ factorization): equal to the JAX
+  package's characteristic-polynomial test and to eigvalsh on the
+  decisive cases of ``tests/test_tomography.py``;
 - stochastic parts (prior samples, the diffusive walk): first and second
   moments within five standard errors of the JAX package's.
 """
@@ -28,7 +29,7 @@ from qinfer_tpu.tomography import distributions as jdist
 from qinfer_tpu.tomography.models import _psd_via_charpoly as j_charpoly
 from qinfer_tpu_torch.interop import from_reference
 from qinfer_tpu_torch.tomography import distributions as tdist
-from qinfer_tpu_torch.tomography.models import _psd_via_charpoly as t_charpoly
+from qinfer_tpu_torch.tomography.models import _psd_via_ldl as t_ldl
 
 torch.set_num_threads(2)
 
@@ -295,7 +296,8 @@ def test_charpoly_psd_test_matches_jax_and_eigvalsh(name):
     evals = np.linalg.eigvalsh(M)
     tol = 1e-5
     ref = (evals >= -tol).all(axis=-1)
-    got = t_charpoly(torch.from_numpy(M), tol).numpy()
+    got = t_ldl(*bt.real_imag_from_coords(torch.from_numpy(cases)),
+                tol).numpy()
     decisive = np.abs(evals.min(axis=-1) + tol) > 1e-4
     assert decisive.sum() > len(cases) * 0.7
     np.testing.assert_array_equal(got[decisive], ref[decisive])
