@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Exits 1 when torch sees no CUDA device.
-2. build: compiles both CUDA kernels from ``qinfer_tpu_torch/csrc`` with
+2. build: compiles the CUDA kernels from ``qinfer_tpu_torch/csrc`` with
    nvcc for sm_90a (into ``build/qinfer_tpu_torch/``), and at once, one
    nvcc each, the user model's library (B1's header with the functor
    ``LOST_VISIBILITY_SOURCE``) and the libraries of the functors that
@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero before the result line:
    D ∈ {1, 2, 3, 4, 5, 16, 17} and N ∈ ``B2_SIZES``, in the wrapper's form
    and, up to D = 8, in the merge path, the rows form and, where N is
    within its cap, the bank form forced (``b2_forced``); one over the cap
-   a forced bank form must raise ValueError.
+   a forced bank form must raise ValueError. The validity kernel of d = 3,
+   4 tomography (``phase_compare_psd``) at 2^20 rows of ``PSD_BASES``
+   (``psd_valid_cases``), unit stride and the diffusive view, with and
+   without subnormalised states: every row whose smallest eigenvalue is
+   more than ``PSD_MARGIN`` from −psd_tol decided as the plain version and
+   f64 eigvalsh decide it, one launch a call.
 4. main path: ``SMCUpdater`` with 2^20 particles on ``SimplePrecessionModel``
    and the Liu–West resampler, one warm-up window and three timed windows,
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
@@ -55,8 +60,9 @@ Phases, in order; any failure exits non-zero before the result line:
 7. tomography_2q_binomial: two-qubit tomography, ``BinomialModel`` over
    ``TomographyModel(pauli_basis(2))`` (B1's binomial Born tile at 16
    columns, B2 at D = 16), one ``batch_update`` over 120 product
-   projectors × 50 shots per window; gate: x̂ physical and Tr(ρ̂ρ) > 0.45.
-   One JSON line.
+   projectors × 50 shots per window; gate: x̂ physical and Tr(ρ̂ρ) > 0.45;
+   every validity test (one a resample and one a redraw round) one launch
+   of the validity kernel. One JSON line.
 8. config1_quickstart_pgh and config4_known_t2_pgh (``PGH_PATHS``): the
    adaptive loops of examples/config1 and examples/config4's known-T2 at
    2^20, 100 steps of ``PGH`` → ``simulate_experiment`` on the card →
@@ -191,7 +197,9 @@ Phases, in order; any failure exits non-zero before the result line:
    (two-outcome beside the built-in two-column multicos in the same turns,
    binomial; the traced route, the user functor, the column route and B1
    on ``GivenPr1`` alone in the same turns) and its trial grid at 256 ×
-   2048.
+   2048. The validity kernel at 2^20 rows, d = 4 and 3, beside its plain
+   version and ``torch.linalg.eigvalsh`` of the complex ρ
+   (``phase_timing_psd``).
 
 The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version, bit-equal per trial to single-bank
@@ -240,6 +248,7 @@ from qinfer_tpu_torch import parallel as par
 from qinfer_tpu_torch import tomography as tomo
 from qinfer_tpu_torch.ops import fused_update as b1
 from qinfer_tpu_torch.ops import pr1_trace
+from qinfer_tpu_torch.ops import psd_valid as pv
 from qinfer_tpu_torch.ops import resample_expand as b2
 from qinfer_tpu_torch.parallel import sharded_smc
 from qinfer_tpu_torch.resamplers import systematic_segment_starts
@@ -787,6 +796,113 @@ def tomography_2q_gate(window):
     return physical and overlap > GATE_2Q, overlap
 
 
+# -- the validity kernel of d = 3, 4 tomography --------------------------------
+
+GM3 = tomo.gell_mann_basis(3)
+PSD_BASES = (("pauli2", PAULI2), ("gm3", GM3))
+PSD_TOL = 1e-5  # TomographyModel.psd_tol
+PSD_MARGIN = 1e-6  # a row within this of −psd_tol may decide either way
+
+
+def _ginibre(basis, n, rng, rank=None):
+    """Ginibre density matrices (n, d, d), complex128."""
+    d = basis.dim
+    g = (rng.standard_normal((n, d, rank or d))
+         + 1j * rng.standard_normal((n, d, rank or d)))
+    rho = g @ g.conj().transpose(0, 2, 1)
+    return rho / np.trace(rho, axis1=1, axis2=2)[:, None, None]
+
+
+def _coords_f64(basis, rho):
+    return np.einsum("iab,nba->ni", basis.data.astype(np.complex128),
+                     rho).real
+
+
+def psd_valid_cases(basis, n, seed):
+    """(n, d²) f32 coordinates for the validity test: Ginibre states of full
+    and of lower rank, smeared as a Liu–West resample smears them (a =
+    0.98, h·Σ^{1/2} of their covariance), the states' boundary-scaled and
+    tripled rows (as tests/test_tomography.py builds them) and smeared rows
+    whose trace is off by up to 30 %."""
+    rng = np.random.default_rng(seed)
+    m = n // 8
+    x = np.concatenate([
+        _coords_f64(basis, _ginibre(basis, n - 4 * m, rng)),
+        _coords_f64(basis, _ginibre(basis, m, rng, rank=basis.dim - 1))])
+    a = 0.98
+    w, v = np.linalg.eigh(np.cov(x.T))
+    root = (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+    smeared = (a * x + (1 - a) * x.mean(0)
+               + np.sqrt(1 - a * a) * rng.standard_normal(x.shape) @ root.T)
+    boundary = x[:m].copy()
+    boundary[:, 1:] *= (boundary[:, :1] / np.maximum(np.linalg.norm(
+        boundary[:, 1:], axis=1, keepdims=True), 1e-9))
+    junk = x[m:2 * m].copy()
+    junk[:, 1:] *= 3.0
+    trace = smeared[:m].copy()
+    trace[:, 0] *= rng.uniform(0.7, 1.3, m)
+    return np.concatenate([smeared, boundary, junk, trace]).astype(np.float32)
+
+
+def min_eigenvalues(basis, coords):
+    """The smallest eigenvalue of each row's ρ, from the f32 coordinates in
+    f64 (numpy's complex eigvalsh, on the host)."""
+    rho = np.einsum("ni,iab->nab", np.asarray(coords, np.float64),
+                    basis.data.astype(np.complex128))
+    return np.linalg.eigvalsh(rho)[:, 0]
+
+
+def psd_valid_agreement(basis, cases, lam, device, view, subnormalized):
+    """The kernel against the plain version and against f64 eigvalsh (with
+    the model's own f32 trace test) on ``cases`` (numpy, (N, d²)) with
+    smallest eigenvalues ``lam``; ``view`` puts the rows at the diffusive
+    model's stride d² + 1. Raises where a decisive row (``lam`` more than
+    PSD_MARGIN from −PSD_TOL) differs or the launch count did not rise by
+    one; returns the counts."""
+    x = torch.as_tensor(cases, device=device)
+    if view:
+        x = torch.cat([x, torch.ones((len(x), 1), device=device)], 1)[:, :-1]
+    launches = pv.psd_valid.launches
+    got = pv.psd_valid(x, basis, PSD_TOL, subnormalized).cpu().numpy()
+    if pv.psd_valid.launches != launches + 1:
+        raise AssertionError("psd_valid: the wrapper did not launch once")
+    plain = pv.psd_valid_plain(x, basis, PSD_TOL,
+                               subnormalized).cpu().numpy()
+    trace = pv.trace_ok(torch.as_tensor(cases[:, 0]), basis.dim,
+                        subnormalized).numpy()
+    exact = (lam >= -PSD_TOL) & trace
+    decisive = np.abs(lam + PSD_TOL) > PSD_MARGIN
+    res = {"rows": len(cases), "valid": int(exact.sum()),
+           "decisive": int(decisive.sum()),
+           "differ_plain": int((got != plain).sum()),
+           "differ_plain_decisive": int((got != plain)[decisive].sum()),
+           "differ_eigvalsh_decisive": int((got != exact)[decisive].sum()),
+           "plain_differs_eigvalsh_decisive":
+               int((plain != exact)[decisive].sum())}
+    if res["differ_plain_decisive"] or res["differ_eigvalsh_decisive"]:
+        raise AssertionError(f"psd_valid: decisive rows differ: {res}")
+    return res
+
+
+def phase_compare_psd(device):
+    """The validity kernel at 2^20 rows, d = 4 (Pauli) and d = 3
+    (Gell-Mann), rows and the diffusive view, with and without
+    subnormalised states; one JSON line. Returns the most rows that differ
+    from the plain version (all of them borderline)."""
+    out = {}
+    for name, basis in PSD_BASES:
+        cases = psd_valid_cases(basis, N_FLAGSHIP, 17)
+        lam = min_eigenvalues(basis, cases)
+        for view in (False, True):
+            for sub in (False, True):
+                key = f"{name}{'/view' if view else ''}" \
+                      f"{'/subnormalized' if sub else ''}"
+                out[key] = psd_valid_agreement(basis, cases, lam, device,
+                                               view, sub)
+    print(json.dumps({"psd_valid_compare": out}))
+    return max(r["differ_plain"] for r in out.values())
+
+
 def experiment_record(n_exp, seed):
     """bench.py's record: exp-sparse times and outcomes drawn for TRUE_OMEGA."""
     rng = np.random.default_rng(seed)
@@ -891,8 +1007,10 @@ def _print_ptxas(report):
                            else "") if merge
                        else "expand_span<float4>" if "Lb1E" in line
                        else "expand_span")
+            psd = re.search(r"psd_valid_rowsILi(\d+)E", line)
             kernel = (f"{m.group(1)}<{m.group(2)}{bound}>{form}" if m
                       else "fused_update_pass2" if "pass2" in line
+                      else f"psd_valid_rows<{psd.group(1)}>" if psd
                       else b2_form)
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}:", line.split(":", 1)[-1].strip())
@@ -1398,6 +1516,7 @@ def _reset_counters():
     b2.reset_form_launches()
     qt.LiuWestResampler.redraw_rounds = 0
     qt.LiuWestResampler.unfused_batched = 0
+    pv.psd_valid.launches = 0
 
 
 def _b2_forms():
@@ -1413,7 +1532,8 @@ def _b2_forms():
 
 def _read_counters():
     return ({"B1": b1.fused_bayes_update.launches,
-             "B2": b2.expand_sorted_segments.launches, **_b2_forms()},
+             "B2": b2.expand_sorted_segments.launches, **_b2_forms(),
+             "psd_valid": pv.psd_valid.launches},
             qt.LiuWestResampler.redraw_rounds)
 
 
@@ -1521,6 +1641,12 @@ def phase_tomography_2q(device):
         overlaps.append(overlap)
     n_resamples = [w["updater"].resample_count for w in windows]
     _check_launches(name, counts, 3 * N_SETTINGS_2Q, sum(n_resamples))
+    # Every validity test (one a resample and one a redraw round) is one
+    # launch of the validity kernel.
+    if counts["psd_valid"] != sum(n_resamples) + rounds:
+        raise AssertionError(f"{name}: the validity kernel launched "
+                             f"{counts['psd_valid']} times for "
+                             f"{sum(n_resamples) + rounds} tests")
     secs = [w["seconds"] for w in windows]
     print(json.dumps({
         "config": name, "n_particles": N_2Q, "n_updates": N_SETTINGS_2Q,
@@ -3142,6 +3268,41 @@ def phase_timing(device):
     return times
 
 
+def psd_work(dim, n):
+    """(bytes, operations) of the validity test over n rows: d² f32
+    coordinates read once and a byte written a row; 2·d⁴ products and sums
+    for ρ's lower triangle and about d³ for the factorization."""
+    return (4 * dim * dim + 1) * n, (2 * dim ** 4 + dim ** 3) * n
+
+
+def _eigvalsh_chunks(rho):
+    """``torch.linalg.eigvalsh`` of complex (n, d, d) matrices in chunks of
+    2^14 (cuSOLVER's batched call refuses 65536 matrices on the card)."""
+    return lambda: [torch.linalg.eigvalsh(c) for c in rho.split(1 << 14)]
+
+
+def phase_timing_psd(device):
+    """The validity kernel at 2^20 rows, d = 4 and 3: kernel, plain (the
+    chain that the model ran before it) and, as the library's yardstick,
+    ``torch.linalg.eigvalsh`` of the complex ρ (which the port never
+    calls)."""
+    times = {}
+    for _, basis in PSD_BASES:
+        x = torch.as_tensor(psd_valid_cases(basis, N_FLAGSHIP, 23),
+                            device=device)
+        rho = torch.complex(*basis.real_imag_from_coords(x))
+        t = _alternate(lambda: pv.psd_valid_plain(x, basis, PSD_TOL),
+                       lambda: pv.psd_valid(x, basis, PSD_TOL),
+                       _eigvalsh_chunks(rho), iters=10)
+        t["work"] = psd_work(basis.dim, N_FLAGSHIP)
+        times[f"psd_valid[d={basis.dim}]"] = t
+    for name, t in times.items():
+        print(f"{name} at 2^20: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {bound(t['work'])[0]:.4f} ms")
+    return times
+
+
 def phase_timing_bank(device, smi):
     """B2 on a single bank of N_NATIVE (config 1's own N), D = 1, random
     weights, with the affine: the wrapper's form (the bank form) against
@@ -3476,6 +3637,7 @@ def main():
     zoo_err.update(phase_compare_tomo(device))
     zoo_err["binomial_tomography_2q"] = max(
         zoo_err["binomial_tomography_2q"], phase_compare_span(device))
+    psd_differ = phase_compare_psd(device)
     batched_err = {"B1": phase_compare_b1_batched(device),
                    "B2": phase_compare_b2_batched(device)}
     launches = phase_main_path(device)
@@ -3507,6 +3669,7 @@ def main():
         device, b2_inputs, B1_BATCH_SHAPES[:2] + (SOAK_B1_SHAPE,))
     sharded_times = phase_timing_sharded(device)
     user_times = phase_timing_user(device)
+    psd_times = phase_timing_psd(device)
     src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
     src2 = "qinfer_tpu_torch/csrc/resample_expand.cu"
     b1_line = "qinfer_tpu/ops/fused_update.py:{}".format
@@ -3634,6 +3797,14 @@ def main():
         kernel_row("expand_sorted_segments[breakdown]", src2, b2_kernel,
                    twin_launches["breakdown"]["B2"], err["B2"], times["B2"]),
     ]
+    # No TPU kernel: the JAX package's charpoly test is plain jnp. Its
+    # error is the rows (all borderline) that differ from the plain version.
+    kernels += [
+        kernel_row(name, "qinfer_tpu_torch/csrc/psd_valid.cu",
+                   "none (qinfer_tpu/tomography/models.py:_psd_via_charpoly)",
+                   config_launches["tomography_2q_binomial"]["psd_valid"]
+                   if name == "psd_valid[d=4]" else 0, psd_differ, t)
+        for name, t in psd_times.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

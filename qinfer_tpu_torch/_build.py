@@ -35,7 +35,8 @@ __all__ = ["library", "user_library", "user_translation_unit", "user_digest",
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "fused_update.cu", _CSRC / "resample_expand.cu")
+SOURCES = (_CSRC / "fused_update.cu", _CSRC / "resample_expand.cu",
+           _CSRC / "psd_valid.cu")
 HEADER = _CSRC / "fused_update.cuh"  # the B1 kernels, included by every B1 library
 USER_FUNCTOR = "UserPr1"  # the struct a user functor's source defines
 BUILD_ROOT = _PKG.parent / "build" / "qinfer_tpu_torch"
@@ -67,6 +68,10 @@ _SIGNATURES = {
     #  cov, root or NULL, n_trials, stream)
     "qt_liu_west_expand": (_P, _I32, _P, _I32, _P, _F32, _F32, _F32, _F32,
                            _P, _P, _P, _P, _I32, _P),
+    # (coords, n, row_stride, dim, basis (host floats), tol, trace_target,
+    #  trace_bound, subnormalized, out, stream)
+    "qt_psd_valid": (_P, _I64, _I64, _I32, _P, _F32, _F32, _F32, _I32, _P,
+                     _P),
 }
 
 

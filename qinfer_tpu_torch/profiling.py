@@ -22,7 +22,8 @@ Counterpart of ``qinfer_tpu/profiling.py``.
   them under dotted names: ``smc.steps`` (one a step call), the kernel
   wrappers' launches (``ops.<wrapper>.launches``, by route
   ``ops.<wrapper>.<route>_launches``, by form
-  ``ops.<wrapper>.form_launches.<form>``),
+  ``ops.<wrapper>.form_launches.<form>``), the rows that the validity
+  kernel tested (``ops.psd_valid.rows``),
   ``resamplers.LiuWestResampler.redraw_rounds``,
   ``resamplers.LiuWestResampler.unfused_batched`` (the batched resamples
   that did not take ``ops.liu_west_expand_batched``),

@@ -5,7 +5,8 @@ orthonormal basis) and ``DiffusiveTomographyModel``.
 The fused update runs B1's Born tile over the coordinate columns. The
 positivity test has two paths: a closed form for qubits, as in the JAX
 package, and for d > 2 an LDLᴴ factorization of ρ + psd_tol·I (no
-eigendecomposition). The JAX package tests the characteristic polynomial
+eigendecomposition; ``ops.psd_valid``, one kernel launch on a CUDA bank at
+d = 3 and 4). The JAX package tests the characteristic polynomial
 of the real embedding there, which in f32 accepts near-low-rank states
 with eigenvalues down to about −1e-2.
 ``canonicalize`` projects onto the physical cone: a closed-form rescale
@@ -20,44 +21,19 @@ from dataclasses import dataclass
 import torch
 
 from ..models.base import FiniteOutcomeModel, _column, _n_exps
+from ..ops.psd_valid import (  # noqa: F401  (_psd_via_ldl, re-exported)
+    _psd_via_ldl,
+    psd_valid,
+    psd_valid_plain,
+    psd_valid_route,
+    trace_ok,
+)
 from ..utils import eigh_batched
 from .bases import TomographyBasis
 
 __all__ = ["TomographyModel", "DiffusiveTomographyModel"]
 
 _SQRT2 = math.sqrt(2.0)
-
-
-def _psd_via_ldl(re, im, tol):
-    """All eigenvalues of the Hermitian ρ = re + i·im (…, d, d) ≥ −tol,
-    without an eigendecomposition.
-
-    eig(ρ) ≥ −tol ⟺ ρ + tol·I ⪰ 0, which (up to its boundary) holds iff
-    every pivot of the LDLᴴ factorization of ρ + tol·I (Cholesky without
-    the square roots, no pivoting) is > 0. d elementwise steps over the
-    batch, each a rank-one Schur complement. The factorization is
-    backward stable: rounding moves the threshold by about d·eps·‖ρ‖
-    (≈ 3e-7 in f32 for a state). A test of the characteristic polynomial's
-    coefficients (Newton's identities over power sums) is not: near a
-    low-rank state they are products of small eigenvalues, and f32 gives
-    them no sign.
-    """
-    d = re.shape[-1]
-    ar = re + tol * torch.eye(d, dtype=re.dtype, device=re.device)
-    ai = im
-    ok = ar[..., 0, 0] > 0
-    for _ in range(d - 1):
-        p = ar[..., 0, 0]
-        inv = (1.0 / torch.where(p > 0, p, torch.ones_like(p)))[..., None,
-                                                                 None]
-        cr, ci = ar[..., 1:, :1], ai[..., 1:, :1]  # the column below p
-        crt, cit = cr.transpose(-1, -2), ci.transpose(-1, -2)
-        # A ← A − c·cᴴ/p on the trailing block: c_i·conj(c_j) =
-        # (cr_i·cr_j + ci_i·ci_j) + i·(ci_i·cr_j − cr_i·ci_j).
-        ar = ar[..., 1:, 1:] - (cr * crt + ci * cit) * inv
-        ai = ai[..., 1:, 1:] - (ci * crt - cr * cit) * inv
-        ok = ok & (ar[..., 0, 0] > 0)
-    return ok
 
 
 @dataclass(frozen=True, eq=False)
@@ -108,19 +84,18 @@ class TomographyModel(FiniteOutcomeModel):
     def are_models_valid(self, modelparams):
         """ρ ⪰ 0 (eigenvalues ≥ −psd_tol) and Tr ρ = 1 (x₀ = 1/√d). Qubits
         have the closed-form spectrum x₀/√2 ± ‖x₁:‖/√2; d > 2 factors
-        ρ + psd_tol·I (``_psd_via_ldl``)."""
+        ρ + psd_tol·I by LDLᴴ, in one kernel launch on a CUDA bank at d = 3
+        and 4 (``ops.psd_valid``), else in plain torch."""
         if self.dim == 2:
             tau = torch.linalg.vector_norm(modelparams[:, 1:], dim=1) / _SQRT2
             psd = modelparams[:, 0] / _SQRT2 - tau >= -self.psd_tol
-        else:
-            re, im = self.basis.real_imag_from_coords(modelparams)
-            psd = _psd_via_ldl(re, im, self.psd_tol)
-        trace_target = 1.0 / math.sqrt(self.dim)
-        if self.allow_subnormalized:
-            tr_ok = modelparams[:, 0] <= trace_target + 1e-5
-        else:
-            tr_ok = torch.abs(modelparams[:, 0] - trace_target) < 1e-4
-        return psd & tr_ok
+            return psd & trace_ok(modelparams[:, 0], 2,
+                                  self.allow_subnormalized)
+        test = (psd_valid if psd_valid_route(modelparams.device.type,
+                                             self.dim)
+                else psd_valid_plain)
+        return test(modelparams, self.basis, self.psd_tol,
+                    self.allow_subnormalized)
 
     def canonicalize(self, modelparams):
         """Project onto the PSD, unit-trace cone: clip the eigenvalues at

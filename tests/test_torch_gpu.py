@@ -7,6 +7,7 @@ a GPU machine without JAX it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import functools
 import json
 import math
 import subprocess
@@ -19,7 +20,10 @@ import torch
 
 import qinfer_tpu_torch as qt
 from qinfer_tpu_torch.interop import state_from_numpy, state_to_numpy
+from qinfer_tpu_torch import profiling
+from qinfer_tpu_torch import tomography as tomo
 from qinfer_tpu_torch.ops import fused_update as b1
+from qinfer_tpu_torch.ops import psd_valid as pv
 from qinfer_tpu_torch.ops import resample_expand as b2
 from qinfer_tpu_torch.resamplers import (
     systematic_segment_starts,
@@ -1161,3 +1165,56 @@ def test_fused_liu_west_is_one_bank_form_kernel(cuda):
     assert done.returncode == 0, done.stderr[-4000:]
     kernels = json.loads(done.stdout.strip().splitlines()[-1])
     assert len(kernels) == 1 and "expand_bank_liu_west" in kernels[0], kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _psd_cases(name):
+    basis = dict(chip_smoke.PSD_BASES)[name]
+    cases = chip_smoke.psd_valid_cases(basis, N, 31)
+    return basis, cases, chip_smoke.min_eigenvalues(basis, cases)
+
+
+@pytest.mark.parametrize("subnormalized", [False, True],
+                         ids=["unit_trace", "subnormalized"])
+@pytest.mark.parametrize("view", [False, True], ids=["rows", "view"])
+@pytest.mark.parametrize("name", ["pauli2", "gm3"])
+def test_psd_valid_kernel_matches_plain_and_eigvalsh(cuda, name, view,
+                                                     subnormalized):
+    """At 2^20 Liu–West-smeared, boundary and out-of-range rows: one launch
+    a call, and every row whose smallest eigenvalue is more than 1e-6 from
+    −psd_tol decided as the plain version and f64 eigvalsh decide it
+    (``chip_smoke.psd_valid_agreement`` raises otherwise); the borderline
+    rows that differ are printed."""
+    basis, cases, lam = _psd_cases(name)
+    res = chip_smoke.psd_valid_agreement(basis, cases, lam, cuda, view,
+                                         subnormalized)
+    print(json.dumps({name: res}))
+    assert res["decisive"] > 0.99 * res["rows"]
+    assert 0.1 * res["rows"] < res["valid"] < 0.9 * res["rows"]
+
+
+def test_a_two_qubit_resample_tests_through_the_kernel(cuda):
+    """Every validity test of a Liu–West resample of a two-qubit bank is a
+    launch of the kernel: one for the drawn bank and one a redraw round,
+    and the kernel's rows counter equals the resampler's tested rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = tomo.TomographyModel(chip_smoke.PAULI2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 1 << 16
+    locs = tomo.GinibreDistribution(chip_smoke.PAULI2).sample(g, n)
+    log_w = torch.full((n,), -math.log(n), device=cuda)
+    launches = pv.psd_valid.launches
+    rounds = qt.LiuWestResampler.redraw_rounds
+    # The host's activity only: a card trace here would leave a later
+    # profile in this process without card events.
+    with profile(activities=[ProfilerActivity.CPU]):
+        new = qt.LiuWestResampler(a=0.98)(g, model, locs, log_w)
+    counters = profiling.recorded()["counters"]
+    tests = 1 + qt.LiuWestResampler.redraw_rounds - rounds
+    assert tests > 1
+    assert pv.psd_valid.launches - launches == tests
+    assert (counters["ops.psd_valid.rows"]
+            == counters["resamplers.LiuWestResampler.tested_rows"]
+            == tests * n)
+    assert bool(model.are_models_valid(new).all())

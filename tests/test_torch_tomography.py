@@ -309,6 +309,28 @@ def test_charpoly_psd_test_matches_jax_and_eigvalsh(name):
         np.asarray(mj.are_models_valid(jnp.asarray(cases)))[decisive])
 
 
+@pytest.mark.parametrize("subnormalized", [False, True])
+@pytest.mark.parametrize("name", ["pauli1", "pauli2", "gm3"])
+def test_psd_valid_on_the_host_is_are_models_valid(name, subnormalized):
+    """``ops.psd_valid`` on a CPU bank is the model's own test, bit for bit
+    (for qubits the LDLᴴ test against the closed form), and so is the
+    diffusive model's on its coordinate view."""
+    from qinfer_tpu_torch.ops.psd_valid import psd_valid
+
+    bj, bt = _pair(name)
+    cases = torch.from_numpy(_validity_cases(bj, 7))
+    cases[-24:, 0] *= torch.linspace(0.7, 1.3, 24)
+    model = tt.TomographyModel(bt, allow_subnormalized=subnormalized)
+    want = model.are_models_valid(cases)
+    assert 0 < int(want.sum()) < len(cases)
+    assert torch.equal(psd_valid(cases, bt, model.psd_tol, subnormalized),
+                       want)
+    bank = torch.cat([cases, torch.ones((len(cases), 1))], dim=1)
+    diffusive = tt.DiffusiveTomographyModel(
+        bt, allow_subnormalized=subnormalized)
+    assert torch.equal(diffusive.are_models_valid(bank), want)
+
+
 @pytest.mark.parametrize("name", ["pauli1", "pauli2", "gm3"])
 def test_canonicalize_matches_jax(name):
     """The closed-form qubit path and the eigh path for d > 2 (an
