@@ -77,7 +77,7 @@ def phase_pick(group, rank, n_local, device):
     rows = slice(rank * n_local, (rank + 1) * n_local)
     one = cs.b2.systematic_expand(log_w, ids, u0=0.37)[rows]
     gathered = cs.par.distributed_systematic_pick(
-        None, log_w[rows], ids[rows], group, u0=0.37)
+        None, log_w[rows], ids[rows], group, use_expand_kernel=True, u0=0.37)
     ring = cs.par.distributed_systematic_pick_ring(
         None, log_w[rows], ids[rows], group, u0=0.37)
     ring_rows = int(torch.count_nonzero(ring != gathered))

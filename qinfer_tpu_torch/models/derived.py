@@ -28,6 +28,7 @@ from ..utils import (
     sample_multinomial,
 )
 from .base import (
+    FiniteOutcomeModel,
     Model,
     _column,
     _expparams_device,
@@ -143,15 +144,9 @@ class BinomialModel(DerivedModel):
                              tail.to(torch.float32)])
         return binomial_tile(pr1_fn), scalars, cols
 
-    def fused_update(self, outcome, log_w, modelparams, expparams,
-                     return_stats=False):
-        """Fused binomial update: the underlying two-outcome model's pr1
-        function inside the binomial log-pmf, in one pass."""
-        from ..ops.fused_update import fused_bayes_update
-
-        tile, scalars, cols = self.fused_spec(outcome, modelparams, expparams)
-        return fused_bayes_update(tile, scalars, log_w, cols,
-                                  return_stats=return_stats)
+    # The one-bank fused update over this class's ``fused_spec``: the
+    # underlying two-outcome model's pr1 inside the binomial log-pmf.
+    fused_update = FiniteOutcomeModel.fused_update
 
     def fused_spec_batched(self, outcomes, modelparams, expparams):
         """The binomial tile for T banks (T, N, D), trial i seeing count

@@ -15,9 +15,13 @@ in one launch (its plain version is ``expand_plain_batched``).
 ``liu_west_expand_batched`` is the bank form with the Liu–West resample's
 prologue: from T banks' log-weights, rows and stratum offsets it computes
 the moments, Σ^{1/2} at D = 1, the systematic starts and the shrunk rows in
-one launch (its plain version is the eager chain it replaces,
-``LiuWestResampler._unfused_centers`` with the expand kernel off);
-``fused_liu_west_route`` says which banks it takes.
+one launch, on CUDA tensors only (its plain version is the eager chain it
+replaces, ``LiuWestResampler._unfused_centers`` with the expand kernel
+off); ``fused_liu_west_route`` says which banks it takes.
+
+B2's input, the integer-quantized systematic segment starts
+(``systematic_segment_starts[_batched]``), is computed here too; the
+resamplers import it under the JAX package's names.
 """
 
 from __future__ import annotations
@@ -26,10 +30,12 @@ import torch
 
 from .. import _build
 from ..profiling import count, span
+from ..utils import cumsum_rows, normalize_log_weights
 
 __all__ = ["expand_sorted_segments", "expand_plain", "systematic_expand",
            "expand_sorted_segments_batched", "expand_plain_batched",
-           "fused_liu_west_route", "liu_west_expand_batched"]
+           "fused_liu_west_route", "liu_west_expand_batched",
+           "systematic_segment_starts", "systematic_segment_starts_batched"]
 
 MAX_TRIALS = 65535  # gridDim.y of the kernel
 ROWS, SPAN, MERGE, BANK = 0, 1, 2, 3  # the kernel's forms (csrc/resample_expand.cu)
@@ -41,6 +47,67 @@ BANK_SEARCH_ROWS = 256   # rows a searched tile writes, on launches of few block
 BANK_SEARCH_BLOCKS = 264  # the most searched tiles a launch takes (two an SM of 132)
 BANK_FEW = 12288         # the largest bank the bank form takes below MERGE_ITEMS
 MERGE_ITEMS = 1 << 19    # merged items T·(n_in + n_out) from which the merge path is taken
+
+
+# Weight-quantization scale of the integer CDF.
+_CDF_QUANT = float(1 << 30)
+
+
+def _check_n_draws(n_draws):
+    if n_draws >= 1 << 24:
+        raise ValueError(
+            "systematic_segment_starts carries starts in f32 — exact only "
+            f"for n_draws < 2^24 (got {n_draws})"
+        )
+
+
+def _starts_from_weights(w, n_draws, u0):
+    """Segment starts over the last axis of normalized weights ``w``, with
+    one stratum offset per row (``u0`` of the leading shape)."""
+    device = w.device
+    q = torch.round(w * _CDF_QUANT).to(torch.int64)
+    icdf = torch.cumsum(q, dim=0) if q.ndim == 1 else cumsum_rows(q)
+    total = torch.clamp(icdf[..., -1], min=1)
+    scale = torch.full((), float(n_draws), device=device) / total.to(
+        torch.float32)
+    t = torch.ceil(icdf.to(torch.float32) * scale[..., None] - u0[..., None])
+    starts = torch.cat([torch.zeros(t.shape[:-1] + (1,), dtype=torch.float32,
+                                    device=device), t[..., :-1]], dim=-1)
+    return torch.clamp(starts, min=0.0).to(torch.int32)
+
+
+def _as_u0(u0, shape, generator, device):
+    if u0 is None:
+        u0 = torch.rand(shape, generator=generator, device=device)
+    elif not isinstance(u0, torch.Tensor):
+        u0 = torch.full(shape, float(u0), device=device)
+    return u0.to(device=device, dtype=torch.float32).reshape(shape)
+
+
+def systematic_segment_starts(log_w, n_draws, u0=None, generator=None):
+    """Sorted int32 segment starts with starts[0] == 0.
+
+    t_j = ceil(n·cdf_j − u0) counts the strata below cdf_j, so particle j
+    covers output slots [t_{j−1}, t_j). The weights are quantized to
+    integers (2⁻³⁰ granularity) and summed exactly, so the starts are
+    sorted by construction. ``u0`` ~ U[0, 1) is drawn from ``generator``
+    unless given (a float or a 0-d tensor).
+    """
+    _check_n_draws(n_draws)
+    w = torch.exp(normalize_log_weights(log_w)[0])
+    return _starts_from_weights(
+        w, n_draws, _as_u0(u0, (), generator, log_w.device))
+
+
+def systematic_segment_starts_batched(log_w, n_draws, u0=None,
+                                      generator=None):
+    """``systematic_segment_starts`` of each of T banks, ``log_w`` (T, N):
+    (T, N) int32, one stratum offset per trial (``u0`` (T,), drawn from
+    ``generator`` unless given)."""
+    _check_n_draws(n_draws)
+    w = torch.exp(log_w - torch.logsumexp(log_w, dim=1, keepdim=True))
+    return _starts_from_weights(
+        w, n_draws, _as_u0(u0, (log_w.shape[0],), generator, log_w.device))
 
 
 def kernel_form(n_cols, n_trials, n_in, n_out):
@@ -281,8 +348,6 @@ def systematic_expand(log_w, values, scale=None, shift=None, u0=None,
     ``u0`` (the one stratum offset) is drawn from ``generator`` unless it
     is given.
     """
-    from ..resamplers import systematic_segment_starts
-
     n = log_w.shape[0]
     with span("qinfer.ops.b2"):
         starts = systematic_segment_starts(log_w, n, u0=u0,
@@ -291,14 +356,12 @@ def systematic_expand(log_w, values, scale=None, shift=None, u0=None,
                                       shift=shift)
 
 
-def fused_liu_west_route(device_type, n_rows, n_cols, use_expand_kernel):
-    """Whether ``LiuWestResampler.batched`` resamples T banks of ``n_rows``
-    × ``n_cols`` through ``liu_west_expand_batched``: on CUDA, unless
-    ``use_expand_kernel`` is False, for banks of 1 to BANK_MAX_ROWS rows
-    (a block a bank) and at most 8 columns. Every other bank takes the
-    eager chain."""
-    return (device_type == "cuda" and use_expand_kernel is not False
-            and 1 <= n_rows <= BANK_MAX_ROWS and 1 <= n_cols <= 8)
+def fused_liu_west_route(device_type, n_rows, n_cols):
+    """Whether ``liu_west_expand_batched`` takes T banks of ``n_rows`` ×
+    ``n_cols`` on a device of ``device_type``: on CUDA, banks of 1 to
+    BANK_MAX_ROWS rows (a block a bank) and at most 8 columns."""
+    return (device_type == "cuda" and 1 <= n_rows <= BANK_MAX_ROWS
+            and 1 <= n_cols <= 8)
 
 
 def _liu_west_cuda(log_w, values, u0, a, h, zero_cov_comp):
@@ -345,16 +408,12 @@ def liu_west_expand_batched(log_w, values, u0, a, h, zero_cov_comp=0.0):
     rows a·x[j(i)] + (1 − a)·μ of ``values`` (T, N, D). Banks of at most
     2048 rows and 8 columns (``fused_liu_west_route``). Returns (centres
     (T, N, D), μ (T, D), Σ (T, D, D), h·Σ^{1/2} (T, 1, 1) at D = 1, else
-    None). On a CPU tensor it runs its plain version, the eager chain
-    (``LiuWestResampler._unfused_centers`` with the expand kernel off),
-    which gives h·Σ^{1/2} at every D."""
+    None). CUDA tensors only: the plain version is the resampler's eager
+    chain, which a CPU bank takes."""
     with span("qinfer.ops.b2"):
         if not values.is_cuda:
-            from ..resamplers import LiuWestResampler
-
-            plain = LiuWestResampler(a=a, h=h, zero_cov_comp=zero_cov_comp,
-                                     use_expand_kernel=False)
-            return plain._unfused_centers(log_w, values, u0, None)
+            raise ValueError("liu_west_expand_batched launches on CUDA "
+                             "tensors only")
         out = _liu_west_cuda(
             log_w.to(torch.float32).contiguous(),
             values.to(torch.float32).contiguous(),

@@ -47,20 +47,18 @@ f32 ``logsumexp`` quantize a weight apart.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.distributed as dist
 
 from ..ops.resample_expand import (
+    _CDF_QUANT,
     _affine,
+    _as_u0,
     expand_plain,
     expand_sorted_segments,
-)
-from ..resamplers import (
-    _CDF_QUANT,
-    LiuWestResampler,
-    _as_u0,
     systematic_segment_starts,
 )
 from ..smc import (
@@ -72,10 +70,12 @@ from ..smc import (
     _outcome_rows,
     _pmax,
     _psum,
+    _recorded,
+    _takes_b1,
+    _zero_weight_reset,
     bayes_risk_fn,
     expected_information_gain_fn,
 )
-from ..utils import sqrtm_psd
 from .mesh import PARTICLE_AXIS
 
 __all__ = [
@@ -202,7 +202,7 @@ def _sharded_segment_starts(log_w_shard, group, u0):
 
 
 def distributed_systematic_pick(generator, log_w_shard, locs_shard, group,
-                                use_expand_kernel=None, u0=None, scale=None,
+                                use_expand_kernel=False, u0=None, scale=None,
                                 shift=None):
     """This rank's n_local rows of a systematic resample of the whole bank,
     (n_local, D), optionally affine-transformed (``scale``/``shift`` as in
@@ -215,8 +215,9 @@ def distributed_systematic_pick(generator, log_w_shard, locs_shard, group,
     window of strata [k·n_local, (k+1)·n_local) is picked from the
     gathered bank with the starts shifted by the window's origin and
     clamped at 0: v[max{j : s_j ≤ i + s0}] = v[max{j : max(s_j − s0, 0) ≤
-    i}]. ``use_expand_kernel``: None takes kernel B2 (n_in = N, n_out =
-    n_local) when the bank is on CUDA, True or False forces it on or off.
+    i}]. ``use_expand_kernel``: True takes kernel B2's wrapper (n_in = N,
+    n_out = n_local; its plain version on a CPU bank), False the plain
+    pick, as in the JAX package (the step passes its resampler's choice).
     A bank of 2^24 rows or more, which one bank refuses (its f32 starts
     are inexact there), gathers the ring's starts
     (``_sharded_segment_starts``) and takes the plain pick, as the JAX
@@ -236,9 +237,7 @@ def distributed_systematic_pick(generator, log_w_shard, locs_shard, group,
             log_w_shard, group, u0), group).reshape(n_global)
     locs_all = _all_gather(locs_shard, group).reshape(n_global, d)
     shifted = torch.clamp(starts_all - dist.get_rank(group) * n_local, min=0)
-    use_expand = (locs_shard.is_cuda if use_expand_kernel is None
-                  else bool(use_expand_kernel))
-    if use_expand and exact:
+    if use_expand_kernel and exact:
         return expand_sorted_segments(shifted, locs_all, n_out=n_local,
                                       scale=scale, shift=shift)
     return expand_plain(shifted, locs_all, n_local,
@@ -302,52 +301,28 @@ def _migration(migration, n_global, d):
 
 def _sharded_resample(model, resampler, generator, locs, log_w, group,
                       migration):
-    """The Liu–West resample of this rank's block: the sharded moments,
-    Σ^{1/2} by ``sqrtm_psd``, the distributed pick with the shrinkage
-    affine, the smear from the rank's own generator and postselection
-    while any rank holds an invalid row."""
+    """The Liu–West resample of this rank's block, through the resampler's
+    own steps: its moments from the sharded ones, the distributed pick
+    with its shrinkage affine, its smear from the rank's own generator and
+    its postselection while any rank holds an invalid row (one all-reduce
+    and host read a test)."""
     n_local, d = locs.shape
-    mu, cov = sharded_moments(log_w, locs, group)
-    h = resampler._h
-    S = sqrtm_psd((h * h) * (cov + resampler.zero_cov_comp * torch.eye(
-        d, dtype=cov.dtype, device=cov.device)))
-    affine = dict(scale=resampler.a, shift=(1.0 - resampler.a) * mu)
+    mu, _, S = resampler._moments(
+        log_w, locs, functools.partial(sharded_moments, group=group))
+    scale, shift = resampler._shrinkage(mu)
     n_global = n_local * dist.get_world_size(group)
     if _migration(migration, n_global, d) == "ring":
-        centers = distributed_systematic_pick_ring(generator, log_w, locs,
-                                                   group, **affine)
+        centers = distributed_systematic_pick_ring(
+            generator, log_w, locs, group, scale=scale, shift=shift)
     else:
         centers = distributed_systematic_pick(
             generator, log_w, locs, group,
-            use_expand_kernel=resampler.use_expand_kernel, **affine)
+            use_expand_kernel=resampler._expand_kernel_on(locs.device),
+            scale=scale, shift=shift)
     rank_gen = _rank_generator(generator, group)
-
-    def draw():
-        if resampler.kernel is not None:
-            noise = resampler.kernel(rank_gen, (n_local, d))
-        else:
-            noise = torch.randn((n_local, d), generator=rank_gen,
-                                device=locs.device)
-        return centers + noise @ S.T
-
-    new_locs = draw()
-    if not resampler.postselect:
-        return new_locs
-    ok = model.are_models_valid(new_locs)
-    for _ in range(resampler.maxiter):
-        # One all-reduce and host read a round: while ANY rank has an
-        # invalid row, every rank redraws.
-        if int(_psum(torch.sum(~ok), group)) == 0:
-            break
-        LiuWestResampler.redraw_rounds += 1
-        fresh = draw()
-        fresh_ok = model.are_models_valid(fresh)
-        new_locs = torch.where((~ok & fresh_ok)[:, None], fresh, new_locs)
-        ok = ok | fresh_ok
-    bad = torch.nonzero(~ok).squeeze(1)  # this rank's stragglers
-    if bad.numel() == 0:
-        return new_locs
-    return new_locs.index_copy(0, bad, model.canonicalize(new_locs[bad]))
+    return resampler._postselect(
+        model, lambda: resampler._smear(rank_gen, centers, S),
+        _all_valid=lambda ok: int(_psum(torch.sum(~ok), group)) == 0)
 
 
 def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
@@ -380,7 +355,6 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
         raise ValueError(f"unknown migration {migration!r}; expected 'auto', "
                          "'all_gather' or 'ring'")
     group = mesh.get_group(PARTICLE_AXIS)
-    supported = getattr(model, "fused_update_supported", False)
     time_dependent = _is_time_dependent(model)
 
     def step(state: SMCState, outcome, expparams):
@@ -393,10 +367,7 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
         expparams = _expparams_to(expparams, device)
         outcome_arr = _outcome_rows(
             model, torch.as_tensor(outcome, device=device))[:1]
-        use_fused = supported and (
-            config.use_fused_update if config.use_fused_update is not None
-            else log_w.is_cuda)
-        if use_fused:
+        if _takes_b1(model, config, log_w):
             lw_new, lse_loc, lse2_loc = model.fused_update(
                 outcome_arr[0], log_w, locs, expparams, return_stats=True)
             log_norm = _merge_lse(lse_loc, group)
@@ -412,17 +383,10 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
             lw_norm = lw_new - log_norm
             ess = None
 
-        is_zero = log_norm < math.log(config.zero_weight_thresh)
-        reset = config.zero_weight_policy == "reset"
-        if reset:
-            lw_norm = torch.where(
-                is_zero, torch.full_like(lw_norm, -math.log(n_global)),
-                lw_norm)
+        lw_norm, ess, is_zero = _zero_weight_reset(config, lw_norm, log_norm,
+                                                   ess, n_global)
         if ess is None:
             ess = sharded_ess(lw_norm, group)
-        elif reset:
-            ess = torch.where(is_zero, torch.full((), float(n_global),
-                                                  device=device), ess)
         # The host read of the step; ess is all-reduced, so every rank
         # takes the same branch.
         need = bool(ess < config.resample_thresh * n_global)
@@ -431,17 +395,13 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
                                      lw_norm, group, migration)
             lw_norm = torch.full((n_local,), -math.log(n_global),
                                  dtype=torch.float32, device=device)
-        state = dataclasses.replace(
-            state,
+        state = _recorded(
+            state, log_norm, ess, is_zero,
             particle_locations=locs,
             particle_log_weights=lw_norm,
             n_resamples=state.n_resamples + int(need),
-            min_n_ess=torch.minimum(state.min_n_ess, ess),
-            log_total_likelihood=state.log_total_likelihood + log_norm,
             just_resampled=torch.full((), need, dtype=torch.bool,
                                       device=device),
-            n_zero_weight_events=state.n_zero_weight_events + is_zero.to(
-                torch.int32),
         )
         if time_dependent:
             me = dist.get_rank(group)

@@ -1,11 +1,13 @@
 """Resamplers on torch tensors.
 
 Counterpart of ``qinfer_tpu/resamplers.py``: the integer-quantized
-systematic segment starts, the systematic and multinomial index draws,
-``LiuWestResampler`` and the host-side ``ClusteringResampler``. Randomness
-comes from an explicit ``torch.Generator``; the stratum offset ``u0`` and
-the smear noise (the ``kernel=`` hook) can be injected, which is how the
-tests feed both packages the same draws.
+systematic segment starts (kernel B2's input, computed in
+``ops.resample_expand`` and exported here), the systematic and multinomial
+index draws, ``LiuWestResampler`` and the host-side
+``ClusteringResampler``. Randomness comes from an explicit
+``torch.Generator``; the stratum offset ``u0`` and the smear noise (the
+``kernel=`` hook) can be injected, which is how the tests feed both
+packages the same draws.
 
 Not ported, on purpose: ``systematic_pick_blocked`` and the three-level
 ``exact_int_cumsum`` exist for the TPU's slow gathers and scans. Here the
@@ -23,15 +25,17 @@ import torch
 
 from .ops.resample_expand import (
     _affine_batched,
+    _as_u0,
     expand_plain_batched,
     expand_sorted_segments_batched,
     fused_liu_west_route,
     liu_west_expand_batched,
     systematic_expand,
+    systematic_segment_starts,
+    systematic_segment_starts_batched,
 )
 from .profiling import count, span
 from .utils import (
-    cumsum_rows,
     normalize_log_weights,
     sqrtm_psd,
     weighted_moments,
@@ -47,66 +51,6 @@ __all__ = [
     "systematic_resample_indices",
     "multinomial_resample_indices",
 ]
-
-# Weight-quantization scale of the integer CDF.
-_CDF_QUANT = float(1 << 30)
-
-
-def _check_n_draws(n_draws):
-    if n_draws >= 1 << 24:
-        raise ValueError(
-            "systematic_segment_starts carries starts in f32 — exact only "
-            f"for n_draws < 2^24 (got {n_draws})"
-        )
-
-
-def _starts_from_weights(w, n_draws, u0):
-    """Segment starts over the last axis of normalized weights ``w``, with
-    one stratum offset per row (``u0`` of the leading shape)."""
-    device = w.device
-    q = torch.round(w * _CDF_QUANT).to(torch.int64)
-    icdf = torch.cumsum(q, dim=0) if q.ndim == 1 else cumsum_rows(q)
-    total = torch.clamp(icdf[..., -1], min=1)
-    scale = torch.full((), float(n_draws), device=device) / total.to(
-        torch.float32)
-    t = torch.ceil(icdf.to(torch.float32) * scale[..., None] - u0[..., None])
-    starts = torch.cat([torch.zeros(t.shape[:-1] + (1,), dtype=torch.float32,
-                                    device=device), t[..., :-1]], dim=-1)
-    return torch.clamp(starts, min=0.0).to(torch.int32)
-
-
-def _as_u0(u0, shape, generator, device):
-    if u0 is None:
-        u0 = torch.rand(shape, generator=generator, device=device)
-    elif not isinstance(u0, torch.Tensor):
-        u0 = torch.full(shape, float(u0), device=device)
-    return u0.to(device=device, dtype=torch.float32).reshape(shape)
-
-
-def systematic_segment_starts(log_w, n_draws, u0=None, generator=None):
-    """Sorted int32 segment starts with starts[0] == 0.
-
-    t_j = ceil(n·cdf_j − u0) counts the strata below cdf_j, so particle j
-    covers output slots [t_{j−1}, t_j). The weights are quantized to
-    integers (2⁻³⁰ granularity) and summed exactly, so the starts are
-    sorted by construction. ``u0`` ~ U[0, 1) is drawn from ``generator``
-    unless given (a float or a 0-d tensor).
-    """
-    _check_n_draws(n_draws)
-    w = torch.exp(normalize_log_weights(log_w)[0])
-    return _starts_from_weights(
-        w, n_draws, _as_u0(u0, (), generator, log_w.device))
-
-
-def systematic_segment_starts_batched(log_w, n_draws, u0=None,
-                                      generator=None):
-    """``systematic_segment_starts`` of each of T banks, ``log_w`` (T, N):
-    (T, N) int32, one stratum offset per trial (``u0`` (T,), drawn from
-    ``generator`` unless given)."""
-    _check_n_draws(n_draws)
-    w = torch.exp(log_w - torch.logsumexp(log_w, dim=1, keepdim=True))
-    return _starts_from_weights(
-        w, n_draws, _as_u0(u0, (log_w.shape[0],), generator, log_w.device))
 
 
 def systematic_resample_indices(log_w, n_draws=None, u0=None, generator=None):
@@ -127,6 +71,10 @@ def multinomial_resample_indices(log_w, n_draws=None, generator=None):
     w = torch.exp(normalize_log_weights(log_w)[0])
     return torch.multinomial(w, n_draws, replacement=True,
                              generator=generator)
+
+
+def _all_true(ok):
+    return bool(ok.all())
 
 
 class Resampler:
@@ -183,18 +131,14 @@ class LiuWestResampler(Resampler):
         with span("qinfer.resamplers.resample"):
             locs = particle_locations
             log_w = particle_log_weights
-            n, d = locs.shape
             mu, _, S = self._moments(log_w, locs, weighted_moments)
-
-            use_expand = (locs.is_cuda if self.use_expand_kernel is None
-                          else bool(self.use_expand_kernel))
-            if use_expand:
+            scale, shift = self._shrinkage(mu)
+            if self._expand_kernel_on(locs.device):
                 # Kernel B2 on CUDA: the pick and the shrinkage affine in one
                 # pass over the bank.
-                centers = systematic_expand(
-                    log_w, locs, scale=self.a, shift=(1.0 - self.a) * mu,
-                    u0=u0, generator=generator,
-                )
+                centers = systematic_expand(log_w, locs, scale=scale,
+                                            shift=shift, u0=u0,
+                                            generator=generator)
             else:
                 # The pick in plain torch, under B2's span all the same.
                 with span("qinfer.ops.b2"):
@@ -204,21 +148,37 @@ class LiuWestResampler(Resampler):
                     else:
                         idx = multinomial_resample_indices(log_w,
                                                            generator=generator)
-                    centers = self.a * locs[idx] + (1.0 - self.a) * mu[None, :]
+                    centers = scale * locs[idx] + shift[None, :]
+            return self._postselect(
+                model, lambda: self._smear(generator, centers, S))
 
-            def draw():
-                if self.kernel is not None:
-                    noise = self.kernel(generator, (n, d))
-                else:
-                    noise = torch.randn((n, d), generator=generator,
-                                        device=locs.device)
-                return centers + noise @ S.T
+    def _expand_kernel_on(self, device):
+        """Whether the pick takes kernel B2's wrapper (which runs its plain
+        version on a CPU bank): ``use_expand_kernel``, or when it is None,
+        whether the bank's ``device`` is a CUDA device."""
+        if self.use_expand_kernel is None:
+            return device.type == "cuda"
+        return bool(self.use_expand_kernel)
 
-            return self._postselect(model, draw)
+    def _shrinkage(self, mu):
+        """The affine of the Liu–West pick, x ↦ a·x + (1 − a)·μ, as (scale,
+        shift) of one bank's μ (D,) or T banks' (T, D)."""
+        return self.a, (1.0 - self.a) * mu
+
+    def _smear(self, generator, centers, S):
+        """``centers`` + ε·Sᵀ, with ε standard normal of ``centers``' shape
+        from ``kernel`` or ``generator``: a product of one bank is an
+        ``mm``, of T banks (T, N, D) a ``bmm``."""
+        if self.kernel is not None:
+            noise = self.kernel(generator, tuple(centers.shape))
+        else:
+            noise = torch.randn(centers.shape, generator=generator,
+                                device=centers.device)
+        return centers + noise @ S.transpose(-2, -1)
 
     def _moments(self, log_w, locs, moments):
-        """The weighted mean, Σ + ``zero_cov_comp``·I and h·Σ^{1/2} (one bank
-        or T banks)."""
+        """The weighted mean, Σ + ``zero_cov_comp``·I and h·Σ^{1/2} (one bank,
+        T banks or, with the sharded moments, a rank's block)."""
         with span("qinfer.resamplers.moments"):
             mu, cov = moments(log_w, locs)
             d = locs.shape[-1]
@@ -236,14 +196,15 @@ class LiuWestResampler(Resampler):
         """The resample of T banks at once: ``particle_locations`` (T, N,
         D), ``particle_log_weights`` (T, N), ``u0`` (T,) or None. Per trial
         the same steps as ``__call__`` (its own moments, its own
-        Σ^{1/2}, its own stratum offset). On CUDA, banks of at most 2048
-        rows and 8 columns take one launch of ``liu_west_expand_batched``,
-        which computes the moments, Σ^{1/2} at D = 1 and the starts itself
-        (``fused_liu_west_route``); other banks take the eager chain, with
-        kernel B2 for all trials in one launch on CUDA, its plain version on
-        the CPU or when ``use_expand_kernel`` is False. Either way ``u0`` is
-        drawn first, then the smear noise (T, N, D), from ``kernel`` when
-        given; postselection tests the flattened (T·N, D) bank.
+        Σ^{1/2}, its own stratum offset). Where the pick takes kernel B2,
+        banks of at most 2048 rows and 8 columns on CUDA take one launch of
+        ``liu_west_expand_batched``, which computes the moments, Σ^{1/2} at
+        D = 1 and the starts itself (``fused_liu_west_route``); other banks
+        take the eager chain, with kernel B2 for all trials in one launch
+        on CUDA, its plain version on the CPU or when ``use_expand_kernel``
+        is False. Either way ``u0`` is drawn first, then the smear noise
+        (T, N, D), from ``kernel`` when given; postselection tests the
+        flattened (T·N, D) bank.
         Returns the new (T, N, D) locations."""
         with span("qinfer.resamplers.resample"):
             locs = particle_locations
@@ -252,8 +213,8 @@ class LiuWestResampler(Resampler):
             if not self.use_systematic:
                 raise NotImplementedError(
                     "the batched resample draws systematic strata only")
-            if fused_liu_west_route(locs.device.type, n, d,
-                                    self.use_expand_kernel):
+            if self._expand_kernel_on(locs.device) and fused_liu_west_route(
+                    locs.device.type, n, d):
                 u0 = _as_u0(u0, (n_trials,), generator, locs.device)
                 centers, _, cov, S = liu_west_expand_batched(
                     log_w, locs, u0, self.a, self._h, self.zero_cov_comp)
@@ -265,16 +226,10 @@ class LiuWestResampler(Resampler):
                 count("resamplers.LiuWestResampler.unfused_batched")
                 centers, _, _, S = self._unfused_centers(log_w, locs, u0,
                                                          generator)
-
-            def draw():
-                if self.kernel is not None:
-                    noise = self.kernel(generator, (n_trials, n, d))
-                else:
-                    noise = torch.randn((n_trials, n, d), generator=generator,
-                                        device=locs.device)
-                return (centers + noise @ S.transpose(1, 2)).reshape(-1, d)
-
-            return self._postselect(model, draw).reshape(n_trials, n, d)
+            return self._postselect(
+                model,
+                lambda: self._smear(generator, centers, S).reshape(-1, d),
+            ).reshape(n_trials, n, d)
 
     def _unfused_centers(self, log_w, locs, u0, generator):
         """The eager chain of ``batched``: (the shrunk picks (T, N, D), μ
@@ -286,19 +241,23 @@ class LiuWestResampler(Resampler):
         with span("qinfer.ops.b2"):
             starts = systematic_segment_starts_batched(
                 log_w, n, u0=u0, generator=generator)
-            shift = (1.0 - self.a) * mu
-            if self.use_expand_kernel is False:
-                affine = _affine_batched(self.a, shift, n_trials, d,
+            scale, shift = self._shrinkage(mu)
+            if self._expand_kernel_on(locs.device):
+                centers = expand_sorted_segments_batched(
+                    starts, locs, scale=scale, shift=shift)
+            else:
+                affine = _affine_batched(scale, shift, n_trials, d,
                                          locs.device)
                 centers = expand_plain_batched(starts, locs, n, affine)
-            else:
-                centers = expand_sorted_segments_batched(
-                    starts, locs, scale=self.a, shift=shift)
         return centers, mu, cov, S
 
-    def _postselect(self, model, draw):
-        """``draw()``'s rows, each redrawn while invalid (bounded) and
-        clamped by ``model.canonicalize`` if still invalid."""
+    def _postselect(self, model, draw, _all_valid=_all_true):
+        """``draw()``'s rows, each redrawn while invalid (at most ``maxiter``
+        rounds) and clamped by ``model.canonicalize`` if still invalid.
+        ``_all_valid(ok)`` reads on the host whether every row is valid: of
+        one bank or T, ``ok.all()``; a rank's block of a sharded bank passes
+        an all-reduced test, so that every rank redraws while any rank holds
+        an invalid row, and a rank may then hold no straggler to clamp."""
         with span("qinfer.resamplers.postselect"):
             new_locs = draw()
             if not self.postselect:
@@ -308,7 +267,7 @@ class LiuWestResampler(Resampler):
             # host sync per check: the common case costs one).
             ok = self._valid(model, new_locs)
             with span("qinfer.sync.postselect"):
-                all_ok = bool(ok.all())
+                all_ok = _all_valid(ok)
             for _ in range(self.maxiter):
                 if all_ok:
                     break
@@ -320,7 +279,7 @@ class LiuWestResampler(Resampler):
                 new_locs = torch.where(take[:, None], fresh, new_locs)
                 ok = ok | fresh_ok
                 with span("qinfer.sync.postselect"):
-                    all_ok = bool(ok.all())
+                    all_ok = _all_valid(ok)
             if all_ok:
                 return new_locs
             # Clamp the stragglers to the valid region. canonicalize is
@@ -329,6 +288,8 @@ class LiuWestResampler(Resampler):
             with span("qinfer.sync.postselect"):
                 bad = torch.nonzero(~ok).squeeze(1)
             count("resamplers.LiuWestResampler.clamped_rows", bad.shape[0])
+            if bad.numel() == 0:
+                return new_locs
             with span("qinfer.resamplers.clamp"):
                 return new_locs.index_copy(0, bad,
                                            model.canonicalize(new_locs[bad]))

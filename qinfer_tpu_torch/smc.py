@@ -248,10 +248,12 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
     """
     with span("qinfer.smc.step"):
         with span("qinfer.smc.update"):
-            state, log_norm, ess = _bayes_update(model, config, state,
-                                                 outcome, expparams)
-        device = state.particle_log_weights.device
-        n = state.particle_log_weights.shape[0]
+            log_w, log_norm, ess, is_zero = _bayes_update(
+                model, config, state, outcome, expparams)
+            state = _recorded(state, log_norm, ess, is_zero,
+                              particle_log_weights=log_w)
+        device = log_w.device
+        n = log_w.shape[0]
         count("smc.steps")
 
         # The one host sync of the step (lax.cond in the JAX package).
@@ -275,51 +277,96 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
         return state, log_norm
 
 
-def _bayes_update(model, config, state, outcome, expparams):
-    """The Bayes update of one bank through the zero-weight reset: (state
-    with the new weights and records, log_norm, ess)."""
+def _takes_b1(model, config, log_w):
+    """Whether the Bayes update of the bank ``log_w`` runs kernel B1 (its
+    plain version on the CPU): the model has a B1 tile and
+    ``use_fused_update`` is True, or None with the bank on CUDA."""
+    if not getattr(model, "fused_update_supported", False):
+        return False
+    if config.use_fused_update is None:
+        return log_w.is_cuda
+    return bool(config.use_fused_update)
+
+
+def _per_bank(x):
+    """A value of each bank, () or (T,), shaped to broadcast over its
+    bank's weights, (N,) or (T, N)."""
+    return x if x.ndim == 0 else x[:, None]
+
+
+def _bayes_update(model, config, state, outcomes, expparams):
+    """The Bayes update of one bank, log-weights (N,), or of T banks, (T,
+    N), over the last axis, through the zero-weight reset: (the normalized
+    log-weights, log_norm, ess, is_zero), each of the last three () or
+    (T,). The shape picks the likelihood call alone: of one bank B1's
+    ``model.fused_update`` or ``model.log_likelihood`` of the one outcome;
+    of T banks B1's batched launch or the likelihood trial by trial, trial
+    i seeing ``outcomes[i]`` of experiment i."""
     log_w = state.particle_log_weights
     locs = state.particle_locations
-    device = log_w.device
-    outcome_arr = _outcome_rows(model, torch.as_tensor(outcome,
-                                                       device=device))[:1]
-    use_fused = getattr(model, "fused_update_supported", False) and (
-        config.use_fused_update
-        if config.use_fused_update is not None
-        else log_w.is_cuda
-    )
-    if use_fused:
-        log_w_norm, log_norm, ess = model.fused_update(
-            outcome_arr[0], log_w, locs, expparams
-        )
-    else:
-        log_L = model.log_likelihood(outcome_arr, locs, expparams)[0, :, 0]
-        log_L = torch.clamp(log_L, min=_LOG_TINY)  # lower only
-        log_w_new = log_w + log_L
-        # One shared max feeds both reductions: ESS = s1²/s2.
-        m = torch.max(log_w_new)
-        shifted = torch.exp(log_w_new - m)
-        s1 = torch.sum(shifted)
-        s2 = torch.sum(shifted * shifted)
-        log_norm = m + torch.log(s1)
-        log_w_norm = log_w_new - log_norm
-        ess = s1 * s1 / s2
+    batched = log_w.ndim == 2
+    outcomes = _outcome_rows(model, torch.as_tensor(outcomes,
+                                                    device=log_w.device))
+    if _takes_b1(model, config, log_w):
+        if batched:
+            from .ops.fused_update import fused_bayes_update_batched
 
-    n = log_w.shape[0]
+            tile, scalars, cols = model.fused_spec_batched(outcomes, locs,
+                                                           expparams)
+            log_w_norm, log_norm, ess = fused_bayes_update_batched(
+                tile, scalars, log_w, cols)
+        else:
+            log_w_norm, log_norm, ess = model.fused_update(
+                outcomes[0], log_w, locs, expparams)
+    else:
+        if batched:
+            log_L = _batched_log_likelihood(model, outcomes, locs, expparams)
+        else:
+            log_L = model.log_likelihood(outcomes[:1], locs,
+                                         expparams)[0, :, 0]
+        log_w_new = log_w + torch.clamp(log_L, min=_LOG_TINY)  # lower only
+        # One shared max feeds both reductions: ESS = s1²/s2.
+        m = torch.amax(log_w_new, dim=-1)
+        shifted = torch.exp(log_w_new - _per_bank(m))
+        s1 = torch.sum(shifted, dim=-1)
+        s2 = torch.sum(shifted * shifted, dim=-1)
+        log_norm = m + torch.log(s1)
+        log_w_norm = log_w_new - _per_bank(log_norm)
+        ess = s1 * s1 / s2
+    log_w_norm, ess, is_zero = _zero_weight_reset(
+        config, log_w_norm, log_norm, ess, log_w.shape[-1])
+    return log_w_norm, log_norm, ess, is_zero
+
+
+def _zero_weight_reset(config, log_w_norm, log_norm, ess, n):
+    """The zero-weight test of each bank (its evidence below
+    ``zero_weight_thresh``) and, under the 'reset' policy, such a bank's
+    weights made uniform over ``n`` particles and its ESS set to n:
+    (log_w_norm, ess, is_zero). An ``ess`` of None stays None (the sharded
+    unfused update takes it from the reset weights)."""
     is_zero = log_norm < math.log(config.zero_weight_thresh)
     if config.zero_weight_policy == "reset":
-        log_w_norm = torch.where(is_zero, _uniform_log_weights(n, device),
-                                 log_w_norm)
-        ess = torch.where(is_zero, torch.full((), float(n), device=device), ess)
-    state = dataclasses.replace(
+        device = log_w_norm.device
+        uniform = torch.full(log_w_norm.shape[-1:], -math.log(n),
+                             dtype=torch.float32, device=device)
+        log_w_norm = torch.where(_per_bank(is_zero), uniform, log_w_norm)
+        if ess is not None:
+            ess = torch.where(is_zero, torch.full((), float(n), device=device),
+                              ess)
+    return log_w_norm, ess, is_zero
+
+
+def _recorded(state, log_norm, ess, is_zero, **fields):
+    """``state`` with ``fields`` replaced and the update's record kept: the
+    evidence summed, the least ESS and the zero-weight events counted."""
+    return dataclasses.replace(
         state,
-        particle_log_weights=log_w_norm,
         log_total_likelihood=state.log_total_likelihood + log_norm,
         min_n_ess=torch.minimum(state.min_n_ess, ess),
         n_zero_weight_events=state.n_zero_weight_events + is_zero.to(
             torch.int32),
+        **fields,
     )
-    return state, log_norm, ess
 
 
 def _batched_log_likelihood(model, outcomes, locs, expparams):
@@ -349,10 +396,16 @@ def smc_update_step_batched(model, resampler, config: SMCConfig,
     """
     with span("qinfer.smc.step"):
         with span("qinfer.smc.update"):
-            state, log_norm, need = _bayes_update_batched(
+            log_w, log_norm, ess, is_zero = _bayes_update(
                 model, config, state, outcomes, expparams)
-        device = state.particle_log_weights.device
-        n_trials, n = state.particle_log_weights.shape
+            n_trials, n = log_w.shape
+            need = ess < config.resample_thresh * n
+            state = _recorded(state, log_norm, ess, is_zero,
+                              particle_log_weights=log_w,
+                              n_resamples=state.n_resamples + need.to(
+                                  torch.int32),
+                              just_resampled=need)
+        device = log_w.device
         count("smc.steps")
 
         # The one host sync of the step: which trials resample.
@@ -382,60 +435,6 @@ def smc_update_step_batched(model, resampler, config: SMCConfig,
                 state, particle_locations=torch.stack(walked))
 
         return state, log_norm
-
-
-def _bayes_update_batched(model, config, state, outcomes, expparams):
-    """The Bayes update of T banks through the zero-weight reset: (state
-    with the new weights, records and resample mask, log_norm (T,), the
-    mask (T,))."""
-    log_w = state.particle_log_weights  # (T, N)
-    locs = state.particle_locations  # (T, N, D)
-    device = log_w.device
-    n_trials, n = log_w.shape
-    outcomes = _outcome_rows(model, torch.as_tensor(outcomes, device=device))
-    use_fused = getattr(model, "fused_update_supported", False) and (
-        config.use_fused_update
-        if config.use_fused_update is not None
-        else log_w.is_cuda
-    )
-    if use_fused:
-        from .ops.fused_update import fused_bayes_update_batched
-
-        tile, scalars, cols = model.fused_spec_batched(outcomes, locs,
-                                                       expparams)
-        log_w_norm, log_norm, ess = fused_bayes_update_batched(
-            tile, scalars, log_w, cols)
-    else:
-        log_L = torch.clamp(
-            _batched_log_likelihood(model, outcomes, locs, expparams),
-            min=_LOG_TINY)
-        log_w_new = log_w + log_L
-        m = torch.amax(log_w_new, dim=1, keepdim=True)
-        shifted = torch.exp(log_w_new - m)
-        s1 = torch.sum(shifted, dim=1)
-        s2 = torch.sum(shifted * shifted, dim=1)
-        log_norm = m[:, 0] + torch.log(s1)
-        log_w_norm = log_w_new - log_norm[:, None]
-        ess = s1 * s1 / s2
-
-    is_zero = log_norm < math.log(config.zero_weight_thresh)  # (T,)
-    if config.zero_weight_policy == "reset":
-        log_w_norm = torch.where(is_zero[:, None],
-                                 _uniform_log_weights(n, device), log_w_norm)
-        ess = torch.where(is_zero, torch.full((), float(n), device=device),
-                          ess)
-    need = ess < config.resample_thresh * n
-    state = dataclasses.replace(
-        state,
-        particle_log_weights=log_w_norm,
-        log_total_likelihood=state.log_total_likelihood + log_norm,
-        min_n_ess=torch.minimum(state.min_n_ess, ess),
-        n_zero_weight_events=state.n_zero_weight_events + is_zero.to(
-            torch.int32),
-        n_resamples=state.n_resamples + need.to(torch.int32),
-        just_resampled=need,
-    )
-    return state, log_norm, need
 
 
 def _is_time_dependent(model) -> bool:

@@ -17,11 +17,13 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 import qinfer_tpu_torch as qt  # noqa: E402
 from qinfer_tpu_torch import parallel as par  # noqa: E402
+from qinfer_tpu_torch import profiling  # noqa: E402
 from qinfer_tpu_torch import tomography as tomo  # noqa: E402
 from qinfer_tpu_torch.interop import (  # noqa: E402
     shard_from_numpy,
@@ -159,6 +161,27 @@ def run(out, rank, world):
              lw=state.particle_log_weights.numpy(),
              lw_pre=lw_pre.particle_log_weights.numpy(),
              **scalars(state, log_norm))
+
+    # The smeared resample again under a profiler: the resampler's spans
+    # and counters on every rank.
+    step = par.make_sharded_update_step(mesh, model, qt.LiuWestResampler(),
+                                        forced)
+    with profile(activities=[ProfilerActivity.CPU]):
+        state, _ = step(bank(seed=7, lw=inp["skew_lw"]), 0, ep_r)
+    rec = profiling.recorded()
+    spans = rec["spans"]
+    save("resample_profiled", locs=state.particle_locations.numpy(),
+         tested_rows=np.int64(rec["counters"].get(
+             "resamplers.LiuWestResampler.tested_rows", 0)),
+         **{f"count_{name}": np.int64(spans[name]["count"] if name in spans
+                                      else 0)
+            for name in ("qinfer.resamplers.postselect",
+                         "qinfer.resamplers.moments",
+                         "qinfer.resamplers.valid",
+                         "qinfer.sync.postselect")},
+         valid_under_postselect=np.int64(
+             spans.get("qinfer.resamplers.valid", {"parents": {}})
+             ["parents"].get("qinfer.resamplers.postselect", 0)))
 
     # Two spikes at global rows 10 and 100 (weights 0.75, 0.25).
     w = np.full(n, 1e-30)

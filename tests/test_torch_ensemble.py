@@ -355,9 +355,10 @@ def test_batched_step_resets_zero_weight_trials_alone():
 
 
 def test_batched_resample_goes_through_the_b2_wrapper(monkeypatch):
-    """``LiuWestResampler.batched`` calls the batched B2 wrapper once (on
-    the CPU the wrapper runs its plain version), and
-    ``use_expand_kernel=False`` gives the same cloud bit for bit."""
+    """``LiuWestResampler.batched`` with ``use_expand_kernel=True`` calls
+    the batched B2 wrapper once (on the CPU the wrapper runs its plain
+    version); None (the plain pick on a CPU bank) and False give the same
+    cloud bit for bit."""
     import qinfer_tpu_torch.resamplers as trs
 
     rng = np.random.default_rng(5)
@@ -374,21 +375,25 @@ def test_batched_resample_goes_through_the_b2_wrapper(monkeypatch):
     monkeypatch.setattr(trs, "expand_sorted_segments_batched", spy)
     model = qt.MultiCosModel(n_terms=2)
     out = {}
-    for use in (None, False):
+    for use in (True, None, False):
         rs = qt.LiuWestResampler(kernel=_Noise(noise, slice(None)),
                                  postselect=False, use_expand_kernel=use)
         out[use] = rs.batched(None, model, locs, lw, u0=u0)
     assert calls == [(3, 1024)]
-    assert torch.equal(out[None], out[False])
+    assert torch.equal(out[True], out[None])
+    assert torch.equal(out[True], out[False])
 
 
 @pytest.mark.parametrize("d", [1, 2])
 def test_fused_route_draws_as_the_eager_chain(monkeypatch, d):
-    """With the fused route forced on a CPU bank (the wrapper then runs its
-    plain version), ``batched`` draws u0 first and the noise after, as the
-    eager chain does, so one generator state gives the same cloud bit for
-    bit; the wrapper gets the resampler's a, h and covariance floor, and
-    only the eager chain counts as unfused."""
+    """With kernel B2 and the fused route forced on a CPU bank (the
+    wrapper, which launches on CUDA tensors only, stands in by its plain
+    version: the resampler's eager chain with the expand kernel off),
+    ``batched`` draws
+    u0 first and the noise after, as the eager chain does, so one
+    generator state gives the same cloud bit for bit; the wrapper gets the
+    resampler's a, h and covariance floor, and only the eager chain counts
+    as unfused."""
     import qinfer_tpu_torch.resamplers as trs
 
     rng = np.random.default_rng(9)
@@ -396,9 +401,11 @@ def test_fused_route_draws_as_the_eager_chain(monkeypatch, d):
     lw = torch.from_numpy(rng.standard_normal((3, 512)).astype(np.float32))
     calls = []
 
-    def spy(*args):
-        calls.append(args[3:])
-        return tre.liu_west_expand_batched(*args)
+    def spy(log_w, values, u0, a, h, zero_cov_comp):
+        calls.append((a, h, zero_cov_comp))
+        plain = qt.LiuWestResampler(a=a, h=h, zero_cov_comp=zero_cov_comp,
+                                    use_expand_kernel=False)
+        return plain._unfused_centers(log_w, values, u0, None)
 
     monkeypatch.setattr(trs, "liu_west_expand_batched", spy)
     out, unfused = {}, {}
@@ -407,7 +414,7 @@ def test_fused_route_draws_as_the_eager_chain(monkeypatch, d):
                             lambda *args, fused=fused: fused)
         before = qt.LiuWestResampler.unfused_batched
         rs = qt.LiuWestResampler(a=0.95, postselect=False,
-                                 zero_cov_comp=1e-4)
+                                 zero_cov_comp=1e-4, use_expand_kernel=True)
         out[fused] = rs.batched(torch.Generator().manual_seed(11), None, locs,
                                 lw)
         unfused[fused] = qt.LiuWestResampler.unfused_batched - before

@@ -17,6 +17,7 @@ import ctypes
 import pytest
 import torch
 
+import qinfer_tpu_torch as qt
 from qinfer_tpu_torch import _build
 
 from qinfer_tpu_torch.ops import fused_update as b1
@@ -369,8 +370,13 @@ def test_expand_wrappers_launch_their_form(fake_lib, n_trials, n, d, form,
 ])
 def test_fused_liu_west_route(device_type, n, d, use, fused):
     """The batched resample's route is a function of the device type, the
-    bank's rows and columns and ``use_expand_kernel`` alone."""
-    assert b2.fused_liu_west_route(device_type, n, d, use) is fused
+    bank's rows and columns and ``use_expand_kernel`` alone: the
+    resampler's own choice of kernel B2 (``use_expand_kernel``, or a CUDA
+    device when None), then what the kernel takes."""
+    resampler = qt.LiuWestResampler(use_expand_kernel=use)
+    takes_b2 = resampler._expand_kernel_on(torch.device(device_type))
+    assert takes_b2 is (use if use is not None else device_type == "cuda")
+    assert (takes_b2 and b2.fused_liu_west_route(device_type, n, d)) is fused
 
 
 @pytest.mark.parametrize("n_trials,n,d", [(74, 2048, 1), (3, 37, 4),
@@ -401,6 +407,18 @@ def test_fused_liu_west_refuses_what_it_cannot_take(fake_lib, n, d, dtype):
                           torch.zeros((2, n, d), dtype=dtype),
                           torch.zeros(2, dtype=dtype), 0.98, 0.2, 0.0)
     assert fake_lib.calls == []
+
+
+def test_fused_liu_west_launches_on_cuda_tensors_only(fake_lib):
+    """The wrapper has no CPU branch: a CPU bank takes the resampler's
+    eager chain, and the wrapper refuses it before any launch."""
+    launches = b2.liu_west_expand_batched.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        b2.liu_west_expand_batched(torch.zeros((2, 64)),
+                                   torch.zeros((2, 64, 1)), torch.zeros(2),
+                                   0.98, 0.2)
+    assert fake_lib.calls == []
+    assert b2.liu_west_expand_batched.launches == launches
 
 
 def test_row_span_keeps_two_passes(fake_lib):

@@ -283,6 +283,25 @@ def test_forced_resample_keeps_the_moments(runs):
         torch.from_numpy(locs)).all()
 
 
+def test_sharded_resample_has_the_resampler_s_spans_and_counters(runs):
+    """Under a profiler the sharded resample goes through the resampler's
+    own moments, validity test and postselection on every rank: one
+    ``qinfer.resamplers.postselect`` and one moments span, each validity
+    test inside the postselection and followed by its all-reduced check,
+    ``tested_rows`` the block's rows a test; the cloud is the unprofiled
+    run's bit for bit."""
+    ranks = runs("resample_profiled")
+    np.testing.assert_array_equal(_cat(ranks, "locs"),
+                                  _cat(runs("resample_smear"), "locs"))
+    for r in ranks:
+        tests = int(r["count_qinfer.resamplers.valid"])
+        assert int(r["count_qinfer.resamplers.postselect"]) == 1
+        assert int(r["count_qinfer.resamplers.moments"]) == 1
+        assert tests >= 1 and int(r["valid_under_postselect"]) == tests
+        assert int(r["count_qinfer.sync.postselect"]) >= tests
+        assert int(r["tested_rows"]) == tests * (N // K)
+
+
 def test_sharded_sample_splits_by_weight(runs):
     ranks = runs("sample")
     draws = ranks[0]["draws"][:, 0]
