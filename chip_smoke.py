@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero before the result line:
    (``psd_valid_cases``), unit stride and the diffusive view, with and
    without subnormalised states: every row whose smallest eigenvalue is
    more than ``PSD_MARGIN`` from −psd_tol decided as the plain version and
-   f64 eigvalsh decide it, one launch a call.
+   f64 eigvalsh decide it, one launch a call. The redraw round's kernel
+   (``phase_compare_redraw``) at 2^20 rows, d = 4 and 3, one root and four
+   banks' own: a round over the mask, then one over the list it wrote,
+   against the resampler's masked chain with the same noise
+   (``redraw_round_agreement``: rows valid before untouched, decisive rows
+   decided alike, the count and list left the mask's, the rows both wrote
+   within ``REDRAW_MAX_ULPS``), and a round with no invalid row.
 4. main path: ``SMCUpdater`` with 2^20 particles on ``SimplePrecessionModel``
    and the Liu–West resampler, one warm-up window and three timed windows,
    each a ``batch_update`` over the 100-experiment record of ``bench.py``;
@@ -199,7 +205,9 @@ Phases, in order; any failure exits non-zero before the result line:
    on ``GivenPr1`` alone in the same turns) and its trial grid at 256 ×
    2048. The validity kernel at 2^20 rows, d = 4 and 3, beside its plain
    version and ``torch.linalg.eigvalsh`` of the complex ρ
-   (``phase_timing_psd``).
+   (``phase_timing_psd``); the redraw round at 2^20 rows with half the
+   bank, 2^14, 2^10 and 20 rows left, over the list and over the mask,
+   beside the masked chain and the bank's draw (``phase_timing_redraw``).
 
 The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version, bit-equal per trial to single-bank
@@ -226,6 +234,7 @@ its bytes and operations, and the library call's time or null) and
 
 import contextlib
 import datetime
+import functools
 import json
 import math
 import os
@@ -802,6 +811,10 @@ GM3 = tomo.gell_mann_basis(3)
 PSD_BASES = (("pauli2", PAULI2), ("gm3", GM3))
 PSD_TOL = 1e-5  # TomographyModel.psd_tol
 PSD_MARGIN = 1e-6  # a row within this of −psd_tol may decide either way
+# The most a redraw round's written row may lie from the masked chain's, in
+# f32 spacings of the row's largest coordinate (the smear's 16-term sum in
+# another order than cuBLAS's).
+REDRAW_MAX_ULPS = 4
 
 
 def _ginibre(basis, n, rng, rank=None):
@@ -882,6 +895,168 @@ def psd_valid_agreement(basis, cases, lam, device, view, subnormalized):
     if res["differ_plain_decisive"] or res["differ_eigvalsh_decisive"]:
         raise AssertionError(f"psd_valid: decisive rows differ: {res}")
     return res
+
+
+def redraw_round_case(basis, n, banks, seed, device="cpu"):
+    """A redraw round's inputs on ``banks`` banks of ``n // banks`` rows
+    (f32 torch on ``device``): Liu–West centers (a = 0.98) of Ginibre
+    states, half of full rank and half of rank d − 1 (on the boundary, so
+    that about half of their smears are not states); each bank's root
+    h·Σ^{1/2} of the states' covariance, bank b's scaled by (b + 1)/banks;
+    a first smear ``locs`` with its plain test ``ok``; and the round's own
+    noise. Returns (locs, ok, centers, root (banks, D, D), noise)."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([
+        _coords_f64(basis, _ginibre(basis, n - n // 2, rng)),
+        _coords_f64(basis, _ginibre(basis, n // 2, rng,
+                                    rank=basis.dim - 1))])[rng.permutation(n)]
+    a = 0.98
+    w, v = np.linalg.eigh(np.cov(x.T))
+    root = math.sqrt(1 - a * a) * (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+    roots = np.stack([root * (b + 1) / banks for b in range(banks)])
+    centers = a * x + (1 - a) * x.mean(0)
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32,
+                            device=device)
+    centers, roots = f32(centers), f32(roots)
+    first, noise = (f32(rng.standard_normal(x.shape)) for _ in range(2))
+    locs = _smear_banks(centers, roots, first)
+    ok = pv.psd_valid(locs, basis, PSD_TOL)
+    return locs, ok, centers, roots, noise
+
+
+def _smear_banks(centers, roots, noise):
+    """The resampler's smear of T banks: centers + noise·Sᵀ, by ``bmm``."""
+    t, d = roots.shape[0], centers.shape[1]
+    return (centers.reshape(t, -1, d)
+            + noise.reshape(t, -1, d) @ roots.transpose(-2, -1)).reshape(-1, d)
+
+
+def _ulps(a, b):
+    """How far apart the rows ``a`` and ``b`` (numpy f32 (n, D)) lie, in
+    f32 spacings of each row's largest coordinate (x₀ = 1/√d for a state;
+    a coordinate's own spacing would count a cancelled near-zero entry in
+    thousands)."""
+    gap = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    scale = np.maximum(np.abs(a), np.abs(b)).max(1, keepdims=True)
+    return gap / np.spacing(scale)
+
+
+def _round_agreement(basis, kept, got, want, fresh, before, subnormalized):
+    """One round's comparison (numpy): ``got`` and ``want`` (bank, ok) after
+    the round, ``kept`` the kernel's bank before it, ``before`` the chain's
+    mask before it, ``fresh`` the chain's smear. Returns the counts."""
+    (got, got_ok), (want, want_ok) = got, want
+    lam = min_eigenvalues(basis, fresh)
+    target, bound = pv._trace_bounds(basis.dim, subnormalized)
+    off = fresh[:, 0] - (0.0 if subnormalized else target)
+    decisive = ((np.abs(lam + PSD_TOL) > PSD_MARGIN)
+                & (np.abs(np.abs(off) - bound) > PSD_MARGIN))
+    redrawn = ~before
+    both = redrawn & got_ok & want_ok
+    res = {"invalid_before": int(redrawn.sum()),
+           "valid_after": int(want_ok.sum()),
+           "decisive": int(decisive[redrawn].sum()),
+           "differ": int((got_ok != want_ok).sum()),
+           "differ_decisive": int((got_ok != want_ok)[decisive].sum()),
+           "max_ulps": float(_ulps(got[both], want[both]).max(initial=0.0)),
+           "bit_equal_rows": int((got[both] == want[both]).all(1).sum()),
+           "written_rows": int(both.sum())}
+    if (not np.array_equal(got[before], kept[before])
+            or not got_ok[before].all() or res["differ_decisive"]
+            or res["max_ulps"] > REDRAW_MAX_ULPS):
+        raise AssertionError(f"psd_redraw: rows differ: {res}")
+    return res
+
+
+def redraw_round_agreement(basis, case, subnormalized=False,
+                           redraw=pv.psd_redraw):
+    """Two rounds of the round kernel (``redraw``), the first over the mask
+    and the second over the list the first wrote (its noise the first's
+    rolled by a row), against the resampler's masked chain (GEMM,
+    ``pv.psd_valid``, ``where``) on ``case`` (``redraw_round_case``).
+    Raises where a row valid before a round changed, where a decisive row
+    (smallest eigenvalue of its smear more than PSD_MARGIN from −psd_tol,
+    its trace more than that from its bound) was decided apart, where a
+    row both wrote lies more than REDRAW_MAX_ULPS from the chain's, or
+    where the count or list of rows left invalid is not the mask's;
+    returns the counts and the largest ulp gap of the rows both wrote, a
+    round each."""
+    locs, ok, centers, roots, noise = case
+    root = roots if len(roots) > 1 else roots[0]
+    got, got_ok, want, want_ok = locs.clone(), ok.clone(), locs, ok
+    n_tested, rows, out = int((~ok).sum()), None, {"rows": len(ok)}
+    for form, eps in (("mask", noise), ("list", noise.roll(1, 0))):
+        before, kept = want_ok, got.cpu().numpy()
+        left, rows = redraw(got, got_ok, centers, root, eps, n_tested, rows,
+                            basis, PSD_TOL, subnormalized)
+        n_tested = int(left)
+        rows = rows[:n_tested]
+        fresh = _smear_banks(centers, roots, eps)
+        fresh_ok = pv.psd_valid(fresh, basis, PSD_TOL, subnormalized)
+        want = torch.where((~want_ok & fresh_ok)[:, None], fresh, want)
+        want_ok = want_ok | fresh_ok
+        listed = np.sort(rows.cpu().numpy())
+        if not np.array_equal(listed, np.flatnonzero(~got_ok.cpu().numpy())):
+            raise AssertionError(f"psd_redraw: the {form} round listed "
+                                 f"{len(listed)} rows left, the mask "
+                                 f"{int((~got_ok).sum())}")
+        res = _round_agreement(
+            basis, kept, (got.cpu().numpy(), got_ok.cpu().numpy()),
+            (want.cpu().numpy(), want_ok.cpu().numpy()),
+            fresh.cpu().numpy(), before.cpu().numpy(), subnormalized)
+        out[form] = {**res, "left": n_tested}
+        if res["differ"]:  # a borderline row apart: the next round differs
+            break
+    return out
+
+
+def masked_chain_postselect(model, draw, maxiter,
+                            all_valid=lambda ok: bool(ok.all())):
+    """Postselection as the masked chain, the resampler's loop before its
+    one-launch round and the plain version that round is held to: every
+    round redraws the whole bank (``draw()``), tests every row and merges
+    by mask, with one ``all_valid(ok)`` read a check; then the clamp."""
+    new_locs = draw()
+    ok = model.are_models_valid(new_locs)
+    all_ok = all_valid(ok)
+    for _ in range(maxiter):
+        if all_ok:
+            break
+        fresh = draw()
+        fresh_ok = model.are_models_valid(fresh)
+        take = ~ok & fresh_ok
+        new_locs = torch.where(take[:, None], fresh, new_locs)
+        ok = ok | fresh_ok
+        all_ok = all_valid(ok)
+    if all_ok:
+        return new_locs
+    bad = torch.nonzero(~ok).squeeze(1)
+    if bad.numel() == 0:
+        return new_locs
+    return new_locs.index_copy(0, bad, model.canonicalize(new_locs[bad]))
+
+
+def phase_compare_redraw(device):
+    """The round kernel against the masked chain at 2^20 rows, d = 4 and 3,
+    one root and one a bank of 2^18 rows, and a round with no invalid
+    row; one JSON line. Returns the most rows that were decided apart (all
+    borderline)."""
+    out = {}
+    for name, basis in PSD_BASES:
+        for banks in (1, 4):
+            case = redraw_round_case(basis, N_FLAGSHIP, banks, 19, device)
+            out[f"{name}/banks={banks}"] = redraw_round_agreement(basis, case)
+        locs, ok, centers, roots, noise = case
+        ok[:] = True
+        got = locs.clone()
+        left = int(pv.psd_redraw(got, ok, centers, roots, noise, 0, None,
+                                 basis, PSD_TOL)[0])
+        if left or not torch.equal(got, locs) or not bool(ok.all()):
+            raise AssertionError(f"psd_redraw: a round with no invalid row "
+                                 f"changed the bank ({left} left)")
+    print(json.dumps({"psd_redraw_compare": out}))
+    return max(r[f]["differ"] for r in out.values() for f in r
+               if f != "rows")
 
 
 def phase_compare_psd(device):
@@ -1515,8 +1690,10 @@ def _reset_counters():
     b1.fused_bayes_update_batched.launches = 0
     b2.reset_form_launches()
     qt.LiuWestResampler.redraw_rounds = 0
+    qt.LiuWestResampler.kernel_rounds = 0
     qt.LiuWestResampler.unfused_batched = 0
     pv.psd_valid.launches = 0
+    pv.psd_redraw.launches = 0
 
 
 def _b2_forms():
@@ -1533,7 +1710,8 @@ def _b2_forms():
 def _read_counters():
     return ({"B1": b1.fused_bayes_update.launches,
              "B2": b2.expand_sorted_segments.launches, **_b2_forms(),
-             "psd_valid": pv.psd_valid.launches},
+             "psd_valid": pv.psd_valid.launches,
+             "psd_redraw": pv.psd_redraw.launches},
             qt.LiuWestResampler.redraw_rounds)
 
 
@@ -1641,12 +1819,15 @@ def phase_tomography_2q(device):
         overlaps.append(overlap)
     n_resamples = [w["updater"].resample_count for w in windows]
     _check_launches(name, counts, 3 * N_SETTINGS_2Q, sum(n_resamples))
-    # Every validity test (one a resample and one a redraw round) is one
-    # launch of the validity kernel.
-    if counts["psd_valid"] != sum(n_resamples) + rounds:
-        raise AssertionError(f"{name}: the validity kernel launched "
-                             f"{counts['psd_valid']} times for "
-                             f"{sum(n_resamples) + rounds} tests")
+    # Every validity test is one launch: the validity kernel's a resample,
+    # the round kernel's a redraw round.
+    if (counts["psd_valid"], counts["psd_redraw"]) != (sum(n_resamples),
+                                                       rounds):
+        raise AssertionError(f"{name}: the validity and round kernels "
+                             f"launched {counts['psd_valid']} and "
+                             f"{counts['psd_redraw']} times for "
+                             f"{sum(n_resamples)} resamples and {rounds} "
+                             f"rounds")
     secs = [w["seconds"] for w in windows]
     print(json.dumps({
         "config": name, "n_particles": N_2Q, "n_updates": N_SETTINGS_2Q,
@@ -3303,6 +3484,86 @@ def phase_timing_psd(device):
     return times
 
 
+def redraw_work(dim, k, stayed):
+    """(bytes, operations) of a redraw round over a list of k rows, of which
+    ``stayed`` stay invalid: for each, its index, noise and center read;
+    the row and its byte of ok written for each that became a state, the
+    index listed for each that stayed (root's d⁴ floats come from the
+    cache); d⁴ products and sums for the smear, then the test's."""
+    el = dim * dim
+    return (k * (8 * el + 4) + (k - stayed) * (4 * el + 1) + stayed * 4,
+            k * (2 * el * el + 2 * dim ** 4 + dim ** 3))
+
+
+def phase_timing_redraw(device, left=(None, 1 << 14, 1 << 10, 20)):
+    """A redraw round at 2^20 rows, d = 4 and 3, with ``left`` rows still
+    invalid (None: the half of the first round): the round kernel over the
+    list of them (the form of every round after the first), over the mask
+    (the first round's form), and the masked chain it replaces (the
+    smear's GEMM and add, the validity kernel, the merge). The two forms
+    are timed in both orders (list first, then mask first) in the same
+    turns as the chain. Each kernel call resets its copy of the mask first
+    (timed alone and taken off). The whole bank's draw, which both keep,
+    beside them."""
+    times = {}
+    for _, basis in PSD_BASES:
+        locs, ok0, centers, roots, noise = redraw_round_case(
+            basis, N_FLAGSHIP, 1, 29, device)
+        root = roots[0]
+        bad = torch.nonzero(~ok0).squeeze(1).to(torch.int32)
+        bad = bad[torch.randperm(len(bad), device=device)]  # a random k
+        draw = _time_ms(lambda: torch.randn(locs.shape, device=device), 20)
+        for k in left:
+            k = len(bad) if k is None else k
+            ok = torch.ones_like(ok0)
+            ok[bad[:k]] = False
+            # In row order, nearly as a round's list comes (a warp's rows
+            # in order, its blocks by when they ran).
+            rows = torch.sort(bad[:k]).values
+            mask, got = ok.clone(), locs.clone()
+
+            def chain():
+                fresh = centers + noise @ root.transpose(-2, -1)
+                fresh_ok = pv.psd_valid(fresh, basis, PSD_TOL)
+                torch.where((~ok & fresh_ok)[:, None], fresh, locs)
+                return ok | fresh_ok
+
+            def round_over(listed):
+                mask.copy_(ok)
+                return pv.psd_redraw(got, mask, centers, root, noise, k,
+                                     listed, basis, PSD_TOL)
+
+            over_list = functools.partial(round_over, rows)
+            over_mask = functools.partial(round_over, None)
+            reset = _time_ms(lambda: mask.copy_(ok), 20)
+            t = _alternate(chain, over_list, old=over_mask)
+            swapped = _alternate(chain, over_mask, old=over_list)
+            t["ms"] -= reset
+            t["old_ms"] -= reset
+            t["list_ms"] = [t["ms"], swapped["old_ms"] - reset]
+            t["mask_ms"] = [t["old_ms"], swapped["ms"] - reset]
+            t["plain_ms"] = (t["plain_ms"] + swapped["plain_ms"]) / 2
+            t["draw_ms"] = draw
+            stayed = int(over_list()[0])
+            if stayed != int(over_mask()[0]):
+                raise AssertionError("psd_redraw: the list and the mask "
+                                     "left different counts")
+            t["stayed"] = stayed
+            t["work"] = redraw_work(basis.dim, k, stayed)
+            times[f"psd_redraw[d={basis.dim}, left={k}]"] = t
+    for name, t in times.items():
+        print(f"{name} at 2^20 ({t['stayed']} stay invalid): kernel over "
+              f"the list {t['list_ms'][0]:.4f} / {t['list_ms'][1]:.4f} ms, "
+              f"over the mask {t['mask_ms'][0]:.4f} / {t['mask_ms'][1]:.4f} "
+              f"ms (list first / mask first), masked chain "
+              f"{t['plain_ms']:.4f} ms, bound {bound(t['work'])[0]:.4f} ms, "
+              f"the bank's draw {t['draw_ms']:.4f} ms")
+    print(json.dumps({"psd_redraw_times": {
+        k: {f: v for f, v in t.items() if f != "work"}
+        for k, t in times.items()}}))
+    return times
+
+
 def phase_timing_bank(device, smi):
     """B2 on a single bank of N_NATIVE (config 1's own N), D = 1, random
     weights, with the affine: the wrapper's form (the bank form) against
@@ -3638,6 +3899,7 @@ def main():
     zoo_err["binomial_tomography_2q"] = max(
         zoo_err["binomial_tomography_2q"], phase_compare_span(device))
     psd_differ = phase_compare_psd(device)
+    redraw_differ = phase_compare_redraw(device)
     batched_err = {"B1": phase_compare_b1_batched(device),
                    "B2": phase_compare_b2_batched(device)}
     launches = phase_main_path(device)
@@ -3670,6 +3932,7 @@ def main():
     sharded_times = phase_timing_sharded(device)
     user_times = phase_timing_user(device)
     psd_times = phase_timing_psd(device)
+    redraw_times = phase_timing_redraw(device)
     src1 = "qinfer_tpu_torch/csrc/fused_update.cu"
     src2 = "qinfer_tpu_torch/csrc/resample_expand.cu"
     b1_line = "qinfer_tpu/ops/fused_update.py:{}".format
@@ -3805,6 +4068,15 @@ def main():
                    config_launches["tomography_2q_binomial"]["psd_valid"]
                    if name == "psd_valid[d=4]" else 0, psd_differ, t)
         for name, t in psd_times.items()]
+    # A redraw round in one launch; its error is the rows decided apart
+    # from the masked chain (all borderline).
+    kernels += [
+        kernel_row(name, "qinfer_tpu_torch/csrc/psd_valid.cu",
+                   "none (the resampler's masked chain)",
+                   config_launches["tomography_2q_binomial"]["psd_redraw"]
+                   if name.startswith("psd_redraw[d=4") else 0,
+                   redraw_differ, t)
+        for name, t in redraw_times.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,6 +72,11 @@ _SIGNATURES = {
     #  trace_bound, subnormalized, out, stream)
     "qt_psd_valid": (_P, _I64, _I64, _I32, _P, _F32, _F32, _F32, _I32, _P,
                      _P),
+    # (locs, ok, centers, root, noise, rows_in or NULL, n, rows_per_root,
+    #  dim, basis (host floats), tol, trace_target, trace_bound,
+    #  subnormalized, rows_out, left, stream)
+    "qt_psd_redraw": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _F32,
+                      _F32, _F32, _I32, _P, _P, _P),
 }
 
 

@@ -44,6 +44,42 @@
 // matrix products' (another order of the same sum, an ulp or so), which
 // moves the threshold by far less than the factorization's own ≈
 // d·eps·‖ρ‖.
+//
+// The redraw round (psd_redraw_rows, ops/psd_valid.py:psd_redraw). A round
+// of Liu–West postselection redraws the rows still invalid: the resampler
+// draws the whole bank's noise ε (one draw of its shape, so the stream of
+// draws is the masked chain's), and this kernel, for each row still
+// invalid, smears x = centers[i] + S·ε[i] (S = h·Σ^{1/2}, one for the bank
+// or one for each bank of a flattened (T·N, d²) stack), tests x with the
+// same device code (is_state), and where x is a state writes it and its
+// byte of ok, else lists i and counts it in `left`, the round's one host
+// read. It replaces the masked chain (the GEMM ε·Sᵀ, its add, the test of
+// the whole bank, ~ok, &, where, |: ≈ 270 µs at 2^20 rows, d = 4) and its
+// eight launches.
+//
+// What bounds it: the rows still invalid, each a gather of its 2·d² noise
+// and center floats and a scatter of its row or its index, with d⁴
+// products for the smear and the test's 2·d⁴ + d³ on top (≈ 1.3k flops a
+// row at d = 4). The roofline is tiny (≈ 0.8 µs at 2^14 rows); the launch
+// and the load of a partly filled grid bound it: 7.4 µs with 20 rows
+// left, 11.9 µs with 2^14, 95 µs with 2^19 (d = 4, 2^20 rows, H100).
+//
+// Layout. One thread a row: the row's noise and center from global memory
+// (L1 serves a row's 64 bytes to its thread), S's d⁴ floats by __ldg (the
+// same address across a warp whose rows share a bank: one broadcast), the
+// smear in registers as one FMA chain over the columns in order from 0,
+// then the center added, which is how cuBLAS rounds the GEMM and torch the
+// add on all but a few rows in 10^5 (0.25 ulp of the row's scale at most).
+// The first round walks the mask (every row, those valid return at once);
+// it and each later round list the rows left by atomicAdd on `left`, and a
+// later round walks only that list. Measured at 2^20 rows, d = 4, with 2^14
+// rows left scattered through the bank, each form timed first and then
+// second in one run: the mask walk takes 33.5 µs (a warp holds half a row
+// to test, and idles the rest of its lanes), the list 11.9 µs (d = 3: 15.4
+// against 7.9); with 20 left 9.2 against 7.4; with half the bank left
+// 106.7 against 95.4. So the first round, where only the mask exists,
+// walks it, and every later one the list. 48 registers at d = 4, 32 at
+// d = 3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,41 +97,19 @@ struct Basis {
   float im[D * D][D * D];
 };
 
+// The test of one row x (d² coordinates) in registers or shared memory:
+// ok = [every pivot of LDLᴴ(ρ + tol·I) > 0] ∧ [trace test on x₀].
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-psd_valid_rows(const float* __restrict__ coords, int64_t n, int64_t row_stride,
-               const Basis<D> basis, float tol, float trace_target, float trace_bound,
-               int subnormalized, uint8_t* __restrict__ out) {
+__device__ __forceinline__ bool is_state(const float* x, const Basis<D>& basis, float tol,
+                                         float trace_target, float trace_bound,
+                                         int subnormalized) {
   constexpr int kEl = D * D;
-  constexpr int kPitch = kEl | 1;  // odd: a warp's 32 rows on 32 banks
-  __shared__ float tile[kThreads * kPitch];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
-  const int rows = static_cast<int>(n - row0 < kThreads ? n - row0 : kThreads);
-  if (row_stride == kEl) {  // the block's rows are one contiguous span
-    const float* span = coords + row0 * kEl;
-#pragma unroll
-    for (int it = 0; it < kEl; ++it) {
-      const int k = it * kThreads + threadIdx.x;
-      if (k < rows * kEl) tile[(k / kEl) * kPitch + k % kEl] = __ldg(span + k);
-    }
-  } else {
-#pragma unroll
-    for (int it = 0; it < kEl; ++it) {
-      const int k = it * kThreads + threadIdx.x;
-      const int r = k / kEl;
-      if (r < rows) tile[r * kPitch + k % kEl] = __ldg(coords + (row0 + r) * row_stride + k % kEl);
-    }
-  }
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r >= rows) return;
-
   // ρ's lower triangle: ar on and below the diagonal, ai below it.
   float ar[D][D] = {}, ai[D][D] = {};
-  const float x0 = tile[r * kPitch];
+  const float x0 = x[0];
 #pragma unroll
   for (int i = 0; i < kEl; ++i) {
-    const float xi = i == 0 ? x0 : tile[r * kPitch + i];
+    const float xi = i == 0 ? x0 : x[i];
 #pragma unroll
     for (int a = 0; a < D; ++a) {
 #pragma unroll
@@ -134,7 +148,81 @@ psd_valid_rows(const float* __restrict__ coords, int64_t n, int64_t row_stride,
 
   const bool trace_ok = subnormalized ? x0 <= trace_bound
                                       : fabsf(__fsub_rn(x0, trace_target)) < trace_bound;
-  out[row0 + r] = (ok && trace_ok) ? 1 : 0;
+  return ok && trace_ok;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+psd_valid_rows(const float* __restrict__ coords, int64_t n, int64_t row_stride,
+               const __grid_constant__ Basis<D> basis, float tol, float trace_target,
+               float trace_bound, int subnormalized, uint8_t* __restrict__ out) {
+  constexpr int kEl = D * D;
+  constexpr int kPitch = kEl | 1;  // odd: a warp's 32 rows on 32 banks
+  __shared__ float tile[kThreads * kPitch];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int rows = static_cast<int>(n - row0 < kThreads ? n - row0 : kThreads);
+  if (row_stride == kEl) {  // the block's rows are one contiguous span
+    const float* span = coords + row0 * kEl;
+#pragma unroll
+    for (int it = 0; it < kEl; ++it) {
+      const int k = it * kThreads + threadIdx.x;
+      if (k < rows * kEl) tile[(k / kEl) * kPitch + k % kEl] = __ldg(span + k);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < kEl; ++it) {
+      const int k = it * kThreads + threadIdx.x;
+      const int r = k / kEl;
+      if (r < rows) tile[r * kPitch + k % kEl] = __ldg(coords + (row0 + r) * row_stride + k % kEl);
+    }
+  }
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= rows) return;
+  out[row0 + r] = is_state<D>(tile + r * kPitch, basis, tol, trace_target, trace_bound,
+                              subnormalized) ? 1 : 0;
+}
+
+// One redraw round of postselection on the rows still invalid: row i of
+// the list `rows_in` (n of them), or with no list every row of the n that
+// `ok` marks invalid. x = centers[i] + S·ε[i] with S the root of row i's
+// bank (the bank of rows_per_root rows that holds i), the same test, and
+// where x is a state, locs[i] = x and ok[i] = 1; else i goes to
+// rows_out[atomicAdd(left, 1)], so `left` counts the rows still invalid.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+psd_redraw_rows(float* __restrict__ locs, uint8_t* __restrict__ ok,
+                const float* __restrict__ centers, const float* __restrict__ root,
+                const float* __restrict__ noise, const int* __restrict__ rows_in, int64_t n,
+                int64_t rows_per_root, const __grid_constant__ Basis<D> basis, float tol,
+                float trace_target, float trace_bound, int subnormalized,
+                int* __restrict__ rows_out, int* __restrict__ left) {
+  constexpr int kEl = D * D;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (k >= n) return;
+  const int64_t i = rows_in != nullptr ? rows_in[k] : k;
+  if (rows_in == nullptr && ok[i]) return;
+  const float* s = root + (i / rows_per_root) * (kEl * kEl);
+  float eps[kEl], x[kEl];
+#pragma unroll
+  for (int b = 0; b < kEl; ++b) eps[b] = __ldg(noise + i * kEl + b);
+  // The smear as cuBLAS rounds the GEMM ε·Sᵀ (but for a few rows in 10^5)
+  // and torch the add: one FMA chain over the columns in order from 0, then
+  // the center added.
+#pragma unroll
+  for (int a = 0; a < kEl; ++a) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kEl; ++b) acc = fmaf(eps[b], __ldg(s + a * kEl + b), acc);
+    x[a] = __fadd_rn(__ldg(centers + i * kEl + a), acc);
+  }
+  if (is_state<D>(x, basis, tol, trace_target, trace_bound, subnormalized)) {
+#pragma unroll
+    for (int a = 0; a < kEl; ++a) locs[i * kEl + a] = x[a];
+    ok[i] = 1;
+  } else {
+    rows_out[atomicAdd(left, 1)] = static_cast<int>(i);
+  }
 }
 
 template <int D>
@@ -146,6 +234,19 @@ void launch(const float* coords, int64_t n, int64_t row_stride, const float* bas
   const auto blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   psd_valid_rows<D><<<blocks, kThreads, 0, stream>>>(coords, n, row_stride, b, tol, trace_target,
                                                      trace_bound, subnormalized, out);
+}
+
+template <int D>
+void launch_redraw(float* locs, uint8_t* ok, const float* centers, const float* root,
+                   const float* noise, const int* rows_in, int64_t n, int64_t rows_per_root,
+                   const float* basis, float tol, float trace_target, float trace_bound,
+                   int subnormalized, int* rows_out, int* left, cudaStream_t stream) {
+  Basis<D> b;
+  memcpy(&b, basis, sizeof(b));
+  const auto blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  psd_redraw_rows<D><<<blocks, kThreads, 0, stream>>>(locs, ok, centers, root, noise, rows_in, n,
+                                                      rows_per_root, b, tol, trace_target,
+                                                      trace_bound, subnormalized, rows_out, left);
 }
 
 }  // namespace
@@ -170,6 +271,43 @@ extern "C" int qt_psd_valid(const void* coords, int64_t n, int64_t row_stride, i
     launch<3>(x, n, row_stride, b, tol, trace_target, trace_bound, subnormalized, o, st);
   } else {
     launch<4>(x, n, row_stride, b, tol, trace_target, trace_bound, subnormalized, o, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// locs, centers, noise: f32 (m, d²) on the device, rows back to back; ok:
+// m bytes; root: f32 (m / rows_per_root, d², d²); rows_in: n row indices
+// (int32) still invalid, or NULL for every row of the n = m that ok marks;
+// basis as qt_psd_valid's; rows_out: room for n int32; left: one int on the
+// device, set to 0, then the count of rows still invalid, which rows_out
+// lists first (in no order). Returns the first error of the reset and the
+// launch (nothing is launched for n = 0).
+extern "C" int qt_psd_redraw(void* locs, void* ok, const void* centers, const void* root,
+                             const void* noise, const void* rows_in, int64_t n,
+                             int64_t rows_per_root, int dim, const void* basis, float tol,
+                             float trace_target, float trace_bound, int subnormalized,
+                             void* rows_out, void* left, void* stream) {
+  if (n < 0 || (n > 0 && rows_per_root <= 0) || (dim != 3 && dim != 4) || basis == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t reset = cudaMemsetAsync(left, 0, sizeof(int), st);
+  if (reset != cudaSuccess || n == 0) return static_cast<int>(reset);
+  auto* l = static_cast<float*>(locs);
+  auto* o = static_cast<uint8_t*>(ok);
+  const auto* c = static_cast<const float*>(centers);
+  const auto* r = static_cast<const float*>(root);
+  const auto* e = static_cast<const float*>(noise);
+  const auto* in = static_cast<const int*>(rows_in);
+  const auto* b = static_cast<const float*>(basis);
+  auto* out = static_cast<int*>(rows_out);
+  auto* k = static_cast<int*>(left);
+  if (dim == 3) {
+    launch_redraw<3>(l, o, c, r, e, in, n, rows_per_root, b, tol, trace_target, trace_bound,
+                     subnormalized, out, k, st);
+  } else {
+    launch_redraw<4>(l, o, c, r, e, in, n, rows_per_root, b, tol, trace_target, trace_bound,
+                     subnormalized, out, k, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

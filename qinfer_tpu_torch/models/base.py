@@ -140,6 +140,19 @@ class Simulatable:
         """Clamp parameters to the valid region (identity by default)."""
         return modelparams
 
+    def redraw_round(self, device):
+        """A postselection redraw round in one launch for a bank on
+        ``device``, or None (the default: the resampler's masked chain).
+        A round is ``round(locs, ok, centers, root, noise, n_tested,
+        rows)``: the rows still invalid (the list ``rows`` of ``n_tested``
+        of them, or with None those that ``ok`` marks) smeared (centers +
+        root·noise), put through ``are_models_valid``'s test and merged
+        into ``locs`` and ``ok`` in place; it returns the count of rows
+        still invalid as a 0-d device tensor and a list whose first that
+        many entries they are (``ops.psd_valid.psd_redraw``). Deciding
+        launches nothing."""
+        return None
+
     def update_timestep(self, modelparams, expparams, generator=None):
         """Time-dependence hook: (N, D, E) evolved parameters; identity by
         default. ``generator`` supplies the randomness of stochastic walks."""

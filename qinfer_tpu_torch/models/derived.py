@@ -77,6 +77,13 @@ class DerivedModel(Model):
     def canonicalize(self, modelparams):
         return self.underlying_model.canonicalize(modelparams)
 
+    def redraw_round(self, device):
+        # The underlying model's round tests what its are_models_valid
+        # tests: a model that tests more keeps the masked chain.
+        if type(self).are_models_valid is not DerivedModel.are_models_valid:
+            return None
+        return self.underlying_model.redraw_round(device)
+
     def update_timestep(self, modelparams, expparams, generator=None):
         return self.underlying_model.update_timestep(
             modelparams, expparams, generator=generator)

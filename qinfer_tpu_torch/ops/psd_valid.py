@@ -14,6 +14,13 @@ counted on ``psd_valid.launches`` and, while a profiler records, its rows
 on the program's counter ``ops.psd_valid.rows``. A failed build or launch
 raises: nothing falls back.
 
+``psd_redraw`` is a redraw round of Liu–West postselection on a CUDA bank
+in one launch of the same file's second kernel: on the rows still invalid
+it smears, makes the same test and merges, and counts the rows left
+invalid on the device. Its plain version is the resampler's masked chain
+(``LiuWestResampler._postselect``); its rows count on
+``ops.psd_valid.rows`` too, its launches on ``psd_redraw.launches``.
+
 The JAX package tests the characteristic polynomial of the real embedding
 instead (no Pallas kernel), which f32 cannot decide near low-rank states.
 """
@@ -28,7 +35,8 @@ import torch
 from .. import _build
 from ..profiling import count
 
-__all__ = ["psd_valid", "psd_valid_plain", "psd_valid_route", "trace_ok"]
+__all__ = ["psd_valid", "psd_valid_plain", "psd_valid_route", "psd_redraw",
+           "trace_ok"]
 
 KERNEL_DIMS = (3, 4)  # the d that csrc/psd_valid.cu is built for
 
@@ -147,3 +155,77 @@ def psd_valid(coords, basis, psd_tol, allow_subnormalized=False):
 
 
 psd_valid.launches = 0
+
+
+def psd_redraw(locs, ok, centers, root, noise, n_tested, rows, basis,
+               psd_tol, allow_subnormalized=False):
+    """One redraw round on the rows of ``locs`` (M, d²) still invalid, in
+    one launch: for each, x = centers[i] + root·noise[i], the module's test
+    of x, and where x is a state ``locs[i] = x`` and ``ok[i] = True`` (both
+    in place). ``rows``: the round's rows, an int32 list of ``n_tested``
+    row indices (the last round's), or None for every row that ``ok`` (M,)
+    marks invalid, ``n_tested`` of them (known on the host; they count on
+    ``ops.psd_valid.rows``). ``root`` is (d², d²) for the bank, or (T, d²,
+    d²) for T banks of M/T rows each. CUDA tensors only, on one device (d =
+    3, 4, f32, ``locs`` and ``ok`` contiguous; else ValueError). Returns
+    (the rows still invalid: a 0-d int32 on the device, for the round's one
+    host read; an int32 tensor whose first that many entries list them, in
+    no order, for the next round's ``rows``)."""
+    if not locs.is_cuda:
+        raise ValueError("the redraw kernel takes CUDA tensors; its plain "
+                         "version is the resampler's masked chain")
+    return _psd_redraw_cuda(locs, ok, centers, root, noise, n_tested, rows,
+                            basis, psd_tol, allow_subnormalized)
+
+
+def _psd_redraw_cuda(locs, ok, centers, root, noise, n_tested, rows, basis,
+                     psd_tol, allow_subnormalized):
+    """``psd_redraw``'s launch, on tensors of one device."""
+    dim, n_el = basis.dim, basis.n_elements
+    m = locs.shape[0]
+    banks = 1 if root.ndim == 2 else root.shape[0]
+    centers, root, noise = (t.contiguous() for t in (centers, root, noise))
+    tensors = (locs, ok, centers, root, noise) + (
+        () if rows is None else (rows,))
+    if (dim not in KERNEL_DIMS
+            or any(t.device != locs.device for t in tensors)
+            or any(t.dtype != torch.float32
+                   for t in (locs, centers, root, noise))
+            or not (locs.is_contiguous() and ok.is_contiguous())
+            or any(t.shape != (m, n_el) for t in (locs, centers, noise))
+            or root.shape[-2:] != (n_el, n_el) or root.ndim > 3 or m % banks
+            or ok.shape != (m,) or ok.dtype != torch.bool
+            or (rows is not None and (rows.dtype != torch.int32
+                                      or rows.shape != (n_tested,)
+                                      or not rows.is_contiguous()))):
+        raise ValueError(
+            f"the redraw kernel takes d = 3 or 4 and contiguous f32 CUDA "
+            f"rows (M, {n_el}) with a root ({n_el}, {n_el}) or (T, {n_el}, "
+            f"{n_el}), a bool mask (M,) and an int32 list of the "
+            f"{n_tested} rows or None; got d = {dim}, "
+            + ", ".join(f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                        for t in tensors))
+    left = torch.empty((), dtype=torch.int32, device=locs.device)
+    # Room for every row the round walks, whatever ``n_tested`` says.
+    rows_left = torch.empty(m if rows is None else n_tested,
+                            dtype=torch.int32, device=locs.device)
+    target, bound = _trace_bounds(dim, allow_subnormalized)
+    lib, _ = _build.library()
+    with torch.cuda.device(locs.device):
+        err = lib.qt_psd_redraw(
+            locs.data_ptr(), ok.data_ptr(), centers.data_ptr(),
+            root.data_ptr(), noise.data_ptr(),
+            None if rows is None else rows.data_ptr(),
+            m if rows is None else n_tested, m // banks, dim,
+            _host_basis(basis).data_ptr(), float(psd_tol), target, bound,
+            int(bool(allow_subnormalized)), rows_left.data_ptr(),
+            left.data_ptr(),
+            torch.cuda.current_stream(locs.device).cuda_stream,
+        )
+    _build.check(err, "qt_psd_redraw")
+    psd_redraw.launches += 1
+    count("ops.psd_valid.rows", n_tested)
+    return left, rows_left
+
+
+psd_redraw.launches = 0

@@ -319,10 +319,14 @@ def _sharded_resample(model, resampler, generator, locs, log_w, group,
             generator, log_w, locs, group,
             use_expand_kernel=resampler._expand_kernel_on(locs.device),
             scale=scale, shift=shift)
-    rank_gen = _rank_generator(generator, group)
+
+    def counts(bad):  # (this rank's, every rank's) invalid rows: one read
+        return tuple(torch.stack([bad, _psum(bad, group)]).tolist())
+
     return resampler._postselect(
-        model, lambda: resampler._smear(rank_gen, centers, S),
-        _all_valid=lambda ok: int(_psum(torch.sum(~ok), group)) == 0)
+        model, _rank_generator(generator, group), centers, S,
+        _all_valid=lambda ok: counts(torch.sum(~ok))[1] == 0,
+        _counts=counts)
 
 
 def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,

@@ -23,12 +23,15 @@ Counterpart of ``qinfer_tpu/profiling.py``.
   wrappers' launches (``ops.<wrapper>.launches``, by route
   ``ops.<wrapper>.<route>_launches``, by form
   ``ops.<wrapper>.form_launches.<form>``), the rows that the validity
-  kernel tested (``ops.psd_valid.rows``),
-  ``resamplers.LiuWestResampler.redraw_rounds``,
+  kernels tested (``ops.psd_valid.rows``: the test's and the redraw
+  round's), ``resamplers.LiuWestResampler.redraw_rounds``,
+  ``resamplers.LiuWestResampler.kernel_rounds`` (the redraw rounds that
+  took the model's one-launch round),
   ``resamplers.LiuWestResampler.unfused_batched`` (the batched resamples
   that did not take ``ops.liu_west_expand_batched``),
   ``resamplers.LiuWestResampler.tested_rows`` (the rows put through a
-  validity test, from their shapes) and
+  validity test, from their shapes, and for a one-launch round the rows
+  still invalid that the host read before it) and
   ``resamplers.LiuWestResampler.clamped_rows`` (the rows that
   postselection projected with ``canonicalize``). The wrappers' and the
   resampler's attributes of the same names count always.

@@ -77,6 +77,11 @@ def _all_true(ok):
     return bool(ok.all())
 
 
+def _bank_counts(bad):
+    n = int(bad)
+    return n, n
+
+
 class Resampler:
     """ABC: ``(generator, model, locations, log_weights) -> new locations``."""
 
@@ -98,7 +103,9 @@ class LiuWestResampler(Resampler):
     on/off.
 
     ``LiuWestResampler.redraw_rounds`` counts the postselection redraw
-    rounds of every resample in the process (each costs a host sync);
+    rounds of every resample in the process (each costs a host sync),
+    ``LiuWestResampler.kernel_rounds`` those of them that took the model's
+    one-launch round (``model.redraw_round``);
     ``LiuWestResampler.unfused_batched`` the batched resamples that took
     the eager chain and not ``liu_west_expand_batched``. While a profiler
     records, the program's counters ``resamplers.LiuWestResampler.*``
@@ -109,6 +116,7 @@ class LiuWestResampler(Resampler):
     """
 
     redraw_rounds: ClassVar[int] = 0
+    kernel_rounds: ClassVar[int] = 0
     unfused_batched: ClassVar[int] = 0
 
     a: float = 0.98
@@ -149,8 +157,7 @@ class LiuWestResampler(Resampler):
                         idx = multinomial_resample_indices(log_w,
                                                            generator=generator)
                     centers = scale * locs[idx] + shift[None, :]
-            return self._postselect(
-                model, lambda: self._smear(generator, centers, S))
+            return self._postselect(model, generator, centers, S)
 
     def _expand_kernel_on(self, device):
         """Whether the pick takes kernel B2's wrapper (which runs its plain
@@ -165,15 +172,16 @@ class LiuWestResampler(Resampler):
         shift) of one bank's μ (D,) or T banks' (T, D)."""
         return self.a, (1.0 - self.a) * mu
 
-    def _smear(self, generator, centers, S):
-        """``centers`` + ε·Sᵀ, with ε standard normal of ``centers``' shape
-        from ``kernel`` or ``generator``: a product of one bank is an
-        ``mm``, of T banks (T, N, D) a ``bmm``."""
+    def _noise(self, generator, shape, device):
+        """Standard normals of ``shape`` from ``kernel`` or ``generator``."""
         if self.kernel is not None:
-            noise = self.kernel(generator, tuple(centers.shape))
-        else:
-            noise = torch.randn(centers.shape, generator=generator,
-                                device=centers.device)
+            return self.kernel(generator, tuple(shape))
+        return torch.randn(shape, generator=generator, device=device)
+
+    def _smear(self, generator, centers, S):
+        """``centers`` + ε·Sᵀ, with ε of ``centers``' shape (``_noise``): a
+        product of one bank is an ``mm``, of T banks (T, N, D) a ``bmm``."""
+        noise = self._noise(generator, centers.shape, centers.device)
         return centers + noise @ S.transpose(-2, -1)
 
     def _moments(self, log_w, locs, moments):
@@ -226,10 +234,8 @@ class LiuWestResampler(Resampler):
                 count("resamplers.LiuWestResampler.unfused_batched")
                 centers, _, _, S = self._unfused_centers(log_w, locs, u0,
                                                          generator)
-            return self._postselect(
-                model,
-                lambda: self._smear(generator, centers, S).reshape(-1, d),
-            ).reshape(n_trials, n, d)
+            return self._postselect(model, generator, centers,
+                                    S).reshape(n_trials, n, d)
 
     def _unfused_centers(self, log_w, locs, u0, generator):
         """The eager chain of ``batched``: (the shrunk picks (T, N, D), μ
@@ -251,35 +257,64 @@ class LiuWestResampler(Resampler):
                 centers = expand_plain_batched(starts, locs, n, affine)
         return centers, mu, cov, S
 
-    def _postselect(self, model, draw, _all_valid=_all_true):
-        """``draw()``'s rows, each redrawn while invalid (at most ``maxiter``
-        rounds) and clamped by ``model.canonicalize`` if still invalid.
-        ``_all_valid(ok)`` reads on the host whether every row is valid: of
-        one bank or T, ``ok.all()``; a rank's block of a sharded bank passes
-        an all-reduced test, so that every rank redraws while any rank holds
-        an invalid row, and a rank may then hold no straggler to clamp."""
+    def _postselect(self, model, generator, centers, S,
+                    _all_valid=_all_true, _counts=_bank_counts):
+        """The smear of ``centers`` as rows (M, D), each row redrawn while
+        invalid (at most ``maxiter`` rounds) and clamped by
+        ``model.canonicalize`` if still invalid: ``centers`` (N, D) with
+        ``S`` = h·Σ^{1/2} (D, D), or T banks (T, N, D) with S (T, D, D).
+        Every draw is one of the whole bank's noise (``_noise``). Where
+        ``model.redraw_round`` gives a round for the bank's device, a
+        round is that one launch on the rows still invalid (the first over
+        the mask, the others over the list the last one wrote), and the
+        host reads their count: ``_counts(bad)``, of this bank's count
+        ``bad`` on the device, gives (this bank's, every bank's) as ints.
+        Else a round is the masked chain over the whole bank, and the host
+        reads ``_all_valid(ok)``: of one bank or T, ``ok.all()``. A rank's
+        block of a sharded bank passes all-reduced reads, so that every
+        rank redraws while any rank holds an invalid row, and a rank may
+        then hold no straggler to clamp."""
         with span("qinfer.resamplers.postselect"):
-            new_locs = draw()
+            d = centers.shape[-1]
+            new_locs = self._smear(generator, centers, S).reshape(-1, d)
             if not self.postselect:
                 return new_locs
 
             # Bounded redraw, stopping as soon as every particle is valid (one
             # host sync per check: the common case costs one).
             ok = self._valid(model, new_locs)
+            redraw, rows = model.redraw_round(new_locs.device), None
             with span("qinfer.sync.postselect"):
-                all_ok = _all_valid(ok)
+                if redraw is None:
+                    all_ok = _all_valid(ok)
+                else:
+                    mine, bad = _counts(torch.sum(~ok))
+                    all_ok = bad == 0
             for _ in range(self.maxiter):
                 if all_ok:
                     break
                 LiuWestResampler.redraw_rounds += 1
                 count("resamplers.LiuWestResampler.redraw_rounds")
-                fresh = draw()
-                fresh_ok = self._valid(model, fresh)
-                take = ~ok & fresh_ok
-                new_locs = torch.where(take[:, None], fresh, new_locs)
-                ok = ok | fresh_ok
+                if redraw is None:
+                    fresh = self._smear(generator, centers, S).reshape(-1, d)
+                    fresh_ok = self._valid(model, fresh)
+                    take = ~ok & fresh_ok
+                    new_locs = torch.where(take[:, None], fresh, new_locs)
+                    ok = ok | fresh_ok
+                    with span("qinfer.sync.postselect"):
+                        all_ok = _all_valid(ok)
+                    continue
+                LiuWestResampler.kernel_rounds += 1
+                count("resamplers.LiuWestResampler.kernel_rounds")
+                count("resamplers.LiuWestResampler.tested_rows", mine)
+                noise = self._noise(generator, centers.shape, centers.device)
+                with span("qinfer.resamplers.valid"):
+                    left, rows = redraw(new_locs, ok, centers.reshape(-1, d),
+                                        S, noise.reshape(-1, d), mine, rows)
                 with span("qinfer.sync.postselect"):
-                    all_ok = _all_valid(ok)
+                    mine, bad = _counts(left)
+                    all_ok = bad == 0
+                rows = rows[:mine]
             if all_ok:
                 return new_locs
             # Clamp the stragglers to the valid region. canonicalize is

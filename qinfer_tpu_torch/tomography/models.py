@@ -15,6 +15,7 @@ for qubits, a batched ``eigh`` of the real embedding for d > 2.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -23,6 +24,7 @@ import torch
 from ..models.base import FiniteOutcomeModel, _column, _n_exps
 from ..ops.psd_valid import (  # noqa: F401  (_psd_via_ldl, re-exported)
     _psd_via_ldl,
+    psd_redraw,
     psd_valid,
     psd_valid_plain,
     psd_valid_route,
@@ -96,6 +98,18 @@ class TomographyModel(FiniteOutcomeModel):
                 else psd_valid_plain)
         return test(modelparams, self.basis, self.psd_tol,
                     self.allow_subnormalized)
+
+    def redraw_round(self, device):
+        """``ops.psd_redraw`` with this model's basis and thresholds where
+        ``are_models_valid`` takes the kernel (``psd_valid_route``: a CUDA
+        bank at d = 3 or 4), else None; None too for a subclass whose test
+        is another (the diffusive model's ε column)."""
+        if (type(self).are_models_valid is not TomographyModel.are_models_valid
+                or not psd_valid_route(device.type, self.dim)):
+            return None
+        return functools.partial(
+            psd_redraw, basis=self.basis, psd_tol=self.psd_tol,
+            allow_subnormalized=self.allow_subnormalized)
 
     def canonicalize(self, modelparams):
         """Project onto the PSD, unit-trace cone: clip the eigenvalues at

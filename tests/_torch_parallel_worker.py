@@ -11,6 +11,7 @@ Imports the port only, never JAX.
 """
 
 import datetime
+import functools
 import sys
 from pathlib import Path
 
@@ -20,6 +21,7 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import _psd_host_kernel  # noqa: E402
 import chip_smoke  # noqa: E402
 import qinfer_tpu_torch as qt  # noqa: E402
 from qinfer_tpu_torch import parallel as par  # noqa: E402
@@ -29,6 +31,7 @@ from qinfer_tpu_torch.interop import (  # noqa: E402
     shard_from_numpy,
     state_from_numpy,
 )
+from qinfer_tpu_torch.ops import psd_valid as pv  # noqa: E402
 from qinfer_tpu_torch.parallel import sharded_smc  # noqa: E402
 
 TIMEOUT_S = 60
@@ -182,6 +185,82 @@ def run(out, rank, world):
          valid_under_postselect=np.int64(
              spans.get("qinfer.resamplers.valid", {"parents": {}})
              ["parents"].get("qinfer.resamplers.postselect", 0)))
+
+    # A two-qubit bank's sharded resample, the smear's draws injected (a
+    # rank takes its rows of one global draw a round), through the
+    # resampler's loop and through the masked chain it replaced, with the
+    # all-reduced check of before.
+    basis = tomo.pauli_basis(2)
+    tomo_model = qt.BinomialModel(tomo.TomographyModel(basis))
+    tomo_locs = tomo.GinibreDistribution(basis, rank=3).sample(
+        torch.Generator().manual_seed(3), n)[rows]
+    tomo_lw = torch.from_numpy(inp["skew_lw"][rows])
+    draw_gen = torch.Generator().manual_seed(4)
+    draws = [torch.randn(n, basis.n_elements, generator=draw_gen)[rows]
+             for _ in range(17)]
+    banks, shapes = {}, []
+
+    def kernel(generator, shape):
+        shapes.append(shape)
+        return draws[len(shapes) - 1]
+
+    def masked_chain(self, model, generator, centers, S, _all_valid=None,
+                     _counts=None):
+        return chip_smoke.masked_chain_postselect(
+            model, lambda: self._smear(generator, centers, S), self.maxiter,
+            lambda ok: int(sharded_smc._psum(torch.sum(~ok), group)) == 0)
+
+    resampler = qt.LiuWestResampler(kernel=kernel)
+    postselect = qt.LiuWestResampler._postselect
+    for name in ("loop", "masked_chain"):
+        shapes.clear()
+        if name == "masked_chain":
+            qt.LiuWestResampler._postselect = masked_chain
+        banks[name] = sharded_smc._sharded_resample(
+            tomo_model, resampler, torch.Generator().manual_seed(5),
+            tomo_locs, tomo_lw, group, "all_gather").numpy()
+        banks[f"{name}_draws"] = np.int64(len(shapes))
+        qt.LiuWestResampler._postselect = postselect
+    save("resample_tomography_d4", **banks)
+
+    # The same resample through the one-launch round (csrc/psd_valid.cu
+    # built by the host's g++, the model's redraw_round pointed at it)
+    # and through the masked chain, the last rank's draws zero: its smears
+    # are its centers, all states, so it holds no invalid row and walks
+    # empty lists while the other ranks redraw.
+    lib = _psd_host_kernel.build(out / f"psd_valid_rank{rank}")
+    banks = {"built": np.bool_(lib is not None)}
+    if lib is not None:
+        if rank == world - 1:
+            draws = [torch.zeros_like(x) for x in draws]
+
+        def kernel_round(self, device):
+            return functools.partial(
+                pv._psd_redraw_cuda, basis=self.basis, psd_tol=self.psd_tol,
+                allow_subnormalized=self.allow_subnormalized)
+
+        redraw_round = tomo.TomographyModel.redraw_round
+        for name in ("kernel", "masked_chain"):
+            shapes.clear()
+            if name == "kernel":
+                tomo.TomographyModel.redraw_round = kernel_round
+            else:
+                qt.LiuWestResampler._postselect = masked_chain
+            with _psd_host_kernel.on_host(lib), profile(
+                    activities=[ProfilerActivity.CPU]):
+                banks[name] = sharded_smc._sharded_resample(
+                    tomo_model, resampler, torch.Generator().manual_seed(5),
+                    tomo_locs, tomo_lw, group, "all_gather").numpy()
+            tomo.TomographyModel.redraw_round = redraw_round
+            qt.LiuWestResampler._postselect = postselect
+            counters = profiling.recorded()["counters"]
+            banks[f"{name}_draws"] = np.int64(len(shapes))
+            for c in ("resamplers.LiuWestResampler.kernel_rounds",
+                      "resamplers.LiuWestResampler.tested_rows",
+                      "ops.psd_valid.rows"):
+                banks[f"{name}_{c.rsplit('.', 1)[1]}"] = np.int64(
+                    counters.get(c, 0))
+    save("resample_tomography_d4_kernel", **banks)
 
     # Two spikes at global rows 10 and 100 (weights 0.75, 0.25).
     w = np.full(n, 1e-30)

@@ -1195,8 +1195,10 @@ def test_psd_valid_kernel_matches_plain_and_eigvalsh(cuda, name, view,
 
 def test_a_two_qubit_resample_tests_through_the_kernel(cuda):
     """Every validity test of a Liu–West resample of a two-qubit bank is a
-    launch of the kernel: one for the drawn bank and one a redraw round,
-    and the kernel's rows counter equals the resampler's tested rows."""
+    launch of a kernel of ``csrc/psd_valid.cu``: the test for the drawn
+    bank and the one-launch round for each redraw round; the kernels' rows
+    counter equals the resampler's tested rows (the bank, then the rows
+    still invalid before each round)."""
     from torch.profiler import ProfilerActivity, profile
 
     model = tomo.TomographyModel(chip_smoke.PAULI2)
@@ -1204,17 +1206,106 @@ def test_a_two_qubit_resample_tests_through_the_kernel(cuda):
     n = 1 << 16
     locs = tomo.GinibreDistribution(chip_smoke.PAULI2).sample(g, n)
     log_w = torch.full((n,), -math.log(n), device=cuda)
-    launches = pv.psd_valid.launches
+    launches = pv.psd_valid.launches, pv.psd_redraw.launches
     rounds = qt.LiuWestResampler.redraw_rounds
+    kernel_rounds = qt.LiuWestResampler.kernel_rounds
     # The host's activity only: a card trace here would leave a later
     # profile in this process without card events.
     with profile(activities=[ProfilerActivity.CPU]):
         new = qt.LiuWestResampler(a=0.98)(g, model, locs, log_w)
     counters = profiling.recorded()["counters"]
-    tests = 1 + qt.LiuWestResampler.redraw_rounds - rounds
-    assert tests > 1
-    assert pv.psd_valid.launches - launches == tests
-    assert (counters["ops.psd_valid.rows"]
-            == counters["resamplers.LiuWestResampler.tested_rows"]
-            == tests * n)
+    rounds = qt.LiuWestResampler.redraw_rounds - rounds
+    assert rounds > 0
+    assert qt.LiuWestResampler.kernel_rounds - kernel_rounds == rounds
+    assert counters["resamplers.LiuWestResampler.kernel_rounds"] == rounds
+    assert (pv.psd_valid.launches - launches[0],
+            pv.psd_redraw.launches - launches[1]) == (1, rounds)
+    tested = counters["resamplers.LiuWestResampler.tested_rows"]
+    assert counters["ops.psd_valid.rows"] == tested
+    assert n < tested < n + rounds * n
     assert bool(model.are_models_valid(new).all())
+
+
+@pytest.mark.parametrize("banks", [1, 4])
+@pytest.mark.parametrize("name", ["pauli2", "gm3"])
+def test_redraw_round_kernel_matches_the_masked_chain(cuda, name, banks):
+    """Two one-launch rounds, over the mask then over the list the first
+    wrote, against the resampler's masked chain (GEMM, the validity
+    kernel, ``where``) at 2^20 rows, one root or one a bank of 2^18 rows,
+    the same noise, mask and roots: rows valid before untouched, every
+    decisive row decided alike and the rows both wrote within
+    ``chip_smoke.REDRAW_MAX_ULPS`` of the row's scale
+    (``chip_smoke.redraw_round_agreement`` raises otherwise), the count
+    and list left the mask's; the rows that differ (all borderline) and
+    the largest gap of the rows both wrote, in ulps, printed."""
+    basis = dict(chip_smoke.PSD_BASES)[name]
+    case = chip_smoke.redraw_round_case(basis, N, banks, 41, device=cuda)
+    launches = pv.psd_redraw.launches
+    res = chip_smoke.redraw_round_agreement(basis, case)
+    print(json.dumps({f"redraw_round[{name}, banks={banks}]": res}))
+    assert pv.psd_redraw.launches == launches + 2
+    for form in ("mask", "list"):
+        r = res[form]
+        assert r["decisive"] > 0.99 * r["invalid_before"]
+        assert 0 < r["left"] < r["invalid_before"]
+        assert r["written_rows"] > 0.1 * r["invalid_before"]
+        assert r["max_ulps"] <= chip_smoke.REDRAW_MAX_ULPS
+
+
+def test_redraw_round_with_no_invalid_row_changes_nothing(cuda):
+    basis = chip_smoke.PAULI2
+    locs, ok, centers, roots, noise = chip_smoke.redraw_round_case(
+        basis, 1 << 16, 1, 42, device=cuda)
+    ok[:] = True
+    got, got_ok = locs.clone(), ok.clone()
+    left, _ = pv.psd_redraw(got, got_ok, centers, roots[0], noise, 0, None,
+                            basis, chip_smoke.PSD_TOL)
+    assert int(left) == 0
+    assert torch.equal(got, locs) and bool(got_ok.all())
+
+
+@pytest.mark.parametrize("banks", [1, 4])
+def test_liu_west_loop_with_the_round_kernel_against_the_masked_chain(
+        cuda, banks):
+    """The resampler's postselection on a two-qubit bank of 2^18 rows (one
+    bank, or four of 2^16 with their own roots), the draws injected: the
+    one-launch rounds against the masked chain take the same rows in the
+    same rounds, but for borderline rows (counted; the others within the
+    smear's rounding), each round one draw of the whole bank; every row a
+    state."""
+    basis = chip_smoke.PAULI2
+    model = qt.BinomialModel(tomo.TomographyModel(basis))
+    n = (1 << 18) // banks
+    _, _, centers, roots, _ = chip_smoke.redraw_round_case(
+        basis, banks * n, banks, 43, device=cuda)
+    shape = (banks, n, 16) if banks > 1 else (n, 16)
+    centers = centers.reshape(shape)
+    root = roots if banks > 1 else roots[0]
+    g = torch.Generator(device=cuda).manual_seed(44)
+    draws = [torch.randn(shape, generator=g, device=cuda)
+             for _ in range(17)]
+    seen = []
+
+    def kernel(generator, shp):
+        seen.append(shp)
+        return draws[len(seen) - 1]
+
+    rs = qt.LiuWestResampler(kernel=kernel)
+    kernel_rounds = qt.LiuWestResampler.kernel_rounds
+    got = rs._postselect(model, None, centers, root)
+    rounds = qt.LiuWestResampler.kernel_rounds - kernel_rounds
+    calls = list(seen)
+    seen.clear()
+    want = chip_smoke.masked_chain_postselect(
+        model, lambda: chip_smoke._smear_banks(
+            centers.reshape(-1, 16), roots, kernel(None, shape)
+            .reshape(-1, 16)), rs.maxiter)
+    assert calls == seen == [shape] * (1 + rounds) and rounds > 1
+    # A row taken in another round, or clamped on one side only, lies
+    # further off than the smear's rounding.
+    differ = int(((got - want).abs().amax(1) > 1e-5).sum())
+    print(json.dumps({f"liu_west_loop[banks={banks}]": {
+        "rows": banks * n, "rounds": rounds, "rows_differ": differ,
+        "rows_not_bit_equal": int((got != want).any(1).sum())}}))
+    assert differ <= 1e-4 * banks * n
+    assert bool(model.are_models_valid(got).all())

@@ -302,6 +302,45 @@ def test_sharded_resample_has_the_resampler_s_spans_and_counters(runs):
         assert int(r["tested_rows"]) == tests * (N // K)
 
 
+def test_sharded_two_qubit_resample_equals_the_masked_chain(runs):
+    """A two-qubit bank's sharded resample (rank-3 states, so that smears
+    leave the states and every rank redraws while any holds an invalid
+    row), the draws injected: the resampler's loop gives the banks that
+    the masked chain with the all-reduced check gave, bit for bit, after
+    the same number of whole-block draws on every rank."""
+    ranks = runs("resample_tomography_d4")
+    np.testing.assert_array_equal(_cat(ranks, "loop"),
+                                  _cat(ranks, "masked_chain"))
+    draws = {int(r["loop_draws"]) for r in ranks}
+    assert draws == {int(r["masked_chain_draws"]) for r in ranks}
+    assert len(draws) == 1 and draws.pop() > 2
+
+
+def test_sharded_two_qubit_resample_through_the_round_kernel(runs):
+    """The same resample through the one-launch round (the kernel's source
+    built by the host's g++) against the masked chain, the last rank's
+    draws zero so that it holds no invalid row: the same draws on every
+    rank, the rows within the smear's rounding of the chain's, every rank
+    counting the same kernel rounds, and the last rank testing no row in
+    them (its rounds walk empty lists) while the others test theirs."""
+    ranks = runs("resample_tomography_d4_kernel")
+    if not all(r["built"] for r in ranks):
+        pytest.skip("no host C++ compiler")
+    np.testing.assert_allclose(_cat(ranks, "kernel"),
+                               _cat(ranks, "masked_chain"), rtol=0,
+                               atol=5e-6)
+    draws = {int(r["kernel_draws"]) for r in ranks}
+    assert draws == {int(r["masked_chain_draws"]) for r in ranks}
+    assert len(draws) == 1 and draws.pop() > 2
+    rounds = {int(r["kernel_kernel_rounds"]) for r in ranks}
+    assert len(rounds) == 1 and rounds.pop() > 1
+    assert all(int(r["masked_chain_kernel_rounds"]) == 0 for r in ranks)
+    assert int(ranks[-1]["kernel_rows"]) == 0
+    assert all(int(r["kernel_rows"]) > 0 for r in ranks[:-1])
+    for r in ranks:
+        assert int(r["kernel_tested_rows"]) == N // K + int(r["kernel_rows"])
+
+
 def test_sharded_sample_splits_by_weight(runs):
     ranks = runs("sample")
     draws = ranks[0]["draws"][:, 0]

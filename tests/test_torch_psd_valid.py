@@ -9,14 +9,19 @@
   whose smallest eigenvalue (f64) is more than 1e-6 from −psd_tol, at
   unit row stride and at the diffusive model's stride d² + 1, with and
   without subnormalised states;
-- the wrapper's checks, its launch count and its rows counter.
+- the wrapper's checks, its launch count and its rows counter;
+- the redraw round's kernel (``psd_redraw``), built the same way: a round
+  over the mask, then one over the list it wrote, against the resampler's
+  masked chain on one bank and on T banks of their own roots, the rows
+  valid before untouched, every decisive row decided as the chain decides
+  it, the rows both wrote within ``REDRAW_MAX_ULPS``, the count and list
+  left the mask's; a round with no invalid row;
+  its checks; and the Liu–West loop through the kernel's round against
+  the loop through the masked chain, with the same draws.
 """
 
-import contextlib
-import ctypes
+import functools
 import os
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -27,16 +32,20 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import qinfer_tpu_torch.tomography as tt
-from qinfer_tpu_torch import _build, profiling
+from qinfer_tpu_torch import profiling
 from qinfer_tpu_torch.ops import psd_valid as pv
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+import _psd_host_kernel  # noqa: E402
 from chip_smoke import (  # noqa: E402
     PSD_MARGIN as MARGIN,
     PSD_TOL as TOL,
+    REDRAW_MAX_ULPS,
     min_eigenvalues,
     psd_valid_cases,
+    redraw_round_agreement,
+    redraw_round_case,
 )
 
 BASES = {"pauli2": lambda: tt.pauli_basis(2),
@@ -70,65 +79,20 @@ def test_imports_and_tests_a_cpu_bank_without_nvcc(tmp_path):
     assert out.split() == ["None", "True", "0", "0"]
 
 
-_STUB = r"""
-#include <math.h>
-#include <stdint.h>
-#include <string.h>
-#define __global__
-#define __launch_bounds__(x)
-#define __shared__ static
-struct dim3 { unsigned x, y, z; };
-static dim3 blockIdx, threadIdx;
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-static inline void __syncthreads() {}
-static inline float __ldg(const float* p) { return *p; }
-static inline float __fadd_rn(float a, float b) { return a + b; }
-static inline float __fsub_rn(float a, float b) { return a - b; }
-static inline float __fmul_rn(float a, float b) { return a * b; }
-#define QT_AT(b, t) (blockIdx.x = (b), threadIdx.x = (t))
-"""
-
-
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """csrc/psd_valid.cu built by g++: each launch runs its blocks in turn,
-    each block's threads twice (the first pass stages the tile, the second
-    finds it whole)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    """csrc/psd_valid.cu built by g++ (``_psd_host_kernel.build``)."""
+    lib = _psd_host_kernel.build(tmp_path_factory.mktemp("psd_valid"))
+    if lib is None:
         pytest.skip("no host C++ compiler")
-    source = (ROOT / "qinfer_tpu_torch" / "csrc" / "psd_valid.cu").read_text()
-    source = source.replace("#include <cuda_runtime.h>", _STUB)
-    source, n = re.subn(
-        r"(\w+<D>)<<<(\w+), (\w+), 0, \w+>>>\(",
-        r"for (unsigned bx = 0; bx < \2; ++bx) for (int pass = 0; pass < 2;"
-        r" ++pass) for (int t = 0; t < \3; ++t) QT_AT(bx, t), \1(", source)
-    assert n == 1
-    folder = tmp_path_factory.mktemp("psd_valid")
-    (folder / "psd_valid.cpp").write_text(source)
-    lib = folder / "psd_valid.so"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-o", str(lib), str(folder / "psd_valid.cpp")],
-                   check=True, capture_output=True, timeout=120)
-    so = ctypes.CDLL(str(lib))
-    so.qt_psd_valid.argtypes = list(_build._SIGNATURES["qt_psd_valid"])
-    so.qt_psd_valid.restype = ctypes.c_int
-    return so
-
-
-class _Stream:
-    cuda_stream = 0
+    return lib
 
 
 @pytest.fixture
 def on_host(monkeypatch, host_kernel):
     """The wrapper's CUDA path on host tensors, launching ``host_kernel``."""
-    monkeypatch.setattr(_build, "library", lambda: (host_kernel, {}))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda _: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda _: _Stream())
+    for obj, name, value in _psd_host_kernel.patches(host_kernel):
+        monkeypatch.setattr(obj, name, value)
     return host_kernel
 
 
@@ -225,3 +189,141 @@ def test_a_cpu_bank_keeps_the_plain_test(name):
     if basis.dim > 2:
         assert torch.equal(ok, pv.psd_valid_plain(x, basis, TOL))
         assert torch.equal(ok, pv.psd_valid(x, basis, TOL))
+
+
+@pytest.mark.parametrize("subnormalized", [False, True],
+                         ids=["unit_trace", "subnormalized"])
+@pytest.mark.parametrize("banks", [1, 3])
+@pytest.mark.parametrize("name", list(BASES))
+def test_redraw_kernel_source_matches_the_masked_chain(on_host, name, banks,
+                                                       subnormalized):
+    basis = BASES[name]()
+    case = redraw_round_case(basis, 3 * 1400 + 3 * 77, banks, 5)
+    launches = pv.psd_redraw.launches
+    res = redraw_round_agreement(basis, case, subnormalized,
+                                 redraw=pv._psd_redraw_cuda)
+    assert pv.psd_redraw.launches == launches + 2
+    assert 0.2 * res["rows"] < res["mask"]["invalid_before"] < (
+        0.8 * res["rows"])
+    for form in ("mask", "list"):
+        r = res[form]
+        assert r["decisive"] > 0.95 * r["invalid_before"]
+        assert 0 < r["left"] < r["invalid_before"]
+        # The smear rounds as the CPU's GEMM does up to its order of sums.
+        assert r["max_ulps"] <= REDRAW_MAX_ULPS
+
+
+def test_redraw_round_with_no_invalid_row_changes_nothing(on_host):
+    basis = tt.pauli_basis(2)
+    locs, ok, centers, roots, noise = redraw_round_case(basis, 600, 1, 6)
+    ok[:] = True
+    got, got_ok = locs.clone(), ok.clone()
+    left, _ = pv._psd_redraw_cuda(got, got_ok, centers, roots[0], noise, 0,
+                                  None, basis, TOL, False)
+    assert int(left) == 0 and left.dtype == torch.int32
+    assert torch.equal(got, locs) and bool(got_ok.all())
+
+
+@pytest.mark.parametrize("case", ["qubit", "d5", "f64", "ragged_banks",
+                                  "mask_dtype", "root_shape", "devices",
+                                  "list_dtype", "list_length"])
+def test_redraw_wrapper_refuses_what_the_kernel_cannot_take(on_host, case):
+    basis = tt.pauli_basis(1) if case == "qubit" else (
+        tt.gell_mann_basis(5) if case == "d5" else tt.pauli_basis(2))
+    n_el = basis.n_elements
+    locs, centers, noise = (torch.zeros((12, n_el)) for _ in range(3))
+    ok, root = torch.zeros(12, dtype=torch.bool), torch.eye(n_el)
+    rows = None
+    if case == "list_dtype":
+        rows = torch.arange(12)
+    elif case == "list_length":
+        rows = torch.arange(11, dtype=torch.int32)
+    elif case == "f64":
+        noise = noise.double()
+    elif case == "ragged_banks":
+        root = torch.eye(n_el).expand(5, n_el, n_el)
+    elif case == "mask_dtype":
+        ok = ok.to(torch.uint8)
+    elif case == "root_shape":
+        root = torch.eye(n_el + 1)
+    elif case == "devices":
+        centers = torch.zeros((12, n_el), device="meta")
+    launches = pv.psd_redraw.launches
+    with pytest.raises(ValueError):
+        pv._psd_redraw_cuda(locs, ok, centers, root, noise, 12, rows, basis,
+                            TOL, False)
+    with pytest.raises(ValueError):  # the public wrapper: CUDA only
+        pv.psd_redraw(locs, ok, centers, root, noise, 12, rows, basis, TOL)
+    assert pv.psd_redraw.launches == launches
+
+
+class _Draws:
+    """The smear noise of a resample from a list, one call a draw, with the
+    shapes asked for."""
+
+    def __init__(self, draws):
+        self.draws, self.shapes = draws, []
+
+    def __call__(self, generator, shape):
+        self.shapes.append(shape)
+        return self.draws[len(self.shapes) - 1]
+
+
+@pytest.mark.parametrize("banks", [1, 3])
+@pytest.mark.parametrize("name", list(BASES))
+def test_liu_west_loop_through_the_kernel_round(on_host, name, banks):
+    """The resampler's loop with the kernel's round (the model's
+    ``redraw_round`` on the host kernel) against its masked chain, the
+    same draws: the same rounds, each drawing the whole bank once, the
+    same rows taken (within the smear's rounding) and clamped, and the
+    kernel's rows counted as tested."""
+    import qinfer_tpu_torch as qt
+    from qinfer_tpu_torch import resamplers
+
+    basis = BASES[name]()
+    model = tt.TomographyModel(basis)
+    n = 900
+    _, _, centers, roots, _ = redraw_round_case(basis, banks * n, banks, 8)
+    g = torch.Generator().manual_seed(banks)
+    draws = [torch.randn(banks * n, basis.n_elements, generator=g)
+             for _ in range(7)]
+    shape = (banks, n, basis.n_elements) if banks > 1 else (
+        n, basis.n_elements)
+    draws = [x.reshape(shape) for x in draws]
+    centers = centers.reshape(shape)
+    root = roots if banks > 1 else roots[0]
+
+    def run(kernel_round):
+        kernel = _Draws(draws)
+        rs = qt.LiuWestResampler(maxiter=6, kernel=kernel)
+        rounds = resamplers.LiuWestResampler.redraw_rounds
+        kernel_rounds = resamplers.LiuWestResampler.kernel_rounds
+        with pytest.MonkeyPatch.context() as mp:
+            if kernel_round:
+                mp.setattr(tt.TomographyModel, "redraw_round",
+                           lambda self, device: functools.partial(
+                               pv._psd_redraw_cuda, basis=self.basis,
+                               psd_tol=self.psd_tol,
+                               allow_subnormalized=self.allow_subnormalized))
+            with profile(activities=[ProfilerActivity.CPU]):
+                out = rs._postselect(qt.BinomialModel(model), None, centers,
+                                     root)
+        counters = profiling.recorded()["counters"]
+        return (out, kernel.shapes,
+                resamplers.LiuWestResampler.redraw_rounds - rounds,
+                resamplers.LiuWestResampler.kernel_rounds - kernel_rounds,
+                counters)
+
+    want, want_shapes, want_rounds, plain_kernel_rounds, plain = run(False)
+    got, shapes, rounds, kernel_rounds, counters = run(True)
+    assert plain_kernel_rounds == 0 and kernel_rounds == rounds
+    assert shapes == want_shapes == [shape] * (1 + rounds)
+    assert 1 < rounds <= 6
+    # No row of these draws lies within the smear's rounding of the
+    # threshold, so both loops take the same rows in the same rounds.
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=5e-6)
+    tested = counters["resamplers.LiuWestResampler.tested_rows"]
+    assert counters["ops.psd_valid.rows"] == tested - banks * n
+    assert plain["resamplers.LiuWestResampler.tested_rows"] == (
+        (1 + rounds) * banks * n)
+    assert counters["resamplers.LiuWestResampler.kernel_rounds"] == rounds

@@ -20,9 +20,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import qinfer_tpu as qi
 import qinfer_tpu_torch as qt
+from qinfer_tpu_torch import profiling
 from qinfer_tpu.resamplers import systematic_resample_indices as j_indices
 from qinfer_tpu.resamplers import systematic_segment_starts as j_starts
 from qinfer_tpu_torch.ops import resample_expand as tre
@@ -215,3 +217,91 @@ def test_h_and_zero_cov_comp():
         torch.Generator().manual_seed(0), None, locs,
         torch.full((100,), -float(np.log(100))))
     assert float(out.std()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["one_bank", "banks", "maxiter_clamp"])
+@pytest.mark.parametrize("dim", [3, 4])
+def test_postselect_plain_route_is_bit_equal_to_the_masked_chain(dim, case):
+    """The restructured loop's plain route (every CPU bank), with injected
+    draws, against the loop it replaced: the same bank bit for bit, and
+    one draw of the whole bank's shape a round."""
+    from chip_smoke import masked_chain_postselect, redraw_round_case
+
+    basis = (qt.tomography.gell_mann_basis(3) if dim == 3
+             else qt.tomography.pauli_basis(2))
+    model = qt.BinomialModel(qt.tomography.TomographyModel(basis))
+    banks = 3 if case == "banks" else 1
+    n, d = 700, basis.n_elements
+    _, _, centers, roots, _ = redraw_round_case(basis, banks * n, banks, dim)
+    shape = (banks, n, d) if banks > 1 else (n, d)
+    centers = centers.reshape(shape)
+    S = roots if banks > 1 else roots[0]
+    if case == "maxiter_clamp":
+        S = 3.0 * S
+    g = torch.Generator().manual_seed(dim)
+    draws = [torch.randn(shape, generator=g) for _ in range(17)]
+    seen = []
+
+    def kernel(generator, shp):
+        seen.append(shp)
+        return draws[len(seen) - 1]
+
+    maxiter = 3 if case == "maxiter_clamp" else 16
+    rs = qt.LiuWestResampler(maxiter=maxiter, kernel=kernel)
+    kernel_rounds = qt.LiuWestResampler.kernel_rounds
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = rs._postselect(model, None, centers, S)
+    clamped = profiling.recorded()["counters"].get(
+        "resamplers.LiuWestResampler.clamped_rows", 0)
+    assert qt.LiuWestResampler.kernel_rounds == kernel_rounds
+    calls = list(seen)
+    seen.clear()
+    want = masked_chain_postselect(
+        model,
+        lambda: (centers + kernel(None, shape) @ S.transpose(-2, -1))
+        .reshape(-1, d), maxiter)
+    assert calls == seen and all(s == shape for s in calls)
+    assert torch.equal(got, want)
+    assert bool(model.are_models_valid(got).all())
+    if case == "maxiter_clamp":
+        assert len(calls) == 1 + maxiter and clamped > 0
+    else:
+        assert 2 < len(calls) <= 17
+
+
+def _route_models():
+    tomo = qt.tomography
+    pauli2 = tomo.pauli_basis(2)
+    return {
+        "precession": qt.SimplePrecessionModel(),
+        "qubit": tomo.TomographyModel(tomo.pauli_basis(1)),
+        "d5": tomo.TomographyModel(tomo.gell_mann_basis(5)),
+        "diffusive": tomo.DiffusiveTomographyModel(pauli2),
+        "walk_over_d4": qt.GaussianRandomWalkModel(
+            tomo.TomographyModel(pauli2)),
+        "d4": tomo.TomographyModel(pauli2),
+        "d3": tomo.TomographyModel(tomo.gell_mann_basis(3)),
+        "binomial_d4": qt.BinomialModel(tomo.TomographyModel(pauli2)),
+    }
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("name", list(_route_models()))
+def test_redraw_round_route(name, device):
+    """Which banks take the one-launch round: rows of a d = 3 or 4
+    tomography bank on CUDA (through a derived model's delegation too);
+    not precession, qubits (closed form), d ≥ 5, a model whose test is
+    another (the diffusive ε column, a walk's σ columns), nor a CPU bank.
+    Deciding launches and builds nothing."""
+    from qinfer_tpu_torch import _build
+    from qinfer_tpu_torch.ops import psd_valid as pv
+
+    builds = _build.library.cache_info().currsize
+    launches = pv.psd_valid.launches, pv.psd_redraw.launches
+    redraw = _route_models()[name].redraw_round(torch.device(device))
+    takes = device == "cuda" and name in ("d4", "d3", "binomial_d4")
+    assert (redraw is not None) is takes
+    if takes:
+        assert redraw.func is pv.psd_redraw
+    assert (pv.psd_valid.launches, pv.psd_redraw.launches) == launches
+    assert _build.library.cache_info().currsize == builds
