@@ -17,14 +17,15 @@ Phases, in order; any failure exits non-zero before the result line:
    B1 (fused Bayes update) within the tolerances of the JAX package's own
    kernel test (atol 1e-4 on log-weights and log_norm, rtol 1e-3 on ESS),
    for the flagship tile, for each of the ten tiles of ``ZOO`` and for the
-   three Born-tile cases of ``TOMO`` (priors drawn on the card with
-   ``GinibreDistribution``) at n ∈ {1000, 2^20 + 3, 2^20}; B1's row-span
-   path (``SPAN_CASES``: banks of row stride 4, 5, 16, 17, offset views)
+   four Born-tile cases of ``TOMO`` (priors drawn on the card with
+   ``GinibreDistribution``) at n ∈ {1000, 2^20 + 3, 2^20}, the three-qubit
+   one also at 2^19 and bit-equal there; B1's row-span
+   path (``SPAN_CASES``: banks of row stride 4, 5, 16, 17, 64, offset views)
    also bit for bit against its per-column path, single and batched; at
    every B1 case the per-column path's one-launch form bit for bit
    against its two-pass form, both forced (lw − lse, lse, lse2, ESS and
    the raw lw of ``return_stats``); B2 (systematic expand) bit for bit at
-   D ∈ {1, 2, 3, 4, 5, 16, 17} and N ∈ ``B2_SIZES``, in the wrapper's form
+   D ∈ {1, 2, 3, 4, 5, 16, 17, 64} and N ∈ ``B2_SIZES``, in the wrapper's form
    and, up to D = 8, in the merge path, the rows form and, where N is
    within its cap, the bank form forced (``b2_forced``); one over the cap
    a forced bank form must raise ValueError. The validity kernel of d = 3,
@@ -68,7 +69,13 @@ Phases, in order; any failure exits non-zero before the result line:
    columns, B2 at D = 16), one ``batch_update`` over 120 product
    projectors × 50 shots per window; gate: x̂ physical and Tr(ρ̂ρ) > 0.45;
    every validity test (one a resample and one a redraw round) one launch
-   of the validity kernel. One JSON line.
+   of the validity kernel. One JSON line. Then tomography_3q_binomial
+   (``phase_tomography_3q``): three-qubit tomography at 2^19, one
+   ``batch_update`` over 40 product projectors × 50 shots at a GHZ mixture
+   (B1's Born tile at 64 columns on the row span, B2 at D = 64, validity on
+   the plain d = 8 chain); gate: B1 once an update, each over 16 columns,
+   B2 at least once a resample, and every final particle a state. One JSON
+   line.
 8. config1_quickstart_pgh and config4_known_t2_pgh (``PGH_PATHS``): the
    adaptive loops of examples/config1 and examples/config4's known-T2 at
    2^20, 100 steps of ``PGH`` → ``simulate_experiment`` on the card →
@@ -586,6 +593,7 @@ def user_batched_inputs(n_trials, n, seed, device):
 
 PAULI1 = tomo.pauli_basis(1)
 PAULI2 = tomo.pauli_basis(2)
+PAULI3 = tomo.pauli_basis(3)
 # examples/config5_adaptive_tomography.py:23-37: a slightly mixed |+⟩ and
 # the projectors onto the +X, +Y and +Z eigenstates.
 TRUE_RHO_1Q = np.array([[0.5, 0.45], [0.45, 0.5]], dtype=np.complex64)
@@ -607,6 +615,11 @@ CONFIG5_SEEDS = (0, 1, 2, 3)
 N_2Q = 1 << 20
 N_SETTINGS_2Q, N_SHOTS_2Q = 120, 50
 GATE_2Q = 0.45
+# Three-qubit binomial tomography: the tomography_3q_batch cell's bank
+# (2^19 × 64) and a record of 40 product projectors × 50 shots at the state
+# 0.9|GHZ⟩⟨GHZ| + 0.1·I/8.
+N_3Q = 1 << 19
+N_SETTINGS_3Q, N_SHOTS_3Q = 40, 50
 
 
 def coords(basis, rho):
@@ -629,6 +642,13 @@ def product_projector_2q(rng):
     """Coordinates of |a⟩⟨a| ⊗ |b⟩⟨b| for two pure states drawn as
     normalised complex Gaussians."""
     return coords(PAULI2, np.kron(_pure_state(rng), _pure_state(rng)))
+
+
+def product_projector_3q(rng):
+    """Coordinates of |a⟩⟨a| ⊗ |b⟩⟨b| ⊗ |c⟩⟨c| for three pure states drawn
+    as normalised complex Gaussians."""
+    return coords(PAULI3, np.kron(np.kron(_pure_state(rng), _pure_state(rng)),
+                                  _pure_state(rng)))
 
 
 def tomography_2q_record(seed=0):
@@ -665,7 +685,8 @@ class DiffusivePrior(qt.Distribution):
 _E_BORN = np.array([1, 1, 0, 0], np.float32) / np.float32(2 * np.sqrt(2))
 # B1's Born-tile cases: (name, model, prior, outcome, expparams of one
 # experiment). The first two are tests/test_pallas_ops.py:281-286; the third
-# is one update of the two-qubit path (a product projector, k = 31 of 50).
+# is one update of the two-qubit path (a product projector, k = 31 of 50),
+# the fourth one of the three-qubit path (64 columns, k = 7 of 50).
 TOMO = (
     ("tomography", tomo.TomographyModel(PAULI1),
      tomo.GinibreDistribution(PAULI1), 1, {"meas": _E_BORN[None]}),
@@ -677,11 +698,18 @@ TOMO = (
      tomo.GinibreDistribution(PAULI2), 31,
      {"meas": product_projector_2q(np.random.default_rng(3))[None],
       "n_meas": np.array([50], np.int32)}),
+    ("binomial_tomography_3q",
+     qt.BinomialModel(tomo.TomographyModel(PAULI3)),
+     tomo.GinibreDistribution(PAULI3), 7,
+     {"meas": product_projector_3q(np.random.default_rng(4))[None],
+      "n_meas": np.array([50], np.int32)}),
 )
 # The tile each tomography path runs, under its name in the kernel table.
 TOMO_TILE = {"config5_adaptive_tomography": ("tomography", "born4"),
              "tomography_2q_binomial": ("binomial_tomography_2q",
-                                        "binomial_born16")}
+                                        "binomial_born16"),
+             "tomography_3q_binomial": ("binomial_tomography_3q",
+                                        "binomial_born64")}
 
 
 def zoo_inputs(case, n, seed, device):
@@ -1110,13 +1138,15 @@ def traced_twin(tile, n_cols):
     return type(tile)(b1.cuda_pr1(tile.pr1_fn, program.source))
 
 
-# (name, inputs(n, seed, device)) of every built-in tile of ZOO and TOMO,
-# whose pr1 the compare phase also runs traced (``traced_twin``).
+# (name, inputs(n, seed, device)) of every built-in tile of ZOO and TOMO
+# within the tracer's bound (pr1_trace.MAX_COLS columns: not the
+# three-qubit Born tile), whose pr1 the compare phase also runs traced
+# (``traced_twin``).
 BUILTIN_TILES = tuple(
     [(c[0], lambda n, seed, device, c=c: zoo_inputs(c, n, seed, device))
      for c in ZOO]
     + [(c[0], lambda n, seed, device, c=c: tomo_inputs(c, n, seed, device))
-       for c in TOMO])
+       for c in TOMO if c[1].n_modelparams <= pr1_trace.MAX_COLS])
 
 
 def traced_sources():
@@ -1212,9 +1242,50 @@ def both_forms(tile, scal, lw, cols):
     return out
 
 
+def one_launch_resident(tile, lw, cols):
+    """Whether the forced one-launch grid of B1's per-column path on the T
+    banks ``lw`` (T, N) fits the card's resident blocks of the tile's
+    instantiation: ``(fits, blocks, capacity)``. A 64-column functor holds
+    two blocks an SM, so at 2^20 + 3 rows (342 blocks of 3 virtual ones)
+    it does not."""
+    outcome_id, functor_id, _, source = b1._kernel_of(tile)
+    n_trials, n = lw.shape
+    cap = b1._capacity(outcome_id, functor_id, len(cols), n_trials > 1,
+                       lw.device.index, source)
+    blocks = n_trials * b1.grid_plan(n_trials, n, cap, b1.ONE_LAUNCH).blocks
+    return blocks <= cap, blocks, cap
+
+
+def refused_one_launch(tile, scal, lw, cols):
+    """Where the forced one-launch grid is not resident: the wrapper's plan
+    is two passes and the card refuses the forced form (the card recovers);
+    raises otherwise."""
+    _, _, cap = one_launch_resident(tile, lw, cols)
+    if b1.grid_plan(*lw.shape, cap).form != b1.TWO_PASS:
+        raise AssertionError("the wrapper planned one launch on a grid that "
+                             "is not resident")
+    try:
+        b1._fused_update_cuda(tile, scal, lw, cols, row_span=False,
+                              form=b1.ONE_LAUNCH)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        if "cudaError" not in str(e):
+            raise
+    else:
+        raise AssertionError("the card took a one-launch grid larger than "
+                             "its resident blocks")
+
+
 def _forms_check(label, tile, scal, lw, cols):
     """The one-launch form bit-equal to the two-pass form on T banks; raises
-    otherwise."""
+    otherwise. Where the forced one-launch grid is not resident, its
+    refusal and the wrapper's two-pass plan instead."""
+    fits, blocks, cap = one_launch_resident(tile, lw, cols)
+    if not fits:
+        refused_one_launch(tile, scal, lw, cols)
+        print(f"B1 {label}: the one-launch grid ({blocks} blocks) exceeds "
+              f"the {cap} resident: refused, the wrapper takes two passes")
+        return
     one, two = both_forms(tile, scal, lw, cols)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(one, two))
@@ -1280,12 +1351,20 @@ def phase_compare_zoo(device):
 
 
 def phase_compare_tomo(device):
-    """Every TOMO case against its plain version; worst error per case."""
+    """Every TOMO case against its plain version; worst error per case. The
+    three-qubit case also at the cell's N_3Q, its lw and log_norm bit-equal
+    to the plain version's or it raises."""
     worst = {}
     for case in TOMO:
+        wide = case[1].n_modelparams > 16
+        sizes = (1000, N_FLAGSHIP + 3, N_FLAGSHIP) + ((N_3Q,) if wide else ())
         worst[case[0]] = max(
             _b1_check(f"{case[0]} n={n}", *tomo_inputs(case, n, n, device))
-            for n in (1000, N_FLAGSHIP + 3, N_FLAGSHIP))
+            for n in sizes)
+        if wide and worst[case[0]] != 0.0:
+            raise AssertionError(f"B1 at {case[1].n_modelparams} columns is "
+                                 f"not bit-equal to its plain version: max "
+                                 f"|Δ| {worst[case[0]]}")
     return worst
 
 
@@ -1293,12 +1372,13 @@ def phase_compare_tomo(device):
 # bank): (s, columns read, view). "rows" reads columns 0…k−1 of the bank,
 # "from_row_1" the same of bank[1:], "from_col_1" columns 1…k. s = 4 and
 # 16 are config 5's and the two-qubit bank; 5 and 17 the diffusive models'
-# (ε unread). Below s = 8 the wrapper keeps the per-column path, so the
-# compare forces each path on the same views.
+# (ε unread); 64 the three-qubit bank. Below s = 8 the wrapper keeps the
+# per-column path, so the compare forces each path on the same views.
 SPAN_CASES = ((4, 4, "rows"), (5, 4, "rows"), (16, 16, "rows"),
               (17, 16, "rows"), (16, 16, "from_row_1"),
               (5, 4, "from_row_1"), (5, 4, "from_col_1"),
-              (17, 16, "from_col_1"))
+              (17, 16, "from_col_1"), (64, 64, "rows"),
+              (64, 64, "from_row_1"))
 
 
 def span_inputs(s, k, view, n, seed, device, n_trials=None):
@@ -1393,7 +1473,7 @@ def phase_compare_b2(device):
     worst = 0.0
     rng = np.random.default_rng(0)
     for n in B2_SIZES:
-        for d in (1, 2, 3, 4, 5, 16, 17):
+        for d in (1, 2, 3, 4, 5, 16, 17, 64):
             vals = torch.as_tensor(rng.standard_normal((n, d)),
                                    dtype=torch.float32, device=device)
             mu = torch.as_tensor(rng.standard_normal(d), dtype=torch.float32,
@@ -1799,6 +1879,59 @@ def phase_config5(device):
         "est": [w["est"].tolist() for w in windows],
         "choices": [np.bincount(w["choices"], minlength=3).tolist()
                     for w in windows],
+        "launches": counts}))
+    return counts
+
+
+def tomography_3q_window(n, seed, device):
+    """One batch_update of a three-qubit record (N_SETTINGS_3Q product
+    projectors × N_SHOTS_3Q shots at 0.9|GHZ⟩⟨GHZ| + 0.1·I/8, counts drawn
+    from ``seed``) on a fresh bank of n: the tomography_3q_batch cell's
+    model, prior and resampler. Returns the window's time, the updater and
+    whether every particle of the final bank is a state."""
+    ghz = np.zeros((8, 1), complex)
+    ghz[0, 0] = ghz[7, 0] = 1 / np.sqrt(2)
+    true_x = coords(PAULI3, 0.9 * (ghz @ ghz.conj().T) + 0.1 * np.eye(8) / 8)
+    rng = np.random.default_rng(seed)
+    meas = np.stack([product_projector_3q(rng) for _ in range(N_SETTINGS_3Q)])
+    counts = rng.binomial(N_SHOTS_3Q, np.clip(meas.astype(np.float64)
+                                              @ true_x, 0, 1)).astype(np.int32)
+    model = qt.BinomialModel(tomo.TomographyModel(PAULI3, psd_tol=1e-5))
+    u = qt.SMCUpdater(model, n, tomo.GinibreDistribution(PAULI3),
+                      resampler=qt.LiuWestResampler(a=0.98, maxiter=16),
+                      zero_weight_policy="reset", seed=seed, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    u.batch_update(counts, {"meas": meas, "n_meas": np.full(
+        N_SETTINGS_3Q, N_SHOTS_3Q, np.int32)})
+    states = bool(model.are_models_valid(u.particle_locations).all())
+    return {"updater": u, "seconds": time.perf_counter() - t0,
+            "states": states}
+
+
+def phase_tomography_3q(device):
+    """Three-qubit binomial tomography at N_3Q: a warm-up window, then one
+    with the counters read: B1 once an update, each on more than 16
+    columns, B2 at least once a resample, and every final particle a
+    state."""
+    name = "tomography_3q_binomial"
+    tomography_3q_window(N_3Q, 11, device)
+    _reset_counters()
+    wide = b1.fused_bayes_update.wide_launches
+    w = tomography_3q_window(N_3Q, 12, device)
+    counts, rounds = _read_counters()
+    n_resamples = w["updater"].resample_count
+    _check_launches(name, counts, N_SETTINGS_3Q, n_resamples)
+    wide = b1.fused_bayes_update.wide_launches - wide
+    if wide != N_SETTINGS_3Q or not w["states"]:
+        raise AssertionError(f"{name}: {wide} B1 launches over 16 columns "
+                             f"for {N_SETTINGS_3Q} updates; final bank all "
+                             f"states: {w['states']}")
+    print(json.dumps({
+        "config": name, "n_particles": N_3Q, "n_updates": N_SETTINGS_3Q,
+        "particle_updates_per_s": N_3Q * N_SETTINGS_3Q / w["seconds"],
+        "window_s": w["seconds"], "n_resamples": n_resamples,
+        "redraw_rounds": rounds, "wide_launches": wide,
         "launches": counts}))
     return counts
 
@@ -3907,6 +4040,7 @@ def main():
     config_launches = phase_configs(device)
     config_launches["config5_adaptive_tomography"] = phase_config5(device)
     config_launches["tomography_2q_binomial"] = phase_tomography_2q(device)
+    config_launches["tomography_3q_binomial"] = phase_tomography_3q(device)
     pgh_launches = phase_pgh_paths(device)
     native_launches = phase_pgh_native(device)
     ens_launches, b2_inputs = phase_ensembles(device)

@@ -6,20 +6,19 @@
 // qinfer_tpu/ops/fused_update.py: precession (:280), multicos (:286),
 // known-T2 (:299), RB (:311), interleaved RB (:319), inversion (:330),
 // coin (:336), noisy coin (:342) and the tomography Born rule
-// make_born_pr1 (:347, up to 16 columns), and GivenPr1, the column route's
+// make_born_pr1 (:347, up to 64 columns), and GivenPr1, the column route's
 // functor: Pr(1) evaluated by the model's own torch pr1 and handed in as
 // the one column (ops/fused_update.py). Each reads its expparams from
 // `scalars` once per thread and its compile-time constants (known-T2's T2)
 // from `consts`. A functor names its own column bound (kMaxColsUsed), so a
 // wide functor does not widen the unrolled loops or the registers of the
-// others: MultiCos keeps 8, and the Born rule is instantiated at 4 columns
-// (a qubit) and at 16 (two qubits).
+// others: MultiCos is instantiated at 8 terms and at kMaxCols, and the Born
+// rule at 4 columns (a qubit), at 16 (two qubits) and at 64 (three
+// qubits).
 
 #include "fused_update.cuh"
 
 namespace {
-
-constexpr int kMultiCosMaxCols = 8;
 
 // -- pr1 functors: Pr(outcome 1) of one particle. `s` points at the pr1
 // function's own scalars (after the outcome composition's head).
@@ -36,9 +35,10 @@ struct PrecessionPr1 {
 };
 
 // 1 − cos²(0.5·Σ ω_j t_j), summed in the order ω₀t₀ + ω₁t₁ + …;
-// s = ts (n_terms = n_cols).
+// s = ts (n_terms = n_cols). Bounded at kCols terms: 8, or kMaxCols.
+template <int kCols>
 struct MultiCosPr1 {
-  static constexpr int kMinCols = 1, kMaxColsUsed = kMultiCosMaxCols;
+  static constexpr int kMinCols = 1, kMaxColsUsed = kCols;
   float ts[kMaxColsUsed];
   int n_terms;
   __device__ MultiCosPr1(const float* s, const Consts&, int n_cols) : n_terms(n_cols) {
@@ -138,7 +138,7 @@ struct NoisyCoinPr1 {
 
 // Born rule: clip(x₀e₀ + x₁e₁ + … + x_{n−1}e_{n−1}, 0, 1), summed in that
 // order; s = meas (the effect's n_cols coordinates); columns x_d. Bounded
-// at kCols columns: d² = 4 for a qubit, 16 for two.
+// at kCols columns: d² = 4 for a qubit, 16 for two, 64 for three.
 template <int kCols>
 struct BornPr1 {
   static constexpr int kMinCols = 1, kMaxColsUsed = kCols;
@@ -174,7 +174,9 @@ template <template <class> class Outcome>
 static int launch_pr1(int pr1, const Launch& a) {
   switch (pr1) {
     case 0: return launch<Outcome<PrecessionPr1>>(a);
-    case 1: return launch<Outcome<MultiCosPr1>>(a);
+    case 1:
+      return a.n_cols <= 8 ? launch<Outcome<MultiCosPr1<8>>>(a)
+                           : launch<Outcome<MultiCosPr1<kMaxCols>>>(a);
     case 2: return launch<Outcome<KnownT2Pr1>>(a);
     case 3: return launch<Outcome<RbPr1>>(a);
     case 4: return launch<Outcome<RbInterleavedPr1>>(a);
@@ -182,8 +184,9 @@ static int launch_pr1(int pr1, const Launch& a) {
     case 6: return launch<Outcome<CoinPr1>>(a);
     case 7: return launch<Outcome<NoisyCoinPr1>>(a);
     case 8:
-      return a.n_cols <= 4 ? launch<Outcome<BornPr1<4>>>(a)
-                           : launch<Outcome<BornPr1<kMaxCols>>>(a);
+      return a.n_cols <= 4    ? launch<Outcome<BornPr1<4>>>(a)
+             : a.n_cols <= 16 ? launch<Outcome<BornPr1<16>>>(a)
+                              : launch<Outcome<BornPr1<kMaxCols>>>(a);
     case 9: return launch<Outcome<GivenPr1>>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,9 +13,9 @@
 //     lse  = log Σ exp(lw),   lse2 = log Σ exp(2·lw),   ess = exp(2·lse − lse2)
 //
 // What bounds it on this card. Per particle it reads log_w and one to
-// sixteen parameter columns and writes lw: 12 to 72 bytes, 3.8 to 22.5 µs
-// for 2^20 particles at 3.35 TB/s. At one to four columns the math costs
-// as much: the accurate cos, log and exp that keep the plain version's
+// sixty-four parameter columns and writes lw: 12 to 264 bytes, 3.8 to
+// 82.6 µs for 2^20 particles at 3.35 TB/s. At one to four columns the math
+// costs as much: the accurate cos, log and exp that keep the plain version's
 // bits take about a hundred instructions a particle (cuobjdump of the
 // precession tile), so a pass over the bank runs well below the memory's
 // rate, and every launch, merge and extra round trip of the bank adds to
@@ -77,7 +77,7 @@
 // two_outcome_tile (:247), Binomial<Pr1> is binomial_tile (:259, log C(n,k)
 // comes in `scalars`, computed on the device by the wrapper). A pr1 functor
 // is a struct with
-//   static constexpr int kMinCols, kMaxColsUsed;   // columns it takes, ≤ 16
+//   static constexpr int kMinCols, kMaxColsUsed;   // columns it takes, ≤ kMaxCols
 //   __device__ Pr1(const float* s, const Consts& k, int n_cols);
 //   template <class C> __device__ float operator()(const C& c, int64_t i) const;
 // The constructor reads the pr1's expparams from `s` (the scalars after the
@@ -93,9 +93,10 @@
 //    Lanes of a warp are `stride` floats apart, so a warp-wide load of a
 //    16-column bank touches 32 lines for 128 useful bytes;
 //  - row span (fused_update_span), when the columns are views of one
-//    row-major (N, s) bank with 8 ≤ s ≤ 20 (the wrapper's choice: on an
-//    H100 the per-column path measured faster for the tiles with s ≤ 5):
-//    column j of particle i is base[i·s + off_j].
+//    row-major (N, s) bank with 8 ≤ s ≤ 20, or s ≤ 64 for a tile of more
+//    than 16 columns (the wrapper's choice: on an H100 the per-column path
+//    measured faster for the tiles with s ≤ 5): column j of particle i is
+//    base[i·s + off_j].
 //    For each grid step a block's 256 rows are one contiguous span of
 //    256·s floats. The block stages it in shared memory with coalesced
 //    cp.async copies (16 bytes where address and size allow, 4 bytes at
@@ -106,6 +107,15 @@
 //    columns are 0…n−1 in order (rows 16·s bytes apart then hit all banks
 //    through an XOR swizzle of the 16-byte chunks when s % 8 == 0), else
 //    one float per column (odd s is conflict-free as it stands).
+//    A stage is 256·s floats, two stages up to 41 KB for s ≤ 20. The wide
+//    tiles (three-qubit Born, s = 64: 128 KB) take the dynamic shared
+//    memory above 48 KB by opting in, and so one block an SM; with 64 KB
+//    a stage, the copy in flight while a stage is computed still covers
+//    the SM's share of the bandwidth (about 25 KB a µs): 106–112 µs at
+//    2^20 on an H100 against the bound's 82.6, a grid of 132 to 2048
+//    blocks within 6 µs of each other. Their functor holds its effect and
+//    its row in registers (about 64 each; 149 registers, no spill), so
+//    their instantiation is bounded for one block an SM, not three.
 // Both paths keep the element-to-thread schedule (block b, thread t takes
 // rows b·256 + t + k·gridDim.x·256) and the same arithmetic, so they give
 // the same bits.
@@ -120,12 +130,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kHeld = 16;  // log-weights a thread of the one-launch form keeps (16 KB a block)
-constexpr int kMaxCols = 16;      // the widest functor (Born, two qubits)
+constexpr int kMaxCols = 64;      // the widest functor (Born, three qubits)
+constexpr int kNarrowCols = 16;   // the widest functor of three blocks an SM on the row span
 constexpr int kMaxConsts = 4;
 constexpr float kNegBig = -3.0e38f;
 constexpr float kLogTiny = -87.0f;
 
-constexpr int kMaxSpanStride = 20;  // two stages of 256 rows: ≤ 41 KB of shared memory
+constexpr int kMaxSpanStride = 64;  // two stages of 256 rows: ≤ 129 KB of shared memory
+constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opting in
 
 // A functor reads column j of particle i as c(j, i) through one of three
 // accessors. Cols: in place, p[j][i * stride[j]].
@@ -371,8 +383,13 @@ __device__ __forceinline__ void stage_span(float* stage, const float* base, int6
 // 16-byte aligned in every trial, columns 0…n_cols−1 in order). One
 // instantiation serves every T: blockIdx.y is the trial (0 for one bank),
 // and its offsets are added once, to the pointers.
+template <class Tile>
+__host__ __device__ constexpr int span_min_blocks() {
+  return Tile::P::kMaxColsUsed > kNarrowCols ? 1 : 3;
+}
+
 template <class Tile, bool kVec>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, span_min_blocks<Tile>())
 fused_update_span(const float* __restrict__ scalars, int scalar_stride, Consts consts,
                   int n_cols, const float* __restrict__ log_w, __grid_constant__ const Span span,
                   int64_t trial_stride, float* __restrict__ out_lw,
@@ -589,13 +606,22 @@ static bool span_vec(const Launch& a) {
   return true;
 }
 
+// Two stages over 48 KB (s > 23) opt in to the larger dynamic shared
+// memory first, on the current device.
 template <class Tile, bool kVec>
-static void launch_span(const Launch& a) {
+static int launch_span(const Launch& a) {
   const dim3 grid(a.n_blocks, a.n_trials);
   const size_t smem = 2 * sizeof(float) * span_stage_floats(a.span.stride);
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(fused_update_span<Tile, kVec>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   fused_update_span<Tile, kVec><<<grid, kThreads, smem, a.stream>>>(
       a.scalars, a.scalar_stride, a.consts, a.n_cols, a.log_w, a.span, a.trial_stride,
       a.out, a.partials, a.n);
+  return 0;
 }
 
 // Blocks of fused_update_one<Tile, kBatched> resident on the current device
@@ -657,11 +683,8 @@ static int launch(const Launch& a) {
     // two-pass form only.
     if constexpr (Tile::P::kMaxColsUsed >= 2) {
       if (a.grid_blocks > 0) return static_cast<int>(cudaErrorInvalidValue);
-      if (span_vec(a)) {
-        launch_span<Tile, true>(a);
-      } else {
-        launch_span<Tile, false>(a);
-      }
+      const int err = span_vec(a) ? launch_span<Tile, true>(a) : launch_span<Tile, false>(a);
+      if (err != 0) return err;
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }

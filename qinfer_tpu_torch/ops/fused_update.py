@@ -16,9 +16,10 @@ callable as the plain PyTorch version, ``tile(scalars, *param_cols) ->
 Each also names its CUDA functor (``outcome_id``, ``functor_id``), and a
 pr1 carries the constants that the JAX package bakes into its closure
 (``consts``), so the kernel is found by value and ``scalars`` keeps the
-JAX layout. The kernel takes at most ``MAX_COLS`` parameter columns; each
-functor's own bound (8 for MultiCos) is checked by the kernel, and a
-launch it refuses raises.
+JAX layout. The kernel takes at most ``MAX_COLS`` parameter columns, and
+every built-in functor takes that many; a wider launch raises, and the SMC
+step sends such a tile to the unfused update instead (counted as
+``unfused_wide``).
 
 A model's own pr1, as the JAX package traces any ``jnp`` pr1 into its
 Pallas kernel, takes one of three routes on CUDA:
@@ -41,13 +42,17 @@ Pallas kernel, takes one of three routes on CUDA:
 
 Each wrapper counts its launches (``launches``), and of them those on a
 user library (``user_launches``), on the traced route
-(``traced_launches``) and on the column route (``column_launches``).
+(``traced_launches``), on the column route (``column_launches``) and
+those of more than 16 columns (``wide_launches``: the three-qubit Born
+tile); ``unfused_wide`` counts the updates that the SMC step gave the
+unfused route because their functor's tile is wider than ``MAX_COLS``.
 
 The kernel reads the parameter columns in place, and no column is copied
-first. When the columns are views of one row-major (N, s) bank with s ≥ 8
-(``_row_span``), it stages each block's rows in shared memory with
-coalesced copies (the row-span path); otherwise it gets each column's
-pointer and element stride (the per-column path). Both give the same bits.
+first. When the columns are views of one row-major (N, s) bank with 8 ≤ s
+≤ 20, or s ≤ 64 for a tile of more than 16 columns (``_row_span``), it
+stages each block's rows in shared memory with coalesced copies (the
+row-span path); otherwise it gets each column's pointer and element stride
+(the per-column path). Both give the same bits.
 
 ``fused_bayes_update_batched`` updates T independent banks (an ensemble of
 trials) in one launch on a (block, trial) grid, on every bank size; its
@@ -88,10 +93,17 @@ _LOG_TINY = -87.0
 _THREADS = 256  # kThreads in csrc/fused_update.cu
 _ITEMS_PER_THREAD = 4
 _MAX_BLOCKS = 1024
-MAX_COLS = 16  # kMaxCols in csrc/fused_update.cu
+MAX_COLS = 64  # kMaxCols in csrc/fused_update.cuh
+_NARROW_COLS = 16  # kNarrowCols: wider tiles count as wide launches
 MAX_TRIALS = 65535  # gridDim.y
 _MAX_CONSTS = 4  # kMaxConsts
-_MAX_SPAN_STRIDE = 20  # kMaxSpanStride
+_MAX_SPAN_STRIDE = 64  # kMaxSpanStride: the row span of a wide tile
+# Row strides above this keep the per-column path for tiles of at most 16
+# columns: on an H100 at 2^20, 4 to 16 Born columns of banks of stride 21 to
+# 64 ran 18 to 31 µs slower on the row span (e.g. 4 of 40: 123.8 against
+# 101.4 µs; 16 of 64: 127.6 against 96.8), which stages every column of
+# the row to read a few.
+_NARROW_SPAN_STRIDE = 20
 _HELD = 16  # kHeld: log-weights a thread of the one-launch form keeps
 # Row strides below this keep the per-column path. On an H100 at 2^20 the
 # tiles with s = 2…5 ran 3.5–5.6 µs slower on the row span, and from s = 8
@@ -244,7 +256,7 @@ class CudaPr1:
     """A model's own pr1 function. ``fn(scalars, off, *cols) -> Pr(1)`` is
     the pr1 in torch: the plain version, and the CPU route. ``source`` is
     its CUDA functor, ``struct UserPr1`` with the built-in functors'
-    interface (``kMinCols``, ``kMaxColsUsed`` ≤ 16, a constructor ``(const
+    interface (``kMinCols``, ``kMaxColsUsed`` ≤ 64, a constructor ``(const
     float* s, const Consts& k, int n_cols)`` and ``template <class C>
     __device__ float operator()(const C& c, int64_t i) const``; see
     ``csrc/fused_update.cuh``), and ``consts`` the functor's compile-time
@@ -393,15 +405,17 @@ def fused_update_plain_batched(tile_fn, scalars, log_w, param_cols):
 def _row_span(cols, min_stride=_MIN_SPAN_STRIDE):
     """``(s, offsets)`` when the kernel takes the row-span path for these
     f32 columns, else None. The path needs two columns or more, one element
-    stride ``s`` shared by all (``min_stride`` ≤ s ≤ 20, s ≥ the number of
-    columns), one trial stride when the columns are (T, N), and every
-    column's pointer at ``base + offsets[j]`` elements with ``0 ≤
-    offsets[j] < s``, ``base`` the lowest: views of one row-major (…, N, s)
-    bank."""
+    stride ``s`` shared by all (``min_stride`` ≤ s ≤ 20, or ≤ 64 for more
+    than 16 columns; s ≥ the number of columns), one trial stride when the
+    columns are (T, N), and every column's pointer at ``base +
+    offsets[j]`` elements with ``0 ≤ offsets[j] < s``, ``base`` the lowest:
+    views of one row-major (…, N, s) bank."""
     if len(cols) < 2:
         return None
     s = cols[0].stride(-1)
-    if (not max(len(cols), min_stride) <= s <= _MAX_SPAN_STRIDE
+    top = (_MAX_SPAN_STRIDE if len(cols) > _NARROW_COLS
+           else _NARROW_SPAN_STRIDE)
+    if (not max(len(cols), min_stride) <= s <= top
             or any(c.stride(-1) != s or c.stride()[:-1] != cols[0].stride()[:-1]
                    for c in cols)):
         return None
@@ -630,7 +644,7 @@ def _column(tile_fn, scalars, param_cols, shape, batched):
             (torch.broadcast_to(pr1, shape),), "column")
 
 
-def _count(wrapper, route):
+def _count(wrapper, route, n_cols):
     wrapper.launches += 1
     if route == "user":
         wrapper.user_launches += 1
@@ -638,10 +652,14 @@ def _count(wrapper, route):
         wrapper.traced_launches += 1
     elif route == "column":
         wrapper.column_launches += 1
+    wide = n_cols > _NARROW_COLS
+    wrapper.wide_launches += wide
     if torch.autograd._profiler_enabled():  # the counters count only then
         count(f"ops.{wrapper.__name__}.launches")
         if route != "builtin":
             count(f"ops.{wrapper.__name__}.{route}_launches")
+        if wide:
+            count(f"ops.{wrapper.__name__}.wide_launches")
 
 
 def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
@@ -664,7 +682,7 @@ def fused_bayes_update(tile_fn, scalars, log_w, param_cols,
                 tile, scal.reshape(1, -1), log_w[None],
                 tuple(c[None] for c in cols), normalize=not return_stats)
             lw, lse, lse2, ess = lw[0], lse[0], lse2[0], ess[0]
-            _count(fused_bayes_update, route)
+            _count(fused_bayes_update, route, len(cols))
         else:
             lw, lse, lse2, ess = fused_update_plain(tile_fn, scalars, log_w,
                                                     param_cols)
@@ -679,6 +697,8 @@ fused_bayes_update.launches = 0
 fused_bayes_update.user_launches = 0
 fused_bayes_update.traced_launches = 0
 fused_bayes_update.column_launches = 0
+fused_bayes_update.wide_launches = 0
+fused_bayes_update.unfused_wide = 0
 
 
 def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
@@ -702,7 +722,7 @@ def fused_bayes_update_batched(tile_fn, scalars, log_w, param_cols,
                                              log_w.shape, batched=True)
             lw, lse, lse2, ess = _fused_update_cuda(tile, scal, log_w, cols,
                                                     normalize=not return_stats)
-            _count(fused_bayes_update_batched, route)
+            _count(fused_bayes_update_batched, route, len(cols))
         else:
             lw, lse, lse2, ess = fused_update_plain_batched(tile_fn, scalars,
                                                             log_w, param_cols)
@@ -717,3 +737,5 @@ fused_bayes_update_batched.launches = 0
 fused_bayes_update_batched.user_launches = 0
 fused_bayes_update_batched.traced_launches = 0
 fused_bayes_update_batched.column_launches = 0
+fused_bayes_update_batched.wide_launches = 0
+fused_bayes_update_batched.unfused_wide = 0

@@ -58,7 +58,7 @@ import torch
 
 __all__ = ["trace_pr1", "Pr1Program", "Refusal", "evaluate"]
 
-MAX_COLS = 16      # kMaxCols of csrc/fused_update.cuh
+MAX_COLS = 16      # the tracer's own bound (kNarrowCols of csrc/fused_update.cuh)
 _OFF = 3           # the offset the trace passes: the widest outcome head
 _K = 256           # scalars of the traced layout, (k,)
 _N = 4099          # particles of the traced layout, unlike _K and _T
@@ -182,7 +182,8 @@ def _trace(fn, n_cols, batched=False):
     from torch.fx.experimental.proxy_tensor import make_fx
 
     if not 1 <= n_cols <= MAX_COLS:
-        return Refusal(f"B1 takes 1 to {MAX_COLS} columns; got {n_cols}")
+        return Refusal(f"the tracer takes 1 to {MAX_COLS} columns; got "
+                       f"{n_cols}")
     frame = (_T, _N) if batched else (_N,)
     scalars = torch.empty((_K, _T, 1) if batched else (_K,), device="meta")
     cols = [torch.empty(frame, device="meta") for _ in range(n_cols)]

@@ -53,6 +53,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from ..ops.fused_update import fused_bayes_update
 from ..ops.resample_expand import (
     _CDF_QUANT,
     _affine,
@@ -71,7 +72,7 @@ from ..smc import (
     _pmax,
     _psum,
     _recorded,
-    _takes_b1,
+    _b1_spec,
     _zero_weight_reset,
     bayes_risk_fn,
     expected_information_gain_fn,
@@ -371,9 +372,10 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
         expparams = _expparams_to(expparams, device)
         outcome_arr = _outcome_rows(
             model, torch.as_tensor(outcome, device=device))[:1]
-        if _takes_b1(model, config, log_w):
-            lw_new, lse_loc, lse2_loc = model.fused_update(
-                outcome_arr[0], log_w, locs, expparams, return_stats=True)
+        spec = _b1_spec(model, config, locs, outcome_arr, expparams)
+        if spec is not None:
+            lw_new, lse_loc, lse2_loc = fused_bayes_update(
+                spec[0], spec[1], log_w, spec[2], return_stats=True)
             log_norm = _merge_lse(lse_loc, group)
             lse2 = _merge_lse(lse2_loc, group)
             lw_norm = lw_new - log_norm

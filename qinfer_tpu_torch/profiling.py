@@ -31,10 +31,16 @@ Counterpart of ``qinfer_tpu/profiling.py``.
   that did not take ``ops.liu_west_expand_batched``),
   ``resamplers.LiuWestResampler.tested_rows`` (the rows put through a
   validity test, from their shapes, and for a one-launch round the rows
-  still invalid that the host read before it) and
+  still invalid that the host read before it),
   ``resamplers.LiuWestResampler.clamped_rows`` (the rows that
-  postselection projected with ``canonicalize``). The wrappers' and the
-  resampler's attributes of the same names count always.
+  postselection projected with ``canonicalize``),
+  ``resamplers.LiuWestResampler.clamped_resamples`` (the resamples whose
+  redraw rounds ran out with rows still invalid, so that the clamp ran),
+  ``ops.<wrapper>.wide_launches`` (kernel B1's launches of more than 16
+  columns) and ``ops.<wrapper>.unfused_wide`` (the updates of a bank on
+  CUDA that took the unfused route because their functor's tile has more
+  than ``MAX_COLS`` columns). The wrappers' and the resampler's attributes
+  of the same names count always.
 - ``recorded()``: the aggregates of the last stretch in which a profiler
   recorded, and the increase of each counter that grew over it. A
   stretch starts at the first span that sees a profiler recording after

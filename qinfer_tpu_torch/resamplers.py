@@ -107,10 +107,13 @@ class LiuWestResampler(Resampler):
     ``LiuWestResampler.kernel_rounds`` those of them that took the model's
     one-launch round (``model.redraw_round``);
     ``LiuWestResampler.unfused_batched`` the batched resamples that took
-    the eager chain and not ``liu_west_expand_batched``. While a profiler
+    the eager chain and not ``liu_west_expand_batched``;
+    ``LiuWestResampler.clamped_resamples`` the resamples whose rounds ran
+    out with rows still invalid, so that the clamp ran. While a profiler
     records, the program's counters ``resamplers.LiuWestResampler.*``
-    count these and the rows put through the validity test
-    (``tested_rows``) and clamped (``clamped_rows``), and the spans
+    count these, the rows put through the validity test (``tested_rows``)
+    and clamped (``clamped_rows``), and the resamples that clamped any
+    (``clamped_resamples``), and the spans
     ``qinfer.resamplers.valid`` and ``qinfer.resamplers.clamp`` time those
     two (``profiling``).
     """
@@ -118,6 +121,7 @@ class LiuWestResampler(Resampler):
     redraw_rounds: ClassVar[int] = 0
     kernel_rounds: ClassVar[int] = 0
     unfused_batched: ClassVar[int] = 0
+    clamped_resamples: ClassVar[int] = 0
 
     a: float = 0.98
     h: Optional[float] = None
@@ -325,6 +329,8 @@ class LiuWestResampler(Resampler):
             count("resamplers.LiuWestResampler.clamped_rows", bad.shape[0])
             if bad.numel() == 0:
                 return new_locs
+            LiuWestResampler.clamped_resamples += 1
+            count("resamplers.LiuWestResampler.clamped_resamples")
             with span("qinfer.resamplers.clamp"):
                 return new_locs.index_copy(0, bad,
                                            model.canonicalize(new_locs[bad]))

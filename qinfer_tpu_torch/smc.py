@@ -54,6 +54,11 @@ from .models.base import (
     _n_exps,
 )
 from .models.derived import DerivedModel
+from .ops.fused_update import (
+    MAX_COLS,
+    fused_bayes_update,
+    fused_bayes_update_batched,
+)
 from .profiling import count, span
 from .resamplers import LiuWestResampler
 from .utils import (
@@ -277,15 +282,35 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
         return state, log_norm
 
 
-def _takes_b1(model, config, log_w):
-    """Whether the Bayes update of the bank ``log_w`` runs kernel B1 (its
-    plain version on the CPU): the model has a B1 tile and
-    ``use_fused_update`` is True, or None with the bank on CUDA."""
+def _b1_spec(model, config, locs, outcomes, expparams):
+    """B1's ``(tile, scalars, cols)`` for the Bayes update of the bank
+    ``locs``, (N, D) or T banks (T, N, D) (trial i seeing ``outcomes[i]`` of
+    experiment i), or None where the update takes the unfused route. B1 (its
+    plain version on the CPU) runs where the model has a B1 tile and
+    ``use_fused_update`` is True, or None with the bank on CUDA. On CUDA a
+    tile with a functor over more than ``MAX_COLS`` columns (the Born rule
+    above three qubits), which the kernel refuses, takes the unfused route,
+    decided from the column count before B1 launches and counted on the
+    wrapper as ``unfused_wide``. The one-bank, batched and sharded steps
+    share this choice."""
     if not getattr(model, "fused_update_supported", False):
-        return False
-    if config.use_fused_update is None:
-        return log_w.is_cuda
-    return bool(config.use_fused_update)
+        return None
+    use = config.use_fused_update
+    if not (locs.is_cuda if use is None else use):
+        return None
+    if locs.ndim == 3:
+        spec = model.fused_spec_batched(outcomes, locs, expparams)
+    else:
+        spec = model.fused_spec(outcomes[0], locs, expparams)
+    tile, _, cols = spec
+    if (locs.is_cuda and len(cols) > MAX_COLS
+            and getattr(tile, "kernel_tile", None) is not None):
+        wrapper = (fused_bayes_update_batched if locs.ndim == 3
+                   else fused_bayes_update)
+        wrapper.unfused_wide += 1
+        count(f"ops.{wrapper.__name__}.unfused_wide")
+        return None
+    return spec
 
 
 def _per_bank(x):
@@ -298,8 +323,9 @@ def _bayes_update(model, config, state, outcomes, expparams):
     """The Bayes update of one bank, log-weights (N,), or of T banks, (T,
     N), over the last axis, through the zero-weight reset: (the normalized
     log-weights, log_norm, ess, is_zero), each of the last three () or
-    (T,). The shape picks the likelihood call alone: of one bank B1's
-    ``model.fused_update`` or ``model.log_likelihood`` of the one outcome;
+    (T,). B1 runs on ``_b1_spec``'s tile where it gives one, else the
+    likelihood; the shape picks the call alone: of one bank
+    ``fused_bayes_update`` or ``model.log_likelihood`` of the one outcome;
     of T banks B1's batched launch or the likelihood trial by trial, trial
     i seeing ``outcomes[i]`` of experiment i."""
     log_w = state.particle_log_weights
@@ -307,17 +333,10 @@ def _bayes_update(model, config, state, outcomes, expparams):
     batched = log_w.ndim == 2
     outcomes = _outcome_rows(model, torch.as_tensor(outcomes,
                                                     device=log_w.device))
-    if _takes_b1(model, config, log_w):
-        if batched:
-            from .ops.fused_update import fused_bayes_update_batched
-
-            tile, scalars, cols = model.fused_spec_batched(outcomes, locs,
-                                                           expparams)
-            log_w_norm, log_norm, ess = fused_bayes_update_batched(
-                tile, scalars, log_w, cols)
-        else:
-            log_w_norm, log_norm, ess = model.fused_update(
-                outcomes[0], log_w, locs, expparams)
+    spec = _b1_spec(model, config, locs, outcomes, expparams)
+    if spec is not None:
+        update = fused_bayes_update_batched if batched else fused_bayes_update
+        log_w_norm, log_norm, ess = update(spec[0], spec[1], log_w, spec[2])
     else:
         if batched:
             log_L = _batched_log_likelihood(model, outcomes, locs, expparams)

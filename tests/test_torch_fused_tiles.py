@@ -289,20 +289,20 @@ def test_tiles_are_found_by_value():
 
 def test_cuda_route_raises_for_missing_functor_and_wide_tiles():
     """On the CUDA route a tile with no functor, or with more than
-    MAX_COLS = 16 columns, raises before any launch (a functor's own,
-    narrower bound, 8 for MultiCos, is the kernel's to refuse); the CPU
-    route runs the plain version."""
+    MAX_COLS = 64 columns, raises before any launch (every built-in
+    functor takes that many); the CPU route runs the plain version."""
     model = qt.MultiCosModel(n_terms=tfu.MAX_COLS + 1)
     locs = torch.rand(64, model.n_modelparams)
     ep = {"ts": torch.rand(1, model.n_modelparams)}
     tile, scal, cols = model.fused_spec(1, locs, ep)
     lw = torch.full((64,), -float(np.log(64.0)))
-    with pytest.raises(ValueError, match="at most 16 parameter columns"):
+    wide_msg = f"at most {tfu.MAX_COLS} parameter columns"
+    with pytest.raises(ValueError, match=wide_msg):
         tfu._fused_update_cuda(tile, scal, lw, cols)
     assert torch.isfinite(model.fused_update(1, lw, locs, ep)[0]).all()
     wide = torch.rand(64, tfu.MAX_COLS + 1)
     born = tfu.two_outcome_tile(tfu.make_born_pr1(tfu.MAX_COLS + 1))
-    with pytest.raises(ValueError, match="at most 16 parameter columns"):
+    with pytest.raises(ValueError, match=wide_msg):
         tfu._fused_update_cuda(born, torch.rand(tfu.MAX_COLS + 2), lw,
                                tuple(wide.T))
     stray = tfu.binomial_tile(lambda scalars, off, x: x)

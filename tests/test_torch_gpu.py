@@ -7,7 +7,10 @@ a GPU machine without JAX it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import functools
+import hashlib
+import importlib.util
 import json
 import math
 import subprocess
@@ -98,22 +101,28 @@ def test_zoo_tile_kernel_matches_plain(cuda, case, n):
 
 
 def test_wide_or_unknown_tile_raises_on_cuda(cuda):
-    """More columns than a functor takes (8 for MultiCos, which the kernel
-    refuses; 16 for any tile) raises on CUDA instead of running the plain
-    version; so does a pr1 with no functor handed to the kernel itself,
-    which the wrapper traces (or, where the tracer refuses it, sends to the
-    column route), counted."""
+    """More columns than the kernel takes (MAX_COLS = 64 for any tile)
+    raises on CUDA instead of running the plain version, while MultiCos at
+    9 terms runs on its wide instantiation; so does a pr1 with no functor
+    handed to the kernel itself, which the wrapper traces (or, where the
+    tracer refuses it, sends to the column route), counted. The SMC step
+    sends a tile over MAX_COLS to the unfused update first
+    (``test_multicos_past_8_terms_takes_b1_and_past_64_the_unfused_step``)."""
     model = qt.MultiCosModel(n_terms=9)
     locs = torch.rand((256, 9), device=cuda)
     lw = torch.full((256,), -float(np.log(256.0)), device=cuda)
     ep = {"ts": torch.rand((1, 9), device=cuda)}
-    with pytest.raises(RuntimeError, match="cudaError"):
-        model.fused_update(1, lw, locs, ep)
-    born = b1.two_outcome_tile(b1.make_born_pr1(17))
-    wide = torch.rand((256, 17), device=cuda)
-    with pytest.raises(ValueError, match="at most 16"):
-        b1.fused_bayes_update(born, torch.rand(18, device=cuda), lw,
-                              tuple(wide[:, d] for d in range(17)))
+    tile, scal, cols_9 = model.fused_spec(1, locs, ep)
+    lw_k, _, _ = model.fused_update(1, lw, locs, ep)
+    lw_p, lse_p, _, _ = b1.fused_update_plain(tile, scal, lw, cols_9)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lw_k, lw_p - lse_p, atol=1e-6, rtol=0)
+    cols = b1.MAX_COLS + 1
+    born = b1.two_outcome_tile(b1.make_born_pr1(cols))
+    wide = torch.rand((256, cols), device=cuda)
+    with pytest.raises(ValueError, match=f"at most {b1.MAX_COLS}"):
+        b1.fused_bayes_update(born, torch.rand(cols + 1, device=cuda), lw,
+                              tuple(wide[:, d] for d in range(cols)))
     tile = b1.two_outcome_tile(lambda scalars, off, x: x)
     with pytest.raises(NotImplementedError, match="no CUDA functor"):
         b1._fused_update_cuda(tile, torch.ones((1, 1), device=cuda), lw[None],
@@ -143,6 +152,210 @@ def test_born_tile_kernel_matches_plain(cuda, case, n):
     torch.testing.assert_close(lw_k, lw_p - lse_p, atol=1e-4, rtol=0)
     assert abs(float(ln_k) - float(lse_p)) <= 1e-4
     assert float(ess_k) == pytest.approx(float(ess_p), rel=1e-3)
+
+
+# B1's outputs on fixed inputs (a digest of their bytes), recorded on an
+# H100 with torch 2.11 from the kernels before the 64-column Born functor
+# was added: its wider bounds must leave the other instantiations' bits
+# as they were.
+B1_DIGESTS = {
+    "born16_1000": "1452b3a2ac8e5101", "born16_1048576": "d3154a89e72db722",
+    "born16_1048579": "96c84c520dac03a9",
+    "born16_stats_1000": "5df86a41152a816d",
+    "born16_stats_1048576": "60426ea91ee6749a",
+    "born16_stats_1048579": "2c54d4e44dc8de12",
+    "born4_1000": "bf10992299207c15", "born4_1048576": "573017f19364b1f1",
+    "born4_1048579": "46a38d2d8fea6c52",
+    "precession_1000_17.3": "b9ff2e6211ae3a04",
+    "precession_1000_2.0": "5a3412804a5f67a0",
+    "precession_1048576_17.3": "648c593080b29467",
+    "precession_1048576_2.0": "70898a1d1cdbf385",
+    "precession_1048579_17.3": "f55ae433bc124f2a",
+    "precession_1048579_2.0": "be8698c3e8672faf",
+    "precession_batched_256x2048": "fd02626b17e24728",
+    "precession_batched_4x262144": "ce4272b00fe4681f",
+    "precession_stats_1000_17.3": "f6a8a5d4d1530dca",
+    "precession_stats_1000_2.0": "f60e4a6273a35389",
+    "precession_stats_1048576_17.3": "16a1c29a013f2a79",
+    "precession_stats_1048576_2.0": "27aebce013a13fe0",
+    "precession_stats_1048579_17.3": "ae00f1d1e77141d4",
+    "precession_stats_1048579_2.0": "f45d5468536eb45c",
+}
+
+
+def _digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def test_b1_outputs_bit_equal_to_the_recorded_ones(cuda):
+    """The precession tile (one bank, with and without ``return_stats``,
+    and two trial grids), born4 and born16 (the row span) give the bits
+    that they gave before the 64-column functor."""
+    out = {}
+    g = torch.Generator(device=cuda).manual_seed(7)
+    tile = b1.two_outcome_tile(b1.precession_pr1)
+    for n in (1000, N + 3, N):
+        omega = torch.rand(n, generator=g, device=cuda)
+        lw = torch.log_softmax(torch.randn(n, generator=g, device=cuda), 0)
+        for t in (2.0, 17.3):
+            scal = torch.tensor([1.0, t], device=cuda)
+            out[f"precession_{n}_{t}"] = _digest(
+                b1.fused_bayes_update(tile, scal, lw, (omega,)))
+            out[f"precession_stats_{n}_{t}"] = _digest(b1.fused_bayes_update(
+                tile, scal, lw, (omega,), return_stats=True))
+    for n in (1000, N + 3, N):
+        args = chip_smoke.tomo_inputs(chip_smoke.TOMO[2], n, 3, cuda)
+        out[f"born16_{n}"] = _digest(b1.fused_bayes_update(*args))
+        out[f"born16_stats_{n}"] = _digest(b1.fused_bayes_update(
+            *args, return_stats=True))
+        args = chip_smoke.tomo_inputs(chip_smoke.TOMO[0], n, 4, cuda)
+        out[f"born4_{n}"] = _digest(b1.fused_bayes_update(*args))
+    for n_trials, n in ((256, 2048), (4, 1 << 18)):
+        omega = torch.rand((n_trials, n), generator=g, device=cuda)
+        lw = torch.log_softmax(torch.randn((n_trials, n), generator=g,
+                                           device=cuda), 1)
+        scal = torch.stack([torch.ones(n_trials, device=cuda),
+                            torch.rand(n_trials, generator=g,
+                                       device=cuda) * 20], 1)
+        out[f"precession_batched_{n_trials}x{n}"] = _digest(
+            b1.fused_bayes_update_batched(tile, scal, lw, (omega,)))
+    assert out == B1_DIGESTS
+
+
+def _born64_inputs(device, n=N, seed=1):
+    """(tile, scalars, log_w, cols) of a binomial Born update of a
+    three-qubit Ginibre bank (n, 64), row-major, its 64 columns views."""
+    basis = tomo.pauli_basis(3)
+    model = qt.BinomialModel(tomo.TomographyModel(basis))
+    g = torch.Generator(device=device).manual_seed(seed)
+    locs = tomo.GinibreDistribution(basis).sample(g, n)
+    lw = torch.log_softmax(torch.randn(n, generator=g, device=device), 0)
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((3, 2)) + 1j * rng.standard_normal((3, 2))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    p = [np.outer(x, x.conj()) for x in v]
+    meas = torch.as_tensor(basis.state_to_modelparams(
+        np.kron(np.kron(p[0], p[1]), p[2])), dtype=torch.float32,
+        device=device)
+    ep = {"meas": meas[None], "n_meas": torch.tensor([50], device=device)}
+    tile, scal, cols = model.fused_spec(torch.tensor(9, device=device), locs,
+                                        ep)
+    return tile, scal, lw, cols
+
+
+# The kernel's log-sum-exp merges per-block partials in a fixed tree; the
+# plain version reduces with torch's sums: the two agree to a few ulps of
+# the largest log-likelihood (measured on an H100: see PERF.md §6).
+B1_LSE_ULPS = 64
+
+
+@pytest.mark.parametrize("n", [1000, N + 3, N])
+def test_born64_row_span_matches_plain(cuda, n):
+    """B1 at 64 columns on a row-major three-qubit bank: one launch of the
+    row span (two passes), its raw log-weights bit-equal to the plain
+    version's (the Born sum and the binomial log-likelihood rounded as
+    torch rounds them), lse within B1_LSE_ULPS ulps of the largest
+    log-likelihood; the per-column path gives the row span's bits; the wrapper
+    counts a wide launch."""
+    tile, scal, lw, cols = _born64_inputs(cuda, n)
+    assert len(cols) == 64 and b1._row_span(cols) == (64, list(range(64)))
+    batched = (scal[None], lw[None], tuple(c[None] for c in cols))
+    span = b1._fused_update_cuda(tile, *batched)
+    per_col = b1._fused_update_cuda(tile, *batched, row_span=False,
+                                    form=b1.TWO_PASS)
+    one = b1._fused_update_cuda(tile, *batched, row_span=False)
+    lw_p, lse_p, lse2_p, ess_p = b1.fused_update_plain(tile, scal, lw, cols)
+    wide = b1.fused_bayes_update.wide_launches
+    lw_k, ln_k, ess_k = b1.fused_bayes_update(tile, scal, lw, cols)
+    torch.cuda.synchronize()
+    assert b1.fused_bayes_update.wide_launches == wide + 1
+    for a, b, c in zip(span, per_col, one):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    assert torch.equal(span[0][0], lw_p)
+    log_l = (lw_p - lw).abs().max()
+    ulp = float(torch.finfo(torch.float32).eps) * float(log_l)
+    assert abs(float(span[1][0]) - float(lse_p)) <= B1_LSE_ULPS * ulp
+    assert abs(float(span[2][0]) - float(lse2_p)) <= 2 * B1_LSE_ULPS * ulp
+    torch.testing.assert_close(lw_k, lw_p - lse_p, atol=1e-4, rtol=0)
+    assert float(ess_k) == pytest.approx(float(ess_p), rel=1e-3)
+
+
+@pytest.mark.parametrize("n_terms", [10, b1.MAX_COLS + 1])
+def test_multicos_past_8_terms_takes_b1_and_past_64_the_unfused_step(
+        cuda, n_terms):
+    """MultiCos at 10 terms (past its 8-term instantiation) updates on
+    CUDA through B1's wide instantiation, one launch; at MAX_COLS + 1 terms
+    the step sends it to the unfused update before any launch, counted as
+    ``unfused_wide``. Both agree with the CPU route (its unfused update)
+    within B1_TOL's atol on log-weights, 1e-4 (the JAX package's kernel
+    test): the card's cos and the CPU's round apart by up to 3e-5 here."""
+    model = qt.MultiCosModel(n_terms=n_terms)
+    g = torch.Generator().manual_seed(3)
+    locs = torch.rand((4096, n_terms), generator=g)
+    ts = torch.rand((1, n_terms), generator=g) / n_terms
+    config = qt.smc.SMCConfig(resample_thresh=0.0,
+                              zero_weight_policy="reset")
+    out = {}
+    counts = (b1.fused_bayes_update.launches, b1.fused_bayes_update.unfused_wide)
+    for dev in ("cpu", cuda):
+        state = qt.smc.init_smc_state(torch.Generator(device=dev), model,
+                                      4096, qt.UniformDistribution(
+                                          [[0, 1]] * n_terms))
+        state = dataclasses.replace(
+            state, particle_locations=locs.to(dev),
+            particle_log_weights=torch.full((4096,), -math.log(4096.0),
+                                            device=dev))
+        out[str(dev)], _ = qt.smc.smc_update_step(
+            model, qt.LiuWestResampler(), config, state,
+            torch.tensor(1, device=dev), {"ts": ts.to(dev)})
+    wide = n_terms > b1.MAX_COLS
+    assert (b1.fused_bayes_update.launches,
+            b1.fused_bayes_update.unfused_wide) == (counts[0] + (not wide),
+                                                    counts[1] + wide)
+    torch.testing.assert_close(out["cuda:0"].particle_log_weights.cpu(),
+                               out["cpu"].particle_log_weights,
+                               atol=chip_smoke.B1_TOL["lw_atol"], rtol=0)
+
+
+def _reference_3q():
+    path = ROOT / "benchmark" / "reference" / "tomography_3q.py"
+    spec = importlib.util.spec_from_file_location("_ref_3q", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_three_qubit_step_resamples_to_states(cuda):
+    """One three-qubit ``smc_update_step`` on a CUDA bank that resamples:
+    B1's wide launch, B2 at D = 64, d = 8 postselection on the plain
+    chain; every particle after it a state by the f64 reference's
+    ``eigvalsh`` (with the f32 slack of the benchmark's guarantee)."""
+    ref = _reference_3q()
+    n = 1 << 16
+    basis = tomo.pauli_basis(3)
+    model = qt.BinomialModel(tomo.TomographyModel(basis, psd_tol=1e-5))
+    state = qt.smc.init_smc_state(torch.Generator(device=cuda).manual_seed(2),
+                                  model, n, tomo.GinibreDistribution(basis))
+    tile, scal, lw, cols = _born64_inputs(cuda, 8)
+    config = qt.smc.SMCConfig(resample_thresh=1.0,
+                              zero_weight_policy="reset")
+    counts = (b1.fused_bayes_update.wide_launches,
+              b2.expand_sorted_segments.launches)
+    after, _ = qt.smc.smc_update_step(
+        model, qt.LiuWestResampler(a=0.98, maxiter=16), config, state,
+        torch.tensor(30, device=cuda),
+        {"meas": scal[3:][None], "n_meas": torch.tensor([50], device=cuda)})
+    assert bool(after.just_resampled) and int(after.n_resamples) == 1
+    assert (b1.fused_bayes_update.wide_launches,
+            b2.expand_sorted_segments.launches) == (counts[0] + 1,
+                                                    counts[1] + 1)
+    assert after.particle_locations.shape == (n, 64)
+    assert bool(model.are_models_valid(after.particle_locations).all())
+    tol = math.sqrt(8.0) * 1e-4 + 1e-6
+    assert ref.invalid(after.particle_locations, 1e-5 + 1e-6, tol) == 0
 
 
 @pytest.mark.parametrize("copy", ["all", "every_other"])
@@ -252,6 +465,9 @@ def test_bank_form_tiles_bit_equal(cuda, n, n_out, kind, rows):
 
 
 def _one_and_two_passes_equal(tile, scal, lw, cols):
+    if not chip_smoke.one_launch_resident(tile, lw, cols)[0]:
+        chip_smoke.refused_one_launch(tile, scal, lw, cols)
+        return
     one, two = chip_smoke.both_forms(tile, scal, lw, cols)
     torch.cuda.synchronize()
     for a, b in zip(one, two):
@@ -264,7 +480,9 @@ def _one_and_two_passes_equal(tile, scal, lw, cols):
                          ids=lambda c: c if isinstance(c, str) else c[0])
 def test_one_launch_bit_equal_to_two_passes(cuda, case, n):
     """B1's per-column path: the one-launch form's lw − lse, lse, lse2, ESS
-    and raw lw equal the two-pass form's bit for bit."""
+    and raw lw equal the two-pass form's bit for bit. Where the forced
+    one-launch grid is not resident (the 64-column tile at 2^20 + 3), the
+    card refuses it and the wrapper plans two passes."""
     if case == "precession":
         omega, lw = chip_smoke._b1_inputs(n, n, cuda)
         tile = b1.two_outcome_tile(b1.precession_pr1)
@@ -359,7 +577,7 @@ def test_config_path_runs_through_both_kernels(cuda, make):
 
 
 @pytest.mark.parametrize("n", [257, 16385, N])
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 16, 64])
 @pytest.mark.parametrize("kind", ["random", "degenerate", "single_heavy"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_expand_kernel_equals_plain_bitwise(cuda, n, d, kind, affine):

@@ -37,6 +37,8 @@ def _views(bank, cols):
     (8, range(8), list(range(8))),     # multicos with 8 terms
     (17, range(1, 17), list(range(16))),  # columns 1…16: base is column 1
     (16, (2, 0, 3), [2, 0, 3]),        # out of order
+    (64, range(64), list(range(64))),  # three-qubit Born bank
+    (40, range(20), list(range(20))),  # a wide tile in a wider bank
 ])
 def test_views_of_one_bank_take_the_row_span(s, cols, offsets):
     bank = torch.rand((N, s))
@@ -91,12 +93,15 @@ def test_copies_take_the_per_column_path():
 
 
 @pytest.mark.parametrize("case", ["one_column", "wide_stride", "two_banks",
-                                  "trial_strides", "column_stride"])
+                                  "trial_strides", "column_stride",
+                                  "wide_tile_stride"])
 def test_other_layouts_take_the_per_column_path(case):
     if case == "one_column":  # a single column is read coalesced as it is
         cols = (torch.rand((N, 4))[:, 0],)
-    elif case == "wide_stride":  # s > 20: two stages exceed 48 KB
+    elif case == "wide_stride":  # s > 20 for ≤ 16 columns: slower on the span
         cols = _views(torch.rand((N, 21)), range(4))
+    elif case == "wide_tile_stride":  # s > 64: the diffusive three qubits
+        cols = _views(torch.rand((N, 65)), range(64))
     elif case == "two_banks":
         cols = (_views(torch.rand((N, 4)), range(2))
                 + _views(torch.rand((N, 4)), range(2)))
@@ -268,7 +273,7 @@ class _FakeLib:
                  "normalize")
         call = dict(zip(names, args[14:15] + args[16:22]))
         call.update(outcome=args[0], pr1=args[1], scalar_stride=args[3],
-                    n_cols=args[9])
+                    n_cols=args[9], span_stride=args[12])
         n_trials, n = call["n_trials"], call["n"]
         ones = torch.ones(n_trials * n)
         ctypes.memmove(call["out"], ones.data_ptr(), 4 * ones.numel())
@@ -432,6 +437,26 @@ def test_row_span_keeps_two_passes(fake_lib):
         b1._fused_update_cuda(tile, torch.zeros((1, 19)),
                               torch.zeros((1, 4096)), cols,
                               form=b1.ONE_LAUNCH)
+
+
+def test_wide_tile_takes_the_row_span_at_64_columns(fake_lib):
+    """The three-qubit Born tile: 64 columns of an (N, 64) bank on the row
+    span (two passes); over MAX_COLS the wrapper refuses before any
+    launch."""
+    tile = b1.binomial_tile(b1.make_born_pr1(64))
+    bank = torch.zeros((1, 4096, 64))
+    cols = tuple(bank[..., j] for j in range(64))
+    b1._fused_update_cuda(tile, torch.zeros((1, 67)), torch.zeros((1, 4096)),
+                          cols, normalize=True)
+    call, = fake_lib.calls
+    assert (call["n_cols"], call["span_stride"], call["grid_blocks"],
+            call["pr1"]) == (64, 64, 0, 8)
+    wide = torch.zeros((1, 4096, 65))
+    with pytest.raises(ValueError, match="at most 64 parameter columns"):
+        b1._fused_update_cuda(b1.binomial_tile(b1.make_born_pr1(65)),
+                              torch.zeros((1, 68)), torch.zeros((1, 4096)),
+                              tuple(wide[..., j] for j in range(65)))
+    assert len(fake_lib.calls) == 1
 
 
 def test_each_tile_launches_from_its_library(fake_lib, monkeypatch):

@@ -76,7 +76,7 @@ def test_no_profiler_records_nothing_and_counters_count():
     assert int(state.n_resamples) > 0
     wrapper = b1.fused_bayes_update
     launches, user = wrapper.launches, wrapper.user_launches
-    b1._count(wrapper, "user")
+    b1._count(wrapper, "user", 1)
     assert (wrapper.launches, wrapper.user_launches) == (launches + 1,
                                                          user + 1)
     assert profiling.counters() == before
@@ -84,11 +84,31 @@ def test_no_profiler_records_nothing_and_counters_count():
     # While a profiler records, the same launch is on the counters too.
     with profile(activities=[ProfilerActivity.CPU]):
         with profiling.span("user.block"):
-            b1._count(wrapper, "user")
+            b1._count(wrapper, "user", 1)
     counted = profiling.recorded()["counters"]
     assert counted == {"ops.fused_bayes_update.launches": 1,
                        "ops.fused_bayes_update.user_launches": 1}
     assert wrapper.user_launches == user + 2
+
+
+def test_wide_launches_count_over_16_columns():
+    """B1's launches of more than 16 columns (the three-qubit Born tile)
+    count as wide, on the wrapper's attribute always and on the program's
+    counter while a profiler records."""
+    from qinfer_tpu_torch.ops import fused_update as b1
+
+    wrapper = b1.fused_bayes_update
+    wide = wrapper.wide_launches
+    b1._count(wrapper, "builtin", 16)
+    assert wrapper.wide_launches == wide
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("user.block"):
+            b1._count(wrapper, "builtin", 64)
+            b1._count(wrapper, "builtin", 4)
+    assert profiling.recorded()["counters"] == {
+        "ops.fused_bayes_update.launches": 2,
+        "ops.fused_bayes_update.wide_launches": 1}
+    assert wrapper.wide_launches == wide + 1
 
 
 def test_counters_that_did_not_grow_are_left_out():

@@ -39,6 +39,7 @@ BASES = {
     "gm2": lambda m: m.gell_mann_basis(2),
     "gm3": lambda m: m.gell_mann_basis(3),
     "pauli2": lambda m: m.pauli_basis(2),
+    "pauli3": lambda m: m.pauli_basis(3),
     "pauli1x2": lambda m: m.tensor_product_basis(m.pauli_basis(1),
                                                  m.pauli_basis(1)),
 }
@@ -147,6 +148,8 @@ def _prior_pairs():
          tt.GinibreDistribution(pt, rank=1)),
         ("ginibre_2q", jt.GinibreDistribution(jt.pauli_basis(2)),
          tt.GinibreDistribution(tt.pauli_basis(2))),
+        ("ginibre_3q", jt.GinibreDistribution(jt.pauli_basis(3)),
+         tt.GinibreDistribution(tt.pauli_basis(3))),
         ("redit", jt.GinibreReditDistribution(jt.gell_mann_basis(2)),
          tt.GinibreReditDistribution(tt.gell_mann_basis(2))),
         ("bcsz", jt.BCSZChoiDistribution(2), tt.BCSZChoiDistribution(2)),
@@ -199,6 +202,8 @@ def _model_pairs():
          tt.TomographyModel(tt.pauli_basis(1))),
         ("pauli2", jt.TomographyModel(jt.pauli_basis(2)),
          tt.TomographyModel(tt.pauli_basis(2))),
+        ("pauli3", jt.TomographyModel(jt.pauli_basis(3)),
+         tt.TomographyModel(tt.pauli_basis(3))),
         ("gm3_subnormalized",
          jt.TomographyModel(jt.gell_mann_basis(3), allow_subnormalized=True),
          tt.TomographyModel(tt.gell_mann_basis(3),
@@ -309,8 +314,39 @@ def test_charpoly_psd_test_matches_jax_and_eigvalsh(name):
         np.asarray(mj.are_models_valid(jnp.asarray(cases)))[decisive])
 
 
+def test_three_qubit_psd_test_matches_eigvalsh_and_jax_where_it_is_right():
+    """At d = 8 the port's LDLᴴ test decides every decisive row as
+    eigvalsh does. The JAX package's characteristic-polynomial test of the
+    16 × 16 embedding in f32 accepts some rows whose lowest eigenvalue
+    lies 1e-3 to 3e-2 below −psd_tol (8 of the 93 decisive rows here, all
+    of them scaled far outside); wherever it agrees with eigvalsh the port
+    agrees with it, and where it does not, the port rejects a row that the
+    JAX package accepts, never the other way round."""
+    bj, bt = _pair("pauli3")
+    cases = _validity_cases(bj, 7)
+    M = np.array(bj.real_embedding(jnp.asarray(cases)))
+    evals = np.linalg.eigvalsh(M)
+    tol = 1e-5
+    ref = (evals >= -tol).all(axis=-1)
+    decisive = np.abs(evals.min(axis=-1) + tol) > 1e-4
+    assert decisive.sum() > len(cases) * 0.7
+    got = t_ldl(*bt.real_imag_from_coords(torch.from_numpy(cases)),
+                tol).numpy()
+    np.testing.assert_array_equal(got[decisive], ref[decisive])
+    mj, mt = jt.TomographyModel(bj), tt.TomographyModel(bt)
+    port = mt.are_models_valid(torch.from_numpy(cases)).numpy()
+    jax_ = np.asarray(mj.are_models_valid(jnp.asarray(cases)))
+    charpoly = np.asarray(j_charpoly(jnp.asarray(M), tol))
+    right = decisive & (charpoly == ref)
+    np.testing.assert_array_equal(port[right], jax_[right])
+    wrong = decisive & (charpoly != ref)
+    assert wrong.sum() < 0.1 * decisive.sum()
+    assert not port[wrong].any() and charpoly[wrong].all()
+    assert np.all(evals.min(axis=-1)[wrong] < -1e-3)
+
+
 @pytest.mark.parametrize("subnormalized", [False, True])
-@pytest.mark.parametrize("name", ["pauli1", "pauli2", "gm3"])
+@pytest.mark.parametrize("name", ["pauli1", "pauli2", "gm3", "pauli3"])
 def test_psd_valid_on_the_host_is_are_models_valid(name, subnormalized):
     """``ops.psd_valid`` on a CPU bank is the model's own test, bit for bit
     (for qubits the LDLᴴ test against the closed form), and so is the
@@ -331,7 +367,7 @@ def test_psd_valid_on_the_host_is_are_models_valid(name, subnormalized):
     assert torch.equal(diffusive.are_models_valid(bank), want)
 
 
-@pytest.mark.parametrize("name", ["pauli1", "pauli2", "gm3"])
+@pytest.mark.parametrize("name", ["pauli1", "pauli2", "gm3", "pauli3"])
 def test_canonicalize_matches_jax(name):
     """The closed-form qubit path and the eigh path for d > 2 (an
     eigendecomposition of the embedding, whose doubled eigenvalues make the
