@@ -29,14 +29,15 @@ Phases, in order; any failure exits non-zero before the result line:
    and, up to D = 8, in the merge path, the rows form and, where N is
    within its cap, the bank form forced (``b2_forced``); one over the cap
    a forced bank form must raise ValueError. The validity kernel of d = 3,
-   4 tomography (``phase_compare_psd``) at 2^20 rows of ``PSD_BASES``
-   (``psd_valid_cases``), unit stride and the diffusive view, with and
+   4, 8 tomography (``phase_compare_psd``) on ``PSD_BASES`` at
+   ``psd_rows`` rows (``psd_valid_cases``; 2^20, 2^19 at d = 8, the
+   three-qubit cell's bank), unit stride and the diffusive view, with and
    without subnormalised states: every row whose smallest eigenvalue is
    more than ``PSD_MARGIN`` from −psd_tol decided as the plain version and
    f64 eigvalsh decide it, one launch a call. The redraw round's kernel
-   (``phase_compare_redraw``) at 2^20 rows, d = 4 and 3, one root and four
-   banks' own: a round over the mask, then one over the list it wrote,
-   against the resampler's masked chain with the same noise
+   (``phase_compare_redraw``) at d = 4, 3 and 8 (``psd_rows`` rows), one
+   root and four banks' own: a round over the mask, then one over the
+   list it wrote, against the resampler's masked chain with the same noise
    (``redraw_round_agreement``: rows valid before untouched, decisive rows
    decided alike, the count and list left the mask's, the rows both wrote
    within ``REDRAW_MAX_ULPS``), and a round with no invalid row.
@@ -72,8 +73,9 @@ Phases, in order; any failure exits non-zero before the result line:
    of the validity kernel. One JSON line. Then tomography_3q_binomial
    (``phase_tomography_3q``): three-qubit tomography at 2^19, one
    ``batch_update`` over 40 product projectors × 50 shots at a GHZ mixture
-   (B1's Born tile at 64 columns on the row span, B2 at D = 64, validity on
-   the plain d = 8 chain); gate: B1 once an update, each over 16 columns,
+   (B1's Born tile at 64 columns on the row span, B2 at D = 64, d = 8
+   validity on the kernels: one test a resample and one launch a redraw
+   round); gate: B1 once an update, each over 16 columns,
    B2 at least once a resample, and every final particle a state. One JSON
    line.
 8. config1_quickstart_pgh and config4_known_t2_pgh (``PGH_PATHS``): the
@@ -210,11 +212,12 @@ Phases, in order; any failure exits non-zero before the result line:
    (two-outcome beside the built-in two-column multicos in the same turns,
    binomial; the traced route, the user functor, the column route and B1
    on ``GivenPr1`` alone in the same turns) and its trial grid at 256 ×
-   2048. The validity kernel at 2^20 rows, d = 4 and 3, beside its plain
-   version and ``torch.linalg.eigvalsh`` of the complex ρ
-   (``phase_timing_psd``); the redraw round at 2^20 rows with half the
-   bank, 2^14, 2^10 and 20 rows left, over the list and over the mask,
-   beside the masked chain and the bank's draw (``phase_timing_redraw``).
+   2048. The validity kernel at 2^20 rows, d = 4 and 3, and at 2^19, d =
+   8, beside its plain version and ``torch.linalg.eigvalsh`` of the
+   complex ρ (``phase_timing_psd``); the redraw round at those rows with
+   half the bank, 2^14, 2^10 and 20 rows left, over the list and over the
+   mask, beside the masked chain and the bank's draw
+   (``phase_timing_redraw``).
 
 The compare phase also holds the batched kernels: batched B1 within
 ``B1_TOL`` of its plain version, bit-equal per trial to single-bank
@@ -833,16 +836,22 @@ def tomography_2q_gate(window):
     return physical and overlap > GATE_2Q, overlap
 
 
-# -- the validity kernel of d = 3, 4 tomography --------------------------------
+# -- the validity kernel of d = 3, 4, 8 tomography ----------------------------
 
 GM3 = tomo.gell_mann_basis(3)
-PSD_BASES = (("pauli2", PAULI2), ("gm3", GM3))
+PSD_BASES = (("pauli2", PAULI2), ("gm3", GM3), ("pauli3", PAULI3))
 PSD_TOL = 1e-5  # TomographyModel.psd_tol
 PSD_MARGIN = 1e-6  # a row within this of −psd_tol may decide either way
 # The most a redraw round's written row may lie from the masked chain's, in
 # f32 spacings of the row's largest coordinate (the smear's 16-term sum in
 # another order than cuBLAS's).
 REDRAW_MAX_ULPS = 4
+
+
+def psd_rows(basis):
+    """The rows of a bank at this d on the card's paths: 2^20, and 2^19 at
+    d = 8 (the three-qubit cell's bank)."""
+    return N_3Q if basis.dim == 8 else N_FLAGSHIP
 
 
 def _ginibre(basis, n, rng, rank=None):
@@ -1065,14 +1074,15 @@ def masked_chain_postselect(model, draw, maxiter,
 
 
 def phase_compare_redraw(device):
-    """The round kernel against the masked chain at 2^20 rows, d = 4 and 3,
-    one root and one a bank of 2^18 rows, and a round with no invalid
-    row; one JSON line. Returns the most rows that were decided apart (all
-    borderline)."""
+    """The round kernel against the masked chain at ``psd_rows`` rows, d =
+    4, 3 and 8, one root and one a quarter of the bank, and a round with
+    no invalid row; one JSON line. Returns the most rows that were decided
+    apart (all borderline)."""
     out = {}
     for name, basis in PSD_BASES:
         for banks in (1, 4):
-            case = redraw_round_case(basis, N_FLAGSHIP, banks, 19, device)
+            case = redraw_round_case(basis, psd_rows(basis), banks, 19,
+                                     device)
             out[f"{name}/banks={banks}"] = redraw_round_agreement(basis, case)
         locs, ok, centers, roots, noise = case
         ok[:] = True
@@ -1088,13 +1098,13 @@ def phase_compare_redraw(device):
 
 
 def phase_compare_psd(device):
-    """The validity kernel at 2^20 rows, d = 4 (Pauli) and d = 3
-    (Gell-Mann), rows and the diffusive view, with and without
-    subnormalised states; one JSON line. Returns the most rows that differ
-    from the plain version (all of them borderline)."""
+    """The validity kernel at ``psd_rows`` rows, d = 4 (Pauli), d = 3
+    (Gell-Mann) and d = 8 (Pauli), rows and the diffusive view, with and
+    without subnormalised states; one JSON line. Returns the most rows
+    that differ from the plain version (all of them borderline)."""
     out = {}
     for name, basis in PSD_BASES:
-        cases = psd_valid_cases(basis, N_FLAGSHIP, 17)
+        cases = psd_valid_cases(basis, psd_rows(basis), 17)
         lam = min_eigenvalues(basis, cases)
         for view in (False, True):
             for sub in (False, True):
@@ -1837,6 +1847,16 @@ def _check_launches(name, counts, n_updates, n_resamples, bank=False):
                              f"{n_resamples} resamples")
 
 
+def _check_validity_launches(name, counts, n_resamples, rounds):
+    """Every validity test of a tomography path one launch: the validity
+    kernel's a resample, the round kernel's a redraw round."""
+    if (counts["psd_valid"], counts["psd_redraw"]) != (n_resamples, rounds):
+        raise AssertionError(f"{name}: the validity and round kernels "
+                             f"launched {counts['psd_valid']} and "
+                             f"{counts['psd_redraw']} times for "
+                             f"{n_resamples} resamples and {rounds} rounds")
+
+
 def _sum_counts(total, counts):
     """``total`` plus ``counts``, key by key (the by-form dicts too)."""
     return {k: _sum_counts(total.get(k, {}), v) if isinstance(v, dict)
@@ -1887,8 +1907,8 @@ def tomography_3q_window(n, seed, device):
     """One batch_update of a three-qubit record (N_SETTINGS_3Q product
     projectors × N_SHOTS_3Q shots at 0.9|GHZ⟩⟨GHZ| + 0.1·I/8, counts drawn
     from ``seed``) on a fresh bank of n: the tomography_3q_batch cell's
-    model, prior and resampler. Returns the window's time, the updater and
-    whether every particle of the final bank is a state."""
+    model, prior and resampler. Returns the window's time and the
+    updater."""
     ghz = np.zeros((8, 1), complex)
     ghz[0, 0] = ghz[7, 0] = 1 / np.sqrt(2)
     true_x = coords(PAULI3, 0.9 * (ghz @ ghz.conj().T) + 0.1 * np.eye(8) / 8)
@@ -1904,16 +1924,16 @@ def tomography_3q_window(n, seed, device):
     t0 = time.perf_counter()
     u.batch_update(counts, {"meas": meas, "n_meas": np.full(
         N_SETTINGS_3Q, N_SHOTS_3Q, np.int32)})
-    states = bool(model.are_models_valid(u.particle_locations).all())
-    return {"updater": u, "seconds": time.perf_counter() - t0,
-            "states": states}
+    _sync(device)
+    return {"updater": u, "seconds": time.perf_counter() - t0}
 
 
 def phase_tomography_3q(device):
     """Three-qubit binomial tomography at N_3Q: a warm-up window, then one
     with the counters read: B1 once an update, each on more than 16
-    columns, B2 at least once a resample, and every final particle a
-    state."""
+    columns, B2 at least once a resample, the validity kernel once a
+    resample, the round kernel once a redraw round, and every final
+    particle a state."""
     name = "tomography_3q_binomial"
     tomography_3q_window(N_3Q, 11, device)
     _reset_counters()
@@ -1922,11 +1942,14 @@ def phase_tomography_3q(device):
     counts, rounds = _read_counters()
     n_resamples = w["updater"].resample_count
     _check_launches(name, counts, N_SETTINGS_3Q, n_resamples)
+    _check_validity_launches(name, counts, n_resamples, rounds)
     wide = b1.fused_bayes_update.wide_launches - wide
-    if wide != N_SETTINGS_3Q or not w["states"]:
+    u = w["updater"]
+    states = bool(u.model.are_models_valid(u.particle_locations).all())
+    if wide != N_SETTINGS_3Q or not states:
         raise AssertionError(f"{name}: {wide} B1 launches over 16 columns "
                              f"for {N_SETTINGS_3Q} updates; final bank all "
-                             f"states: {w['states']}")
+                             f"states: {states}")
     print(json.dumps({
         "config": name, "n_particles": N_3Q, "n_updates": N_SETTINGS_3Q,
         "particle_updates_per_s": N_3Q * N_SETTINGS_3Q / w["seconds"],
@@ -1952,15 +1975,7 @@ def phase_tomography_2q(device):
         overlaps.append(overlap)
     n_resamples = [w["updater"].resample_count for w in windows]
     _check_launches(name, counts, 3 * N_SETTINGS_2Q, sum(n_resamples))
-    # Every validity test is one launch: the validity kernel's a resample,
-    # the round kernel's a redraw round.
-    if (counts["psd_valid"], counts["psd_redraw"]) != (sum(n_resamples),
-                                                       rounds):
-        raise AssertionError(f"{name}: the validity and round kernels "
-                             f"launched {counts['psd_valid']} and "
-                             f"{counts['psd_redraw']} times for "
-                             f"{sum(n_resamples)} resamples and {rounds} "
-                             f"rounds")
+    _check_validity_launches(name, counts, sum(n_resamples), rounds)
     secs = [w["seconds"] for w in windows]
     print(json.dumps({
         "config": name, "n_particles": N_2Q, "n_updates": N_SETTINGS_2Q,
@@ -3582,11 +3597,22 @@ def phase_timing(device):
     return times
 
 
-def psd_work(dim, n):
+def rho_ops(basis):
+    """Operations a row for ρ's lower triangle in ``basis``: a product and
+    a sum for each nonzero coefficient of it (the real part on and below
+    the diagonal, the imaginary part below it). 2·d⁴ for a dense basis
+    such as Gell-Mann's; a product-Pauli basis is monomial, one nonzero a
+    row of each element, so about d³."""
+    re, im = basis.re_im("cpu")
+    return 2 * int((re.tril() != 0).sum() + (im.tril(-1) != 0).sum())
+
+
+def psd_work(basis, n):
     """(bytes, operations) of the validity test over n rows: d² f32
-    coordinates read once and a byte written a row; 2·d⁴ products and sums
-    for ρ's lower triangle and about d³ for the factorization."""
-    return (4 * dim * dim + 1) * n, (2 * dim ** 4 + dim ** 3) * n
+    coordinates read once and a byte written a row; ``rho_ops`` for ρ's
+    lower triangle and about d³ for the factorization."""
+    dim = basis.dim
+    return (4 * dim * dim + 1) * n, (rho_ops(basis) + dim ** 3) * n
 
 
 def _eigvalsh_chunks(rho):
@@ -3596,41 +3622,46 @@ def _eigvalsh_chunks(rho):
 
 
 def phase_timing_psd(device):
-    """The validity kernel at 2^20 rows, d = 4 and 3: kernel, plain (the
-    chain that the model ran before it) and, as the library's yardstick,
-    ``torch.linalg.eigvalsh`` of the complex ρ (which the port never
-    calls)."""
+    """The validity kernel at ``psd_rows`` rows, d = 4, 3 and 8: kernel,
+    plain (the chain that the model ran before it) and, as the library's
+    yardstick, ``torch.linalg.eigvalsh`` of the complex ρ (which the port
+    never calls)."""
     times = {}
     for _, basis in PSD_BASES:
-        x = torch.as_tensor(psd_valid_cases(basis, N_FLAGSHIP, 23),
-                            device=device)
+        n = psd_rows(basis)
+        x = torch.as_tensor(psd_valid_cases(basis, n, 23), device=device)
         rho = torch.complex(*basis.real_imag_from_coords(x))
         t = _alternate(lambda: pv.psd_valid_plain(x, basis, PSD_TOL),
                        lambda: pv.psd_valid(x, basis, PSD_TOL),
                        _eigvalsh_chunks(rho), iters=10)
-        t["work"] = psd_work(basis.dim, N_FLAGSHIP)
+        t["work"], t["rows"] = psd_work(basis, n), n
         times[f"psd_valid[d={basis.dim}]"] = t
     for name, t in times.items():
-        print(f"{name} at 2^20: kernel {t['ms']:.4f} ms, plain "
+        bound_ms, bound_by = bound(t["work"])
+        print(f"{name} at {t['rows']} rows: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {bound(t['work'])[0]:.4f} ms")
+              f"bound {bound_ms:.4f} ms ({bound_by}; bytes "
+              f"{1e3 * t['work'][0] / HBM_BYTES_PER_S:.4f} ms)")
     return times
 
 
-def redraw_work(dim, k, stayed):
+def redraw_work(basis, k, stayed):
     """(bytes, operations) of a redraw round over a list of k rows, of which
     ``stayed`` stay invalid: for each, its index, noise and center read;
     the row and its byte of ok written for each that became a state, the
     index listed for each that stayed (root's d⁴ floats come from the
-    cache); d⁴ products and sums for the smear, then the test's."""
-    el = dim * dim
+    cache); d⁴ products and sums for the smear (S is dense), then the
+    test's (``psd_work``)."""
+    el = basis.n_elements
     return (k * (8 * el + 4) + (k - stayed) * (4 * el + 1) + stayed * 4,
-            k * (2 * el * el + 2 * dim ** 4 + dim ** 3))
+            k * (2 * el * el + psd_work(basis, 1)[1]))
 
 
 def phase_timing_redraw(device, left=(None, 1 << 14, 1 << 10, 20)):
-    """A redraw round at 2^20 rows, d = 4 and 3, with ``left`` rows still
-    invalid (None: the half of the first round): the round kernel over the
+    """A redraw round at ``psd_rows`` rows, d = 4, 3 and 8, with ``left``
+    rows still invalid (None: those of the first round, about half the
+    bank at d = 3, 4; at d = 8, where the first smear leaves ≈ 90 %
+    invalid, half the bank): the round kernel over the
     list of them (the form of every round after the first), over the mask
     (the first round's form), and the masked chain it replaces (the
     smear's GEMM and add, the validity kernel, the merge). The two forms
@@ -3640,14 +3671,16 @@ def phase_timing_redraw(device, left=(None, 1 << 14, 1 << 10, 20)):
     beside them."""
     times = {}
     for _, basis in PSD_BASES:
+        n = psd_rows(basis)
         locs, ok0, centers, roots, noise = redraw_round_case(
-            basis, N_FLAGSHIP, 1, 29, device)
+            basis, n, 1, 29, device)
         root = roots[0]
         bad = torch.nonzero(~ok0).squeeze(1).to(torch.int32)
         bad = bad[torch.randperm(len(bad), device=device)]  # a random k
         draw = _time_ms(lambda: torch.randn(locs.shape, device=device), 20)
         for k in left:
-            k = len(bad) if k is None else k
+            if k is None:
+                k = len(bad) if basis.dim < 8 else n // 2
             ok = torch.ones_like(ok0)
             ok[bad[:k]] = False
             # In row order, nearly as a round's list comes (a warp's rows
@@ -3681,11 +3714,12 @@ def phase_timing_redraw(device, left=(None, 1 << 14, 1 << 10, 20)):
             if stayed != int(over_mask()[0]):
                 raise AssertionError("psd_redraw: the list and the mask "
                                      "left different counts")
-            t["stayed"] = stayed
-            t["work"] = redraw_work(basis.dim, k, stayed)
+            t["stayed"], t["rows"] = stayed, n
+            t["work"] = redraw_work(basis, k, stayed)
             times[f"psd_redraw[d={basis.dim}, left={k}]"] = t
     for name, t in times.items():
-        print(f"{name} at 2^20 ({t['stayed']} stay invalid): kernel over "
+        print(f"{name} at {t['rows']} rows ({t['stayed']} stay invalid): "
+              f"kernel over "
               f"the list {t['list_ms'][0]:.4f} / {t['list_ms'][1]:.4f} ms, "
               f"over the mask {t['mask_ms'][0]:.4f} / {t['mask_ms'][1]:.4f} "
               f"ms (list first / mask first), masked chain "
@@ -4194,22 +4228,27 @@ def main():
         kernel_row("expand_sorted_segments[breakdown]", src2, b2_kernel,
                    twin_launches["breakdown"]["B2"], err["B2"], times["B2"]),
     ]
+    # The tomography path that launched each d's kernels.
+    psd_path = {"d=4": "tomography_2q_binomial",
+                "d=8": "tomography_3q_binomial"}
+
+    def psd_launches(name, kernel):
+        path = psd_path.get(name.split("[")[1][:3])
+        return config_launches[path][kernel] if path else 0
+
     # No TPU kernel: the JAX package's charpoly test is plain jnp. Its
     # error is the rows (all borderline) that differ from the plain version.
     kernels += [
         kernel_row(name, "qinfer_tpu_torch/csrc/psd_valid.cu",
                    "none (qinfer_tpu/tomography/models.py:_psd_via_charpoly)",
-                   config_launches["tomography_2q_binomial"]["psd_valid"]
-                   if name == "psd_valid[d=4]" else 0, psd_differ, t)
+                   psd_launches(name, "psd_valid"), psd_differ, t)
         for name, t in psd_times.items()]
     # A redraw round in one launch; its error is the rows decided apart
     # from the masked chain (all borderline).
     kernels += [
         kernel_row(name, "qinfer_tpu_torch/csrc/psd_valid.cu",
                    "none (the resampler's masked chain)",
-                   config_launches["tomography_2q_binomial"]["psd_redraw"]
-                   if name.startswith("psd_redraw[d=4") else 0,
-                   redraw_differ, t)
+                   psd_launches(name, "psd_redraw"), redraw_differ, t)
         for name, t in redraw_times.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

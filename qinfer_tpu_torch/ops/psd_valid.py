@@ -7,12 +7,12 @@ tests it in plain PyTorch: ρ's real and imaginary parts by two matrix
 products, then an LDLᴴ factorization of ρ + psd_tol·I (``_psd_via_ldl``).
 On a CUDA tensor ``psd_valid`` makes the same test in one launch of the
 hand-written kernel in ``csrc/psd_valid.cu`` (its header says what bounds
-it and how it is laid out), for d = 3 and 4 (``psd_valid_route``); on a CPU
-tensor it runs the plain version. The kernel takes the same decisions on
-every row but those within rounding of the threshold. Its launches are
-counted on ``psd_valid.launches`` and, while a profiler records, its rows
-on the program's counter ``ops.psd_valid.rows``. A failed build or launch
-raises: nothing falls back.
+it and how it is laid out), for d = 3, 4 and 8 (``psd_valid_route``; d = 8
+is three qubits); on a CPU tensor it runs the plain version. The kernel
+takes the same decisions on every row but those within rounding of the
+threshold. Its launches are counted on ``psd_valid.launches`` and, while a
+profiler records, its rows on the program's counter ``ops.psd_valid.rows``.
+A failed build or launch raises: nothing falls back.
 
 ``psd_redraw`` is a redraw round of Liu–West postselection on a CUDA bank
 in one launch of the same file's second kernel: on the rows still invalid
@@ -38,7 +38,7 @@ from ..profiling import count
 __all__ = ["psd_valid", "psd_valid_plain", "psd_valid_route", "psd_redraw",
            "trace_ok"]
 
-KERNEL_DIMS = (3, 4)  # the d that csrc/psd_valid.cu is built for
+KERNEL_DIMS = (3, 4, 8)  # the d that csrc/psd_valid.cu is built for
 
 
 def _psd_via_ldl(re, im, tol):
@@ -98,15 +98,16 @@ def psd_valid_plain(coords, basis, psd_tol, allow_subnormalized=False):
 
 def psd_valid_route(device_type, dim):
     """Whether a tomography model of dimension ``dim`` tests a bank on
-    ``device_type`` with the kernel: on CUDA for d = 3 and 4. Qubits keep
-    their closed form; d ≥ 5 and CPU banks keep the plain version."""
+    ``device_type`` with the kernel: on CUDA for d = 3, 4 and 8. Qubits
+    keep their closed form; d = 5–7, d > 8 and CPU banks keep the plain
+    version."""
     return device_type == "cuda" and dim in KERNEL_DIMS
 
 
 @functools.lru_cache(maxsize=None)
 def _host_basis(basis):
     """The basis' real then imaginary parts, (2, d², d, d) f32 on the host:
-    the kernel's parameter."""
+    the kernels' basis, which the launch lays out as the kernel reads it."""
     return torch.stack(basis.re_im("cpu")).contiguous()
 
 
@@ -115,8 +116,8 @@ def _psd_valid_cuda(coords, basis, psd_tol, allow_subnormalized):
     at any stride). Raises ValueError on what it does not take."""
     dim = basis.dim
     if dim not in KERNEL_DIMS:
-        raise ValueError(f"the validity kernel takes d = 3 or 4; got d = "
-                         f"{dim}")
+        raise ValueError(f"the validity kernel takes d = 3, 4 or 8; got "
+                         f"d = {dim}")
     if (coords.dtype != torch.float32 or coords.ndim != 2
             or coords.shape[1] != basis.n_elements or coords.stride(1) != 1):
         raise ValueError(f"the validity kernel takes f32 (N, {dim * dim}) "
@@ -144,8 +145,8 @@ def _psd_valid_cuda(coords, basis, psd_tol, allow_subnormalized):
 
 def psd_valid(coords, basis, psd_tol, allow_subnormalized=False):
     """Which rows of ``coords`` (N, d²) in ``basis`` are states (module
-    docstring). A CUDA tensor takes the kernel (d = 3, 4; else ValueError),
-    a CPU tensor the plain version. Returns (N,) bool."""
+    docstring). A CUDA tensor takes the kernel (d = 3, 4, 8; else
+    ValueError), a CPU tensor the plain version. Returns (N,) bool."""
     if not coords.is_cuda:
         return psd_valid_plain(coords, basis, psd_tol, allow_subnormalized)
     coords = coords.to(torch.float32)
@@ -167,7 +168,7 @@ def psd_redraw(locs, ok, centers, root, noise, n_tested, rows, basis,
     marks invalid, ``n_tested`` of them (known on the host; they count on
     ``ops.psd_valid.rows``). ``root`` is (d², d²) for the bank, or (T, d²,
     d²) for T banks of M/T rows each. CUDA tensors only, on one device (d =
-    3, 4, f32, ``locs`` and ``ok`` contiguous; else ValueError). Returns
+    3, 4, 8, f32, ``locs`` and ``ok`` contiguous; else ValueError). Returns
     (the rows still invalid: a 0-d int32 on the device, for the round's one
     host read; an int32 tensor whose first that many entries list them, in
     no order, for the next round's ``rows``)."""
@@ -185,6 +186,9 @@ def _psd_redraw_cuda(locs, ok, centers, root, noise, n_tested, rows, basis,
     m = locs.shape[0]
     banks = 1 if root.ndim == 2 else root.shape[0]
     centers, root, noise = (t.contiguous() for t in (centers, root, noise))
+    if dim == 8:  # the d = 8 round reads S and ε as float4
+        root, noise = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (root, noise))
     tensors = (locs, ok, centers, root, noise) + (
         () if rows is None else (rows,))
     if (dim not in KERNEL_DIMS
@@ -199,7 +203,7 @@ def _psd_redraw_cuda(locs, ok, centers, root, noise, n_tested, rows, basis,
                                       or rows.shape != (n_tested,)
                                       or not rows.is_contiguous()))):
         raise ValueError(
-            f"the redraw kernel takes d = 3 or 4 and contiguous f32 CUDA "
+            f"the redraw kernel takes d = 3, 4 or 8 and contiguous f32 CUDA "
             f"rows (M, {n_el}) with a root ({n_el}, {n_el}) or (T, {n_el}, "
             f"{n_el}), a bool mask (M,) and an int32 list of the "
             f"{n_tested} rows or None; got d = {dim}, "

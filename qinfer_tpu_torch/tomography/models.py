@@ -6,7 +6,7 @@ The fused update runs B1's Born tile over the coordinate columns. The
 positivity test has two paths: a closed form for qubits, as in the JAX
 package, and for d > 2 an LDLᴴ factorization of ρ + psd_tol·I (no
 eigendecomposition; ``ops.psd_valid``, one kernel launch on a CUDA bank at
-d = 3 and 4). The JAX package tests the characteristic polynomial
+d = 3, 4 and 8). The JAX package tests the characteristic polynomial
 of the real embedding there, which in f32 accepts near-low-rank states
 with eigenvalues down to about −1e-2.
 ``canonicalize`` projects onto the physical cone: a closed-form rescale
@@ -102,7 +102,7 @@ class TomographyModel(FiniteOutcomeModel):
     def redraw_round(self, device):
         """``ops.psd_redraw`` with this model's basis and thresholds where
         ``are_models_valid`` takes the kernel (``psd_valid_route``: a CUDA
-        bank at d = 3 or 4), else None; None too for a subclass whose test
+        bank at d = 3, 4 or 8), else None; None too for a subclass whose test
         is another (the diffusive model's ε column)."""
         if (type(self).are_models_valid is not TomographyModel.are_models_valid
                 or not psd_valid_route(device.type, self.dim)):

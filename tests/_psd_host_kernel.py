@@ -35,7 +35,9 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 static inline void __syncthreads() {}
+struct alignas(16) float4 { float x, y, z, w; };
 static inline float __ldg(const float* p) { return *p; }
+static inline float4 __ldg(const float4* p) { return *p; }
 static inline float __fadd_rn(float a, float b) { return a + b; }
 static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
@@ -46,6 +48,7 @@ static inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t
 }
 #define __grid_constant__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define QT_AT(b, t) (blockIdx.x = (b), threadIdx.x = (t))
 """

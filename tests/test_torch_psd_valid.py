@@ -1,6 +1,6 @@
-"""The validity kernel of d = 3, 4 tomography on the host (CPU).
+"""The validity kernel of d = 3, 4, 8 tomography on the host (CPU).
 
-- the route: the kernel only for CUDA banks at d = 3 and 4;
+- the route: the kernel only for CUDA banks at d = 3, 4 and 8;
 - the module imports, and a CPU bank is tested, on a host without nvcc;
 - the kernel's source, built by the host's g++ (``-ffp-contract=off``, a
   stub header for the CUDA names, each block's threads run twice so that
@@ -8,7 +8,8 @@
   wrapper with host pointers: equal to the plain version on every row
   whose smallest eigenvalue (f64) is more than 1e-6 from −psd_tol, at
   unit row stride and at the diffusive model's stride d² + 1, with and
-  without subnormalised states;
+  without subnormalised states; on degenerate rows and on the decisive
+  rows nearest the threshold;
 - the wrapper's checks, its launch count and its rows counter;
 - the redraw round's kernel (``psd_redraw``), built the same way: a round
   over the mask, then one over the list it wrote, against the resampler's
@@ -48,14 +49,18 @@ from chip_smoke import (  # noqa: E402
     redraw_round_case,
 )
 
+# d = 4 and 3, and d = 8 in the product-Pauli basis (monomial: one nonzero
+# a row of each element) and in a dense one.
 BASES = {"pauli2": lambda: tt.pauli_basis(2),
-         "gm3": lambda: tt.gell_mann_basis(3)}
+         "gm3": lambda: tt.gell_mann_basis(3),
+         "pauli3": lambda: tt.pauli_basis(3),
+         "gm8": lambda: tt.gell_mann_basis(8)}
 
 
 @pytest.mark.parametrize("device_type,dim,kernel", [
     ("cuda", 3, True), ("cuda", 4, True), ("cuda", 2, False),
-    ("cuda", 5, False), ("cuda", 8, False), ("cpu", 3, False),
-    ("cpu", 4, False), ("cpu", 2, False)])
+    ("cuda", 5, False), ("cuda", 8, True), ("cuda", 6, False),
+    ("cpu", 3, False), ("cpu", 4, False), ("cpu", 2, False)])
 def test_psd_valid_route(device_type, dim, kernel):
     assert pv.psd_valid_route(device_type, dim) is kernel
 
@@ -119,22 +124,38 @@ def test_kernel_source_matches_plain(on_host, name, strided, subnormalized):
     assert 0.1 < want.float().mean() < 0.9  # both sides of the threshold
 
 
-def test_kernel_source_on_degenerate_rows(on_host):
+@pytest.mark.parametrize("name", ["pauli2", "pauli3", "gm8"])
+def test_kernel_source_on_degenerate_rows(on_host, name):
     """Zeros, NaN, a pure state, the maximally mixed state, a trace just
     out of range and a row far outside, over two blocks, the second
-    ragged."""
-    basis = tt.pauli_basis(2)
-    x = np.zeros((300, 16), np.float32)
-    x[:, 0] = 0.5
+    ragged; then the 32 decisive rows of ``psd_valid_cases`` nearest the
+    threshold on each side (smallest eigenvalue more than PSD_MARGIN from
+    −psd_tol), decided as the plain version and eigvalsh decide them."""
+    basis = BASES[name]()
+    d = basis.dim
+    x = np.zeros((300, d * d), np.float32)
+    x[:, 0] = 1 / np.sqrt(d)
     x[1] = 0.0
     x[2, 3] = np.nan
-    x[3] = basis.state_to_modelparams(np.diag([1, 0, 0, 0])[None])[0].numpy()
-    x[4, 0] = 0.5 + 2e-4
+    x[3] = basis.state_to_modelparams(
+        np.diag(np.eye(d)[0])[None])[0].numpy()
+    x[4, 0] = 1 / np.sqrt(d) + 2e-4
     x[299, 5] = 0.6
+    cases = psd_valid_cases(basis, 1 << 14, 11)
+    lam = min_eigenvalues(basis, cases)
+    gap = lam + TOL
+    below = np.flatnonzero(gap < -MARGIN)
+    above = np.flatnonzero(gap > MARGIN)
+    near = np.concatenate([below[np.argsort(-gap[below])[:32]],
+                           above[np.argsort(gap[above])[:32]]])
+    x = np.concatenate([x, cases[near]])
     got = pv._psd_valid_cuda(torch.from_numpy(x), basis, TOL, False)
     want = pv.psd_valid_plain(torch.from_numpy(x), basis, TOL, False)
     assert torch.equal(got, want)
     assert got[[0, 3, 5]].all() and not got[[1, 2, 4, 299]].any()
+    exact = (lam[near] >= -TOL) & pv.trace_ok(
+        torch.from_numpy(cases[near, 0]), d, False).numpy()
+    np.testing.assert_array_equal(got[300:].numpy(), exact)
 
 
 def test_wrapper_counts_its_rows_while_a_profiler_records(on_host):
@@ -203,8 +224,10 @@ def test_redraw_kernel_source_matches_the_masked_chain(on_host, name, banks,
     res = redraw_round_agreement(basis, case, subnormalized,
                                  redraw=pv._psd_redraw_cuda)
     assert pv.psd_redraw.launches == launches + 2
+    # At d = 8 the one root's first smear leaves ≈ 90 % of the rows
+    # invalid (a resample of the three-qubit cell tests ≈ 14 banks' rows).
     assert 0.2 * res["rows"] < res["mask"]["invalid_before"] < (
-        0.8 * res["rows"])
+        (0.8 if basis.dim < 8 else 0.95) * res["rows"])
     for form in ("mask", "list"):
         r = res[form]
         assert r["decisive"] > 0.95 * r["invalid_before"]
@@ -222,6 +245,27 @@ def test_redraw_round_with_no_invalid_row_changes_nothing(on_host):
                                   None, basis, TOL, False)
     assert int(left) == 0 and left.dtype == torch.int32
     assert torch.equal(got, locs) and bool(got_ok.all())
+
+
+def test_redraw_wrapper_aligns_the_d8_rows_it_reads_as_float4(on_host):
+    """The d = 8 round reads S and ε four floats at a time: noise and a
+    root at an offset of one float reach the kernel as aligned copies, and
+    the round writes what it writes from aligned ones."""
+    basis = tt.pauli_basis(3)
+    locs, ok, centers, roots, noise = redraw_round_case(basis, 300, 1, 12)
+    n_bad = int((~ok).sum())
+    want, want_ok = locs.clone(), ok.clone()
+    pv._psd_redraw_cuda(want, want_ok, centers, roots[0], noise, n_bad,
+                        None, basis, TOL, False)
+    shifted_noise = torch.cat([torch.zeros(1), noise.flatten()])[1:]
+    shifted_root = torch.cat([torch.zeros(1), roots[0].flatten()])[1:]
+    assert shifted_noise.data_ptr() % 16 and shifted_root.data_ptr() % 16
+    got, got_ok = locs.clone(), ok.clone()
+    pv._psd_redraw_cuda(got, got_ok, centers, shifted_root.view(64, 64),
+                        shifted_noise.view(300, 64), n_bad, None, basis, TOL,
+                        False)
+    assert torch.equal(got, want) and torch.equal(got_ok, want_ok)
+    assert bool(got_ok.any()) and not bool(got_ok.all())
 
 
 @pytest.mark.parametrize("case", ["qubit", "d5", "f64", "ragged_banks",

@@ -282,15 +282,18 @@ def _route_models():
         "d4": tomo.TomographyModel(pauli2),
         "d3": tomo.TomographyModel(tomo.gell_mann_basis(3)),
         "binomial_d4": qt.BinomialModel(tomo.TomographyModel(pauli2)),
+        "d8": tomo.TomographyModel(tomo.pauli_basis(3)),
+        "binomial_d8": qt.BinomialModel(
+            tomo.TomographyModel(tomo.pauli_basis(3))),
     }
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("name", list(_route_models()))
 def test_redraw_round_route(name, device):
-    """Which banks take the one-launch round: rows of a d = 3 or 4
+    """Which banks take the one-launch round: rows of a d = 3, 4 or 8
     tomography bank on CUDA (through a derived model's delegation too);
-    not precession, qubits (closed form), d ≥ 5, a model whose test is
+    not precession, qubits (closed form), d = 5, a model whose test is
     another (the diffusive ε column, a walk's σ columns), nor a CPU bank.
     Deciding launches and builds nothing."""
     from qinfer_tpu_torch import _build
@@ -299,7 +302,8 @@ def test_redraw_round_route(name, device):
     builds = _build.library.cache_info().currsize
     launches = pv.psd_valid.launches, pv.psd_redraw.launches
     redraw = _route_models()[name].redraw_round(torch.device(device))
-    takes = device == "cuda" and name in ("d4", "d3", "binomial_d4")
+    takes = device == "cuda" and name in ("d4", "d3", "binomial_d4", "d8",
+                                          "binomial_d8")
     assert (redraw is not None) is takes
     if takes:
         assert redraw.func is pv.psd_redraw

@@ -6,9 +6,10 @@ and counts:
 - one binomial update's weights and log evidence, on B1's plain version
   (64 columns) and on the unfused path: f32 rounding, 1e-5 of the largest
   weight and 1e-5 in the log evidence;
-- ``are_models_valid`` (the plain LDLᴴ chain at d = 8) against complex
-  ``eigvalsh``: equal wherever the lowest eigenvalue lies more than 4e-6
-  (≈ 7 times the factorization's f32 rounding at d = 8) from −psd_tol;
+- ``are_models_valid`` (a CPU bank's plain LDLᴴ chain at d = 8) against
+  complex ``eigvalsh``: equal wherever the lowest eigenvalue lies more than
+  4e-6 (≈ 7 times the factorization's f32 rounding at d = 8) from
+  −psd_tol;
 - ``canonicalize`` (the 16 × 16 ``eigh`` clamp) against the reference's
   projection: 2e-6 (f32 rounding of an eigendecomposition);
 - one Liu–West resample with the stratum offset and the smear's draws
